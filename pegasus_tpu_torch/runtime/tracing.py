@@ -1,0 +1,69 @@
+"""Stage-span timer for the engine's device lane.
+
+One process-wide tracer, COMPACT_TRACER, times the stages under the same
+names the JAX package's tracer uses, so per-stage breakdowns of the two
+packages compare line for line:
+
+  pack, h2d, device, gather   the compaction pipeline (ops/compact.py)
+  sst_write                   the SST write-out (engine/sstable.py)
+  read.lookup, read.range     device-served point and range reads
+                              (ops/device_lookup.py)
+
+A span measures host wall time. Where a stage ends in a device
+synchronisation (the `device` span ends after torch.cuda.synchronize),
+that wall time covers the device work it launched.
+
+A TraceSession aggregates every span closed while it is active:
+stage -> {s, calls, records, bytes}.
+"""
+
+import time
+from contextlib import contextmanager
+
+
+class TraceSession:
+    def __init__(self):
+        self.stages = {}
+
+    def _add(self, stage: str, dur_s: float, records: int, nbytes: int):
+        agg = self.stages.setdefault(
+            stage, {"s": 0.0, "calls": 0, "records": 0, "bytes": 0})
+        agg["s"] += dur_s
+        agg["calls"] += 1
+        agg["records"] += records
+        agg["bytes"] += nbytes
+
+    def summary(self) -> dict:
+        return {k: dict(v) for k, v in self.stages.items()}
+
+
+class StageTracer:
+    def __init__(self):
+        self._sessions = []
+
+    @contextmanager
+    def span(self, stage: str, records: int = 0, nbytes: int = 0):
+        """Time one stage. Yields a mutable {records, bytes} box so counts
+        discovered mid-span can be added before the span closes."""
+        box = {"records": records, "bytes": nbytes}
+        t0 = time.perf_counter()
+        try:
+            yield box
+        finally:
+            dur_s = time.perf_counter() - t0
+            for sess in self._sessions:
+                sess._add(stage, dur_s, box["records"], box["bytes"])
+
+    @contextmanager
+    def session(self):
+        """Aggregate the spans closed while the context is active
+        (sessions nest; each gets its own aggregate)."""
+        sess = TraceSession()
+        self._sessions.append(sess)
+        try:
+            yield sess
+        finally:
+            self._sessions.remove(sess)
+
+
+COMPACT_TRACER = StageTracer()
