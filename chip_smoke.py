@@ -7,21 +7,28 @@ Needs one CUDA device and the CUDA toolkit (nvcc); without a device it
 exits non-zero before printing any result. Phases, one JSON line each:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
-  2. build    compiles pegasus_tpu_torch/csrc/*.cu (ops/_build.py);
+  2. build    compiles pegasus_tpu_torch/csrc/merge_path.cu
+              (ops/_build.py);
   3. kernel   the merge-path kernel against the plain PyTorch merge on the
               card, byte-equal over every column, at the shapes of
               tests/test_pallas_merge.py up to the compaction's own: a
-              (4194304, 4194304) and a (8388608, 8388608) merge with nk=8,
-              both timed;
+              (4194304, 4194304) and a (8388608, 8388608) merge with nk=8
+              on synthetic keys, both timed;
+     device_stage  the compaction's device stage alone on the bench runs
+              (below), under torch.profiler: wall time, device busy time,
+              device time by kernel; the three merges' own operands are
+              kept, held kernel against plain merge, and timed;
   4. compact  bench.py's fill regenerated here (10M records in 4 sorted
               runs, 26-byte keys, 113-byte values, 10% expired TTLs, 5%
               tombstones, a 5M hashkey space), installed into a
               LsmEngine(backend="cuda"), primed onto the device, and
-              manual_compact(now=100): the merge kernel must have launched,
-              and the output's digest must equal the port's cpu backend's;
-     device_stage  the compaction's device stage alone on the same runs,
-              under torch.profiler: wall time, device busy time, and
-              device time by kernel;
+              manual_compact(now=100) under a device-only torch.profiler
+              trace (device busy time and idle share of the whole call):
+              the merge kernel must have launched, and the output's digest
+              must equal the port's cpu backend's;
+     compact_values  the same with EngineOptions(device_values=True):
+              value rows resident too, the output's values gathered on the
+              device, the same digest;
   5. reads    200k write_batch puts + flush, get_batch of 100k keys (half
               hits, half misses) and 1000 scan_range_batch ranges, each
               equal to the host walk (get / scan).
@@ -224,14 +231,17 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def merge_bound(la: int, lb: int, n_cols: int, nk: int) -> tuple:
+def merge_bound(la: int, lb: int, n_cols: int, nk: int,
+                col_bytes: int = 4) -> tuple:
     """(bound_ms, bound_by) for one merge: every input column read once
-    and every output column written once (int64), against the operations
-    of a sequential merge (<= nk int64 compares per output, each two
-    32-bit operations) and the binary search of each 8-output diagonal."""
+    and every output column written once, at col_bytes per value (4: the
+    function's own u32 keys and int32 index; 8: the port's int64
+    columns), against the operations of a sequential merge (<= nk 32-bit
+    compares per output, two for an int64 column) and the binary search
+    of each 8-output diagonal."""
     total = la + lb
-    nbytes = 2 * n_cols * 8 * total
-    ops = 2 * nk * total * (1 + max(1, total.bit_length()) / 8)
+    nbytes = 2 * n_cols * col_bytes * total
+    ops = (col_bytes // 4) * nk * total * (1 + max(1, total.bit_length()) / 8)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -297,83 +307,134 @@ def _time_merge(ta, tb, nk) -> dict:
     plain_ms = _time_ms(lambda: merge_two_sorted_plain(ta, tb, nk), 5)
     bound_ms, bound_by = merge_bound(la, lb, nk + 1, nk)
     return {"la": la, "lb": lb, "nk": nk, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_int64": merge_bound(la, lb, nk + 1, nk, 8)[0]}
 
 
-def profile_device_stage(runs, device) -> dict:
-    """The compaction's device stage alone on the bench-scale runs, primed
-    once: one warm-up pass, then one pass under torch.profiler. -> its
-    wall ms, the device busy ms within it, and device time by kernel."""
+def _device_events(prof) -> list:
+    """(name, device ms, calls) of a profile's device-side events
+    (kernels, copies, sets), longest first. The operator-level events
+    above them report the same device time again, so they are left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from pegasus_tpu_torch.ops.compact import CudaBackend, pack_run_device
-
-    drs = [pack_run_device(b, device=device) for b in runs]
-    backend = CudaBackend(device)
-    fargs = (NOW, 0, 0, True, True)
-    backend.survivors_cached_device(drs, *fargs)  # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, count = backend.survivors_cached_device(drs, *fargs)
-        wall_ms = (time.perf_counter() - t0) * 1e3
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    # device-side events only (kernels, copies, sets): the operator-level
-    # events above them report the same device time again
-    kernels = sorted(((e.key, dev_us(e) / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and dev_us(e) > 0),
-                     key=lambda t: -t[1])
+    return sorted(((e.key, dev_us(e) / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and dev_us(e) > 0),
+                  key=lambda t: -t[1])
+
+
+def profile_device_stage(runs, device) -> dict:
+    """The compaction's device stage alone on the bench-scale runs, primed
+    once: one warm-up pass, then one pass under torch.profiler. -> its
+    wall ms, the device busy ms within it, device time by kernel, and the
+    stage's own merges (kernel against plain merge on the operands the
+    compaction gave them, both timed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.ops import compact
+    from pegasus_tpu_torch.ops.compact import CudaBackend, pack_run_device
+
+    drs = [pack_run_device(b, device=device) for b in runs]
+    backend = CudaBackend(device)
+    fargs = (NOW, 0, 0, True, True)
+    operands = []
+    kernel_merge = compact.merge_two_sorted
+
+    def keep_operands(a, b, nk):
+        operands.append((a, b, nk))
+        return kernel_merge(a, b, nk)
+
+    compact.merge_two_sorted = keep_operands
+    try:
+        backend.survivors_cached_device(drs, *fargs)  # warm-up
+    finally:
+        compact.merge_two_sorted = kernel_merge
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, count = backend.survivors_cached_device(drs, *fargs)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_events(prof)
     busy_ms = sum(k[1] for k in kernels)
     del drs
+    merges = [_time_merge(a, b, nk) for a, b, nk in operands]
+    del operands
     torch.cuda.empty_cache()
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms), "survivors": count,
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": c}
-                            for k, ms, c in kernels[:12]]}
+                            for k, ms, c in kernels[:12]],
+            "merges": merges}
 
 
 # ---------------------------------------------------- engine main path
 
-def run_compaction(path: str, runs, device) -> dict:
-    """Install `runs` (newest first) as L0 of a port engine on `device`,
-    prime them, manual_compact(now=NOW), and hold the output against the
-    port's cpu backend over the same runs. -> the engine and a report."""
-    from pegasus_tpu_torch.engine.db import EngineOptions, LsmEngine
+def cpu_digest(runs) -> tuple:
+    """-> (digest, seconds) of the port's cpu-backend compaction of `runs`:
+    what every device compaction of them is held to."""
     from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+
+    t0 = time.perf_counter()
+    ref = compact_blocks(runs, CompactOptions(backend="cpu", now=NOW,
+                                              bottommost=True,
+                                              runs_sorted=True)).block
+    return block_digest([ref]), time.perf_counter() - t0
+
+
+def run_compaction(path: str, runs, device, want: dict,
+                   device_values: bool = False) -> tuple:
+    """Install `runs` (newest first) as L0 of a port engine on `device`,
+    prime them, manual_compact(now=NOW) under a device-only profiler
+    trace, and hold the output's digest to `want`. -> the engine and a
+    report (the whole call's device busy time and idle share included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.engine.db import EngineOptions, LsmEngine
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
 
     eng = LsmEngine(path, EngineOptions(backend="cuda", device=device,
-                                        l0_compaction_trigger=1 << 30))
+                                        l0_compaction_trigger=1 << 30,
+                                        device_values=device_values))
     for blk in reversed(runs):  # the last installed is the newest
         eng.install_ingested_block(blk)
     t0 = time.perf_counter()
     primed = eng.prime_resident_runs()
     prime_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    stats = eng.manual_compact(now=NOW)
-    compact_s = time.perf_counter() - t0
-    launches = LAUNCHES["merge_path"]
+    on_card = eng.device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if on_card else [])
+    if on_card:
+        torch.cuda.synchronize()
+    launches_before = LAUNCHES["merge_path"]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        stats = eng.manual_compact(now=NOW)
+        if on_card:
+            torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+    launches = LAUNCHES["merge_path"] - launches_before
+    events = _device_events(prof)
+    busy_s = sum(e[1] for e in events) / 1e3
+    merge_ms = sum(e[1] for e in events if "merge_path_kernel" in e[0])
     got = block_digest(level_blocks(path, eng.opts.max_levels))
-    t0 = time.perf_counter()
-    ref = compact_blocks(runs, CompactOptions(backend="cpu", now=NOW,
-                                              bottommost=True,
-                                              runs_sorted=True)).block
-    cpu_s = time.perf_counter() - t0
-    want = block_digest([ref])
     if got != want:
         raise AssertionError(f"device compaction digest {got} != cpu "
                              f"backend digest {want}")
     return eng, {"records_in": stats["input_records"],
                  "records_out": stats["output_records"],
                  "primed_runs": primed, "prime_s": prime_s,
-                 "compact_s": compact_s, "cpu_backend_s": cpu_s,
+                 "compact_s": compact_s, "device_busy_s": busy_s,
+                 "idle_share": max(0.0, 1 - busy_s / compact_s),
+                 "merge_kernel_ms": merge_ms,
+                 "top_device_events": [{"name": k[:90], "ms": ms, "calls": c}
+                                       for k, ms, c in events[:6]],
                  "stages": stats["trace"], "merge_launches": launches,
                  "digest": got}
 
@@ -481,10 +542,9 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    report = _build.build("merge_path")
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [ln for ln in v.splitlines() if "ptxas" in ln][-4:]
-                for k, v in reports.items()})
+         ptxas=[ln for ln in report.splitlines() if "ptxas" in ln][-4:])
 
     kern = check_kernel(device)
     emit("kernel", **kern)
@@ -494,14 +554,18 @@ def main() -> int:
     emit("fill", seconds=time.perf_counter() - t0,
          records=sum(r.n for r in runs), runs=len(runs))
 
-    emit("device_stage", **profile_device_stage(runs, device))
+    stage = profile_device_stage(runs, device)
+    emit("device_stage", **stage)
+    want, cpu_s = cpu_digest(runs)
+    emit("cpu_backend", seconds=cpu_s, digest=want)
 
     work = os.path.join(ROOT, ".scratch", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
         LAUNCHES["merge_path"] = 0
-        eng, comp = run_compaction(os.path.join(work, "db"), runs, device)
+        eng, comp = run_compaction(os.path.join(work, "db"), runs, device,
+                                   want)
         launches = LAUNCHES["merge_path"]
         if launches == 0:
             raise AssertionError("manual_compact launched no merge kernel")
@@ -510,10 +574,26 @@ def main() -> int:
                           n_ranges=1000)
         emit("reads", **reads)
         eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        eng, comp_v = run_compaction(os.path.join(work, "db_values"), runs,
+                                     device, want, device_values=True)
+        gather = comp_v["stages"]["gather"]
+        if comp_v["merge_launches"] == 0 or gather["bytes"] == 0:
+            raise AssertionError("device_values compaction did not gather "
+                                 "its values on the device")
+        emit("compact_values", **comp_v)
+        eng.close()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    large = kern["large"]
+    # the kernel line: per launch, averaged over the compaction's own
+    # merges (its operands, not synthetic keys)
+    merges = stage["merges"]
+
+    def per_launch(key):
+        return sum(m[key] for m in merges) / len(merges)
+
     print(json.dumps({"kernels": [{
         "name": "merge_path",
         "route": "cuda",
@@ -521,11 +601,13 @@ def main() -> int:
         "replaces": "pegasus_tpu/ops/pallas_merge.py:324",
         "launches": launches,
         "max_abs_err": kern["max_abs_err"],
-        "ms": large["ms"],
-        "plain_ms": large["plain_ms"],
-        "bound_ms": large["bound_ms"],
-        "bound_by": large["bound_by"],
+        "ms": per_launch("ms"),
+        "plain_ms": per_launch("plain_ms"),
+        "bound_ms": per_launch("bound_ms"),
+        "bound_by": merges[0]["bound_by"],
         "library_ms": None,
+        "bound_ms_int64": per_launch("bound_ms_int64"),
+        "synthetic_ms": kern["large"]["ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,11 @@ META_LAST_MANUAL_COMPACT_FINISH_TIME = "pegasus_last_manual_compact_finish_time"
 
 _UNRESOLVED = object()  # get_batch: "not answered yet"
 
+# batched reads probe an SST's resident run once it has this many
+# candidate keys; below it the host binary search serves (a lone key
+# never pays a device round trip)
+DEVICE_READ_MIN_BATCH = 2
+
 
 @dataclass
 class EngineOptions:
@@ -76,11 +81,6 @@ class EngineOptions:
     level_base_bytes: int = 256 << 20        # L1 budget; Ln = base * ratio^(n-1)
     level_size_ratio: int = 10
     device_cache_bytes: int = 8 << 30  # device-memory budget for resident runs
-    # device-served reads: batched get/scan probes of resident runs;
-    # below device_read_min_batch candidates per SST the host binary
-    # search serves (a lone key never pays a device round trip)
-    device_reads: bool = True
-    device_read_min_batch: int = 2
     # value residency: pin uniform-layout value rows on the device with
     # the key columns so compaction outputs gather their values there
     device_values: bool = False
@@ -260,9 +260,6 @@ class LsmEngine:
             return None
         return block.value(i)
 
-    def _device_reads_on(self) -> bool:
-        return self.opts.backend == "cuda" and self.opts.device_reads
-
     def get_batch(self, keys, now=None) -> list:
         """Batched point lookup, semantically identical to
         [get(k) for k in keys] against one consistent snapshot. `now` is a
@@ -296,7 +293,7 @@ class LsmEngine:
         pending = [i for i in range(n) if out[i] is _UNRESOLVED]
         if pending:
             res = self._walk_sources(keys, nows, h32s, pending, sources,
-                                     levels, self._device_reads_on())
+                                     levels, self.opts.backend == "cuda")
             for i, v in res.items():
                 out[i] = v
         return [None if v is _UNRESOLVED else v for v in out]
@@ -334,7 +331,7 @@ class LsmEngine:
         if not cand:
             return
         dr = sst.device_index if use_device else None
-        if dr is not None and len(cand) >= self.opts.device_read_min_batch:
+        if dr is not None and len(cand) >= DEVICE_READ_MIN_BATCH:
             from ..ops.device_lookup import lookup_batch
 
             rows = lookup_batch(dr, [keys[i] for i in cand])
@@ -469,7 +466,7 @@ class LsmEngine:
         nows = list(now) if isinstance(now, (list, tuple)) else [now] * n
         h32s = list(hash32s) if hash32s is not None else [None] * n
         snap = self._scan_snapshot()
-        if reverse or not self._device_reads_on():
+        if reverse or self.opts.backend != "cuda":
             return [self._scan_over(snap, s, t, nows[i], False, reverse,
                                     h32s[i])
                     for i, (s, t) in enumerate(ranges)]
@@ -504,7 +501,7 @@ class LsmEngine:
             if not cand:
                 continue
             dr = sst.device_index
-            if dr is not None and len(cand) >= self.opts.device_read_min_batch:
+            if dr is not None and len(cand) >= DEVICE_READ_MIN_BATCH:
                 from ..ops.device_lookup import range_batch
 
                 iv = range_batch(dr, [ranges[qi] for qi in cand])

@@ -1,10 +1,9 @@
-"""Build the port's CUDA sources (pegasus_tpu_torch/csrc/*.cu) at first use.
+"""Build the port's CUDA sources (pegasus_tpu_torch/csrc/<name>.cu) at first use.
 
-Each source compiles with nvcc, for sm_90a, into a shared library with a
+A source compiles with nvcc, for sm_90a, into a shared library with a
 plain C interface under <repo>/.torch_ext/, loaded with ctypes. A library
 is named by the hash of its source, so an edited source rebuilds and an
-unchanged one loads as built. build_all starts one nvcc per source, all
-at once.
+unchanged one loads as built.
 
 A plain C interface (pointers and the stream passed as integers) keeps
 PyTorch's headers out of the compile: nvcc then takes seconds per source
@@ -50,46 +49,28 @@ def _command(name: str, out: str) -> list:
             os.path.join(CSRC, name + ".cu")]
 
 
-def sources() -> list:
-    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
-
-
-def build_all() -> dict:
-    """Compile every csrc/*.cu not built yet, one nvcc per source, all
-    started together. -> {name: nvcc's ptxas report (registers, shared
-    memory, spills)}; '' for a library that was already built. Raises
-    with the compiler output when any build fails."""
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless it is built already. -> nvcc's ptxas
+    report (registers, shared memory, spills); '' for a library that was
+    already built. Raises with the compiler output when the build fails."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    reports = {}
-    for name in sources():
-        out = _lib_path(name)
-        if os.path.exists(out):
-            reports[name] = ""
-            continue
-        tmp = out + f".{os.getpid()}.tmp"
-        procs[name] = (subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return reports
+    tmp = out + f".{os.getpid()}.tmp"
+    proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not os.path.exists(path):
-            build_all()
-        lib = _LOADED[name] = ctypes.CDLL(path)
+        build(name)
+        lib = _LOADED[name] = ctypes.CDLL(_lib_path(name))
     return lib

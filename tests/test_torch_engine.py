@@ -16,10 +16,19 @@ from pegasus_tpu.base.value_schema import SCHEMAS
 from pegasus_tpu.engine.db import EngineOptions as RefOptions
 from pegasus_tpu.engine.db import LsmEngine as RefEngine
 from pegasus_tpu.engine.db import WriteBatch as RefBatch
+from pegasus_tpu_torch.engine import db as port_db
 from pegasus_tpu_torch.engine.db import EngineOptions, LsmEngine, WriteBatch
 from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
 
 NOW = 1000
+
+
+@pytest.fixture(autouse=True)
+def _device_reads_for_every_batch(monkeypatch):
+    """Small tables give an SST few candidates per batch: probe the
+    resident run from one candidate up, as the reference engines below
+    do with device_read_min_batch=1."""
+    monkeypatch.setattr(port_db, "DEVICE_READ_MIN_BATCH", 1)
 
 
 def _drive(eng, batch_cls, seed=3):
@@ -84,7 +93,7 @@ def _ref_engine(path):
 def _port_engine(path):
     return LsmEngine(path, EngineOptions(
         backend="cuda", device="cpu", memtable_bytes=4 << 10,
-        l0_compaction_trigger=3, device_read_min_batch=1))
+        l0_compaction_trigger=3))
 
 
 @pytest.fixture
@@ -155,8 +164,7 @@ def test_value_residency_engine_matches_reference(tmp_path):
     ref = _ref_engine(str(tmp_path / "ref"))
     port = LsmEngine(str(tmp_path / "port"), EngineOptions(
         backend="cuda", device="cpu", memtable_bytes=4 << 10,
-        l0_compaction_trigger=3, device_read_min_batch=1,
-        device_values=True))
+        l0_compaction_trigger=3, device_values=True))
     try:
         for eng, batch_cls in ((ref, RefBatch), (port, WriteBatch)):
             wb = batch_cls()

@@ -35,7 +35,9 @@ def test_kernel_cases_are_sorted_merges():
 def test_engine_phases_at_tiny_size(tmp_path):
     runs = chip_smoke.fill(8000)
     assert len(runs) == 4 and all(r.n > 0 for r in runs)
-    eng, rep = chip_smoke.run_compaction(str(tmp_path / "db"), runs, "cpu")
+    want, _ = chip_smoke.cpu_digest(runs)
+    eng, rep = chip_smoke.run_compaction(str(tmp_path / "db"), runs, "cpu",
+                                         want)
     try:
         assert rep["records_in"] == sum(r.n for r in runs)
         assert rep["records_out"] == rep["digest"]["records"] > 0
@@ -45,5 +47,20 @@ def test_engine_phases_at_tiny_size(tmp_path):
                                      n_ranges=40)
         assert reads["gets"] == 800 and reads["get_hits"] > 0
         assert reads["range_rows"] > 0
+    finally:
+        eng.close()
+
+
+def test_value_residency_phase_at_tiny_size(tmp_path):
+    runs = chip_smoke.fill(8000)
+    want, _ = chip_smoke.cpu_digest(runs)
+    eng, rep = chip_smoke.run_compaction(str(tmp_path / "db"), runs, "cpu",
+                                         want, device_values=True)
+    try:
+        assert rep["digest"] == want and want["records"] > 0
+        # the output's values were gathered from the resident value rows
+        assert rep["stages"]["gather"]["bytes"] > 0
+        ssts = eng._all_ssts_locked()
+        assert ssts and all(s._device_run.val2d is not None for s in ssts)
     finally:
         eng.close()
