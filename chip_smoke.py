@@ -8,16 +8,20 @@ exits non-zero before printing any result. Phases, one JSON line each:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    compiles pegasus_tpu_torch/csrc/merge_path.cu
-              (ops/_build.py);
-  3. kernel   the merge-path kernel against the plain PyTorch merge on the
-              card, byte-equal over every column, at the shapes of
-              tests/test_pallas_merge.py up to the compaction's own: a
-              (4194304, 4194304) and a (8388608, 8388608) merge with nk=8
-              on synthetic keys, both timed;
+              (ops/_build.py); ptxas's registers, shared memory and
+              spills per kernel (a spill fails the run);
+  3. kernel   the merge-path kernels against the plain PyTorch versions on
+              the card: every merge byte-equal over every column, the
+              partition pass equal to merge_path_splits_plain
+              and to the splits of the plain merge's output, at the
+              shapes of tests/test_pallas_merge.py, the tiled kernel's
+              edge cases, and the compaction's own: a (4194304, 4194304)
+              merge with nk=8 on random keys and on the bench keys'
+              shared leading lanes, and a (8388608, 8388608) one, timed;
      device_stage  the compaction's device stage alone on the bench runs
               (below), under torch.profiler: wall time, device busy time,
               device time by kernel; the three merges' own operands are
-              kept, held kernel against plain merge, and timed;
+              kept, held kernels against plain versions, and timed;
   4. compact  bench.py's fill regenerated here (10M records in 4 sorted
               runs, 26-byte keys, 113-byte values, 10% expired TTLs, 5%
               tombstones, a 5M hashkey space), installed into a
@@ -168,27 +172,59 @@ def level_blocks(path: str, level: int) -> list:
 
 # ------------------------------------------------------------ the kernel
 
-def _sorted_operand(rng, n, nk, lo=0, hi=1 << 20, pad_rows=0, prio=0,
-                    idx_base=0):
-    """[nk+1, n + pad_rows] int64 operand: n real rows ascending over nk
-    u32 key columns, then pad rows (keys 0xFFFFFFFF, last key column
-    0xFFFFFF00 | prio as in compaction, idx -1)."""
-    prim = np.sort(rng.integers(lo, hi, size=n, dtype=np.uint32))
-    rest = [rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
-            for _ in range(nk - 1)]
-    order = np.lexsort(tuple(reversed([prim] + rest)))
-    keys = np.stack([c[order] for c in [prim] + rest]).astype(np.int64)
+def _operand(keys, nk, prio=0, idx_base=0, pad_rows=0):
+    """[nk+1, n + pad_rows] int64 operand from nk sorted u32 key columns:
+    the n real rows with idx idx_base.., then pad rows (keys 0xFFFFFFFF,
+    last key column 0xFFFFFF00 | prio as in compaction, idx -1)."""
+    n = len(keys[0])
     idx = np.arange(idx_base, idx_base + n, dtype=np.int64)[None]
-    real = np.concatenate([keys, idx])
+    real = np.concatenate([np.stack(keys).astype(np.int64), idx])
     pad = np.full((nk + 1, pad_rows), 0xFFFFFFFF, dtype=np.int64)
     pad[nk - 1] = 0xFFFFFF00 | prio
     pad[nk] = -1
     return np.concatenate([real, pad], axis=1)
 
 
+def _lexsorted(cols):
+    order = np.lexsort(tuple(reversed(cols)))
+    return [c[order] for c in cols]
+
+
+def _sorted_operand(rng, n, nk, lo=0, hi=1 << 20, pad_rows=0, prio=0,
+                    idx_base=0):
+    """n real rows ascending over nk u32 key columns (the first drawn from
+    [lo, hi), the rest random), then pad rows (see _operand)."""
+    prim = rng.integers(lo, hi, size=n, dtype=np.uint32)
+    rest = [rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+            for _ in range(nk - 1)]
+    return _operand(_lexsorted([prim] + rest), nk, prio, idx_base, pad_rows)
+
+
+# the bench keys' leading lanes (bytes "\0\x10userhash" + two hashkey
+# digits), plus lane-2 values with the high bit set
+BENCH_HEADS = ([0x00107573], [0x65726861],
+               [0x73683030, 0x73683031, 0x73683032, 0x80000000, 0xF3683030])
+
+
+def _headed_operand(rng, n, nk, heads, pad_rows=0, prio=0, idx_base=0):
+    """n real rows whose leading key columns are drawn from the value sets
+    `heads` (shared key prefixes), the middle ones random, the last one
+    26 << 8 | prio (compaction's klen<<8|prio for 26-byte keys); then pad
+    rows (see _operand)."""
+    cols = [rng.choice(np.asarray(h, dtype=np.uint32), size=n)
+            for h in heads]
+    cols += [rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+             for _ in range(nk - 1 - len(heads))]
+    cols.append(np.full(n, (26 << 8) | prio, dtype=np.uint32))
+    return _operand(_lexsorted(cols), nk, prio, idx_base, pad_rows)
+
+
 def kernel_cases(seed: int = 0):
     """(name, a, b, nk) numpy operand pairs: the test_pallas_merge.py
-    shapes and skews, pad-heavy runs, and nk = 2, 8, 10."""
+    shapes and skews, pad-heavy runs, and nk = 2, 8, 10; bench-shaped
+    shared prefixes; windows whose ends agree on one side only or on
+    different values; run lengths 0, 1, around half a kernel tile and
+    around one; an all-pad tile."""
     rng = np.random.default_rng(seed)
     cases = []
     for nk in (2, 8, 10):
@@ -213,6 +249,46 @@ def kernel_cases(seed: int = 0):
                       _sorted_operand(rng, 100, nk, pad_rows=4000),
                       _sorted_operand(rng, 3000, nk, pad_rows=96, prio=1,
                                       idx_base=100), nk))
+    cases += edge_cases(rng)
+    return cases
+
+
+def edge_cases(rng):
+    """The cases aimed at the tiled kernel (see kernel_cases)."""
+    cases = []
+    for nk, (la, lb) in ((8, (5000, 7000)), (10, (3000, 3000))):
+        cases.append((f"bench-prefix la={la} lb={lb} nk={nk}",
+                      _headed_operand(rng, la, nk, BENCH_HEADS,
+                                      pad_rows=500),
+                      _headed_operand(rng, lb, nk, BENCH_HEADS,
+                                      pad_rows=300, prio=1,
+                                      idx_base=la), nk))
+    # A's windows agree in column 1 (always 5); B's span 4..6, or agree
+    # on another value (always 6)
+    cases.append(("one-side-agrees nk=8",
+                  _headed_operand(rng, 6000, 8, ([7], [5])),
+                  _headed_operand(rng, 6000, 8, ([7], [4, 5, 6]), prio=1,
+                                  idx_base=6000), 8))
+    cases.append(("sides-agree-apart nk=8",
+                  _headed_operand(rng, 3000, 8, ([7], [5])),
+                  _headed_operand(rng, 3000, 8, ([7], [6]), prio=1,
+                                  idx_base=3000), 8))
+    from pegasus_tpu_torch.ops.merge_path import TILE
+
+    lens = [0, 1] + [t + k for t in (TILE // 2, TILE) for k in (-1, 0, 1)]
+    for k, n in enumerate(lens):
+        nk = (2, 8, 10)[k % 3]
+        cases.append((f"run-length la={n} lb=1500 nk={nk}",
+                      _sorted_operand(rng, n, nk),
+                      _sorted_operand(rng, 1500, nk, prio=1, idx_base=n),
+                      nk))
+        cases.append((f"run-length la=1500 lb={n} nk={nk}",
+                      _sorted_operand(rng, 1500, nk),
+                      _sorted_operand(rng, n, nk, prio=1, idx_base=1500),
+                      nk))
+    cases.append(("all-pad nk=8",
+                  _sorted_operand(rng, 0, 8, pad_rows=3000),
+                  _sorted_operand(rng, 10, 8, pad_rows=5000, prio=1), 8))
     return cases
 
 
@@ -231,41 +307,117 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def merge_bound(la: int, lb: int, n_cols: int, nk: int,
+def merge_bound(la: int, lb: int, n_cols: int, nk: int, skipped: float,
                 col_bytes: int = 4) -> tuple:
-    """(bound_ms, bound_by) for one merge: every input column read once
-    and every output column written once, at col_bytes per value (4: the
-    function's own u32 keys and int32 index; 8: the port's int64
-    columns), against the operations of a sequential merge (<= nk 32-bit
+    """(bound_ms, bound_by) for one merge on this run's inputs: the bytes
+    it needs are the key columns a tile does not share read once (nk -
+    skipped per tile on average, see skipped_key_columns: a column that
+    one value fills throughout a tile is read only at its windows' ends),
+    the payload columns read once and every output column written once,
+    at col_bytes per value (4: the function's own u32 keys and int32
+    index; 8: the port's int64 columns); against the operations of a
+    sequential merge over the unshared columns (<= nk - skipped 32-bit
     compares per output, two for an int64 column) and the binary search
     of each 8-output diagonal."""
     total = la + lb
-    nbytes = 2 * n_cols * col_bytes * total
-    ops = (col_bytes // 4) * nk * total * (1 + max(1, total.bit_length()) / 8)
+    keys = nk - skipped
+    nbytes = (keys + (n_cols - nk) + n_cols) * col_bytes * total
+    ops = (col_bytes // 4) * keys * total * (1 + max(1, total.bit_length()) / 8)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(device) -> dict:
+def merged_splits(a, b, nk: int):
+    """The merge-path splits read off merge_two_sorted_plain's output: the
+    number of A rows among its first min(t*TILE, la+lb) rows, t = 0..
+    ceil((la+lb)/TILE). What merge_path_splits must equal."""
     import torch
 
     from pegasus_tpu_torch.ops.device_sort import merge_two_sorted_plain
-    from pegasus_tpu_torch.ops.merge_path import merge_two_sorted
+    from pegasus_tpu_torch.ops.merge_path import TILE
+
+    la, lb = a.shape[1], b.shape[1]
+    side = [torch.zeros((1, la), dtype=torch.int64, device=a.device),
+            torch.ones((1, lb), dtype=torch.int64, device=a.device)]
+    merged = merge_two_sorted_plain(torch.cat([a, side[0]]),
+                                    torch.cat([b, side[1]]), nk)
+    from_a = torch.cat([torch.zeros(1, dtype=torch.int64, device=a.device),
+                        torch.cumsum(merged[-1] == 0, dim=0)])
+    d = torch.arange(-(-(la + lb) // TILE) + 1, device=a.device) * TILE
+    return from_a[torch.clamp(d, max=la + lb)]
+
+
+def skipped_key_columns(a, b, nk: int) -> float:
+    """The mean number of leading key columns the tiled kernel skips per
+    tile: those in which the first and last rows of both non-empty input
+    windows agree (it reads them only at the windows' ends)."""
+    import torch
+
+    from pegasus_tpu_torch.ops.merge_path import (TILE,
+                                                  merge_path_splits_plain)
+
+    la, lb = a.shape[1], b.shape[1]
+    if la + lb == 0:
+        return 0.0
+    splits = merge_path_splits_plain(a, b, nk)
+    d = torch.clamp(torch.arange(splits.shape[0], device=a.device) * TILE,
+                    max=la + lb)
+    a0, b0 = splits[:-1], d[:-1] - splits[:-1]
+    na, nb = splits[1:] - a0, d[1:] - splits[1:] - b0
+    ends = []  # (first rows, last rows, window length) of each non-empty run
+    for x, lo, n in ((a, a0, na), (b, b0, nb)):
+        if x.shape[1]:
+            ends.append((x[:nk, torch.clamp(lo, max=x.shape[1] - 1)],
+                         x[:nk, torch.clamp(lo + n - 1, 0, x.shape[1] - 1)],
+                         n))
+    # the value every end must hold: A's first row where A's window is
+    # non-empty, else B's
+    ref = ends[0][0]
+    if len(ends) == 2:
+        ref = torch.where(na > 0, ends[0][0], ends[1][0])
+    agree = torch.ones_like(ref, dtype=torch.bool)
+    for first, last, n in ends:
+        agree &= (n == 0) | ((first == ref) & (last == ref))
+    return float(torch.cumprod(agree.long(), dim=0).sum(0).double().mean())
+
+
+def _check_merge(ta, tb, nk: int, name: str) -> int:
+    """Hold the merge kernel and the partition kernel against the plain
+    versions on the same operands. -> max abs error."""
+    import torch
+
+    from pegasus_tpu_torch.ops.device_sort import merge_two_sorted_plain
+    from pegasus_tpu_torch.ops.merge_path import (merge_path_splits,
+                                                  merge_path_splits_plain,
+                                                  merge_two_sorted)
+
+    want = merge_two_sorted_plain(ta, tb, nk)
+    got = merge_two_sorted(ta, tb, nk)
+    splits = merge_path_splits(ta, tb, nk)
+    plain_splits = merge_path_splits_plain(ta, tb, nk)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"merge kernel != plain merge: {name} "
+                             f"(max abs err {err})")
+    if not (torch.equal(splits, plain_splits) and torch.equal(
+            splits, merged_splits(ta, tb, nk))):
+        raise AssertionError(f"partition kernel != plain splits: {name}")
+    return err
+
+
+def check_kernel(device) -> dict:
+    import torch
 
     max_err = 0
-    for name, a, b, nk in kernel_cases():
-        ta = torch.from_numpy(a).to(device)
-        tb = torch.from_numpy(b).to(device)
-        got = merge_two_sorted(ta, tb, nk)
-        want = merge_two_sorted_plain(ta, tb, nk)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if got.numel() else 0
-        if not torch.equal(got, want):
-            raise AssertionError(f"merge kernel != plain merge: {name} "
-                                 f"(max abs err {err})")
-        max_err = max(max_err, err)
-    # the bench-scale shape: two 4194304-row runs, nk=8 (7 lanes + kp)
+    cases = kernel_cases()
+    for name, a, b, nk in cases:
+        max_err = max(max_err, _check_merge(torch.from_numpy(a).to(device),
+                                            torch.from_numpy(b).to(device),
+                                            nk, name))
+    # the bench-scale shape: two 4194304-row runs, nk=8 (7 lanes + kp), on
+    # random lanes and on the bench keys' shared leading lanes
     la = lb = 4_194_304
     nk = 8
     rng = np.random.default_rng(1)
@@ -276,6 +428,13 @@ def check_kernel(device) -> dict:
                                           1 << 31, pad_rows=1_000_000,
                                           prio=1, idx_base=la)).to(device)
     timed = {"large": _time_merge(ta, tb, nk)}
+    ta = torch.from_numpy(_headed_operand(rng, la - 1_000_000, nk,
+                                          BENCH_HEADS,
+                                          pad_rows=1_000_000)).to(device)
+    tb = torch.from_numpy(_headed_operand(rng, lb - 1_000_000, nk,
+                                          BENCH_HEADS, pad_rows=1_000_000,
+                                          prio=1, idx_base=la)).to(device)
+    timed["large_shared_prefix"] = _time_merge(ta, tb, nk)
     # the final merge of a 4-run compaction: two merged 8388608-row runs
     del ta, tb
     ta = torch.from_numpy(_sorted_operand(rng, 2 * la - 2_000_000, nk, 0,
@@ -285,30 +444,29 @@ def check_kernel(device) -> dict:
                                           1 << 31, pad_rows=2_000_000,
                                           prio=2, idx_base=2 * la)).to(device)
     timed["final"] = _time_merge(ta, tb, nk)
-    return {"cases": len(kernel_cases()) + 2, "max_abs_err": max_err,
-            **timed}
+    return {"cases": len(cases) + 3, "max_abs_err": max_err, **timed}
 
 
 def _time_merge(ta, tb, nk) -> dict:
-    """Check one merge against the plain version, then time both."""
-    import torch
-
+    """Check one merge against the plain versions, then time the kernels
+    (per merge call, partition pass included), the partition pass alone
+    and the plain merge; bounds from the key columns this input's tiles
+    skip."""
     from pegasus_tpu_torch.ops.device_sort import merge_two_sorted_plain
-    from pegasus_tpu_torch.ops.merge_path import merge_two_sorted
+    from pegasus_tpu_torch.ops.merge_path import (merge_path_splits,
+                                                  merge_two_sorted)
 
     la, lb = ta.shape[1], tb.shape[1]
-    got = merge_two_sorted(ta, tb, nk)
-    want = merge_two_sorted_plain(ta, tb, nk)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"merge kernel != plain merge at {la}+{lb}")
-    del got, want
+    _check_merge(ta, tb, nk, f"{la}+{lb}")
     ms = _time_ms(lambda: merge_two_sorted(ta, tb, nk), 20)
+    splits_ms = _time_ms(lambda: merge_path_splits(ta, tb, nk), 20)
     plain_ms = _time_ms(lambda: merge_two_sorted_plain(ta, tb, nk), 5)
-    bound_ms, bound_by = merge_bound(la, lb, nk + 1, nk)
-    return {"la": la, "lb": lb, "nk": nk, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_ms_int64": merge_bound(la, lb, nk + 1, nk, 8)[0]}
+    skipped = skipped_key_columns(ta, tb, nk)
+    bound_ms, bound_by = merge_bound(la, lb, nk + 1, nk, skipped)
+    return {"la": la, "lb": lb, "nk": nk, "ms": ms, "splits_ms": splits_ms,
+            "skipped_key_columns": skipped,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_int64": merge_bound(la, lb, nk + 1, nk, skipped, 8)[0]}
 
 
 def _device_events(prof) -> list:
@@ -422,7 +580,7 @@ def run_compaction(path: str, runs, device, want: dict,
     launches = LAUNCHES["merge_path"] - launches_before
     events = _device_events(prof)
     busy_s = sum(e[1] for e in events) / 1e3
-    merge_ms = sum(e[1] for e in events if "merge_path_kernel" in e[0])
+    merge_ms = sum(e[1] for e in events if "merge_path_" in e[0])
     got = block_digest(level_blocks(path, eng.opts.max_levels))
     if got != want:
         raise AssertionError(f"device compaction digest {got} != cpu "
@@ -516,6 +674,35 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
 
 # ------------------------------------------------------------------ main
 
+def ptxas_usage(report: str) -> dict:
+    """nvcc's -Xptxas -v report -> {kernel: {registers, smem_bytes,
+    spill_stores, spill_loads}}."""
+    import re
+
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?merge_path_"
+                      r"(splits|tile)_kernel", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {"registers": 0, "smem_bytes": 0,
+                           "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return usage
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -542,9 +729,13 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    report = _build.build("merge_path")
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas=[ln for ln in report.splitlines() if "ptxas" in ln][-4:])
+    ptxas = ptxas_usage(_build.build("merge_path"))
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    spills = {k: v for k, v in ptxas.items()
+              if v["spill_stores"] or v["spill_loads"]}
+    if spills or not ptxas:
+        raise AssertionError(f"merge_path.cu spills registers or printed no "
+                             f"ptxas report: {ptxas}")
 
     kern = check_kernel(device)
     emit("kernel", **kern)
@@ -594,6 +785,10 @@ def main() -> int:
     def per_launch(key):
         return sum(m[key] for m in merges) / len(merges)
 
+    # the own-operand merges at the synthetic shape (4194304+4194304)
+    half = [m["ms"] for m in merges if m["la"] == kern["large"]["la"]]
+    own_half = sum(half) / len(half) if half else None
+
     print(json.dumps({"kernels": [{
         "name": "merge_path",
         "route": "cuda",
@@ -608,6 +803,10 @@ def main() -> int:
         "library_ms": None,
         "bound_ms_int64": per_launch("bound_ms_int64"),
         "synthetic_ms": kern["large"]["ms"],
+        "synthetic_shared_prefix_ms": kern["large_shared_prefix"]["ms"],
+        "own_over_synthetic": (own_half / kern["large"]["ms"]
+                               if own_half else None),
+        "ptxas": ptxas,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

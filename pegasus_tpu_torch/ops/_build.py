@@ -51,20 +51,23 @@ def _command(name: str, out: str) -> list:
 
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless it is built already. -> nvcc's ptxas
-    report (registers, shared memory, spills); '' for a library that was
-    already built. Raises with the compiler output when the build fails."""
+    report (registers, shared memory, spills), kept beside the library.
+    Raises with the compiler output when the build fails."""
     out = _lib_path(name)
-    if os.path.exists(out):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = out + f".{os.getpid()}.tmp"
-    proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    report = out + ".ptxas.txt"
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = out + f".{os.getpid()}.tmp"
+        proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu (rc "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        with open(report, "w") as f:
+            f.write(proc.stdout)
+        os.replace(tmp, out)
+    with open(report) as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

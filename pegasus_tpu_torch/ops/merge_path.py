@@ -1,23 +1,31 @@
-"""The two-run merge of compaction: the hand-written merge-path CUDA kernel
+"""The two-run merge of compaction: the hand-written merge-path CUDA kernels
 (csrc/merge_path.cu) on CUDA tensors, the plain PyTorch merge on CPU
 tensors.
 
-Port of pegasus_tpu/ops/pallas_merge.py merge_two_sorted_pallas. The
-dispatch is on the tensors' device only: a CUDA operand launches the
-kernel or raises (a build or launch failure is never papered over with
-the plain merge); a CPU operand takes device_sort.merge_two_sorted_plain.
+Port of pegasus_tpu/ops/pallas_merge.py merge_two_sorted_pallas. One merge
+is two launches: the partition pass finds the merge-path split of every
+TILE-output boundary (merge_path_splits; the reference's
+_diagonal_splits), then one block per tile merges its two input windows
+in shared memory. The dispatch is on the tensors' device only: a CUDA
+operand launches the kernels or raises (a build or launch failure is
+never papered over with the plain merge); a CPU operand takes
+merge_path_splits_plain and device_sort.merge_two_sorted_plain.
 
-LAUNCHES counts kernel launches; a run proves it went through the kernel
-by reading the count before and after.
+LAUNCHES counts merges that went through the kernels, one per
+merge_two_sorted call; a run proves it went through them by reading the
+count before and after.
 """
 
 import ctypes
 
 import torch
 
-from .device_sort import merge_two_sorted_plain
+from .device_sort import lex_less, merge_two_sorted_plain
 
 LAUNCHES = {"merge_path": 0}
+
+TILE = 2048    # outputs per block of the merge kernel (kTile)
+MAX_KEYS = 10  # key columns: 8 lanes + suffix rank + kp (kMaxKeys)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, nk: int) -> None:
@@ -36,33 +44,97 @@ def _check(a: torch.Tensor, b: torch.Tensor, nk: int) -> None:
 def merge_two_sorted(a: torch.Tensor, b: torch.Tensor,
                      nk: int) -> torch.Tensor:
     """Merge [n_cols, la] and [n_cols, lb] int64 operands, each ascending
-    lexicographically over rows 0..nk-1, into [n_cols, la+lb] ascending
-    rows (ties: A first)."""
+    lexicographically over rows 0..nk-1 (u32 values), into
+    [n_cols, la+lb] ascending rows (ties: A first)."""
     _check(a, b, nk)
     if a.device.type != "cuda":
         return merge_two_sorted_plain(a, b, nk)
-    return _launch(a.contiguous(), b.contiguous(), nk)
-
-
-def _launch(a: torch.Tensor, b: torch.Tensor, nk: int) -> torch.Tensor:
-    from ._build import load
-
-    lib = load("merge_path")
-    fn = lib.merge_two_sorted_i64
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    a, b = a.contiguous(), b.contiguous()
     n_cols, la = a.shape
     lb = b.shape[1]
     out = torch.empty((n_cols, la + lb), dtype=torch.int64, device=a.device)
-    if la + lb == 0:
-        return out
+    splits = _launch_splits(a, b, nk)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), la, b.data_ptr(), lb, out.data_ptr(),
-                 n_cols, nk, stream)
+        err = _entry("merge_path_merge_i64")(
+            a.data_ptr(), la, b.data_ptr(), lb, splits.data_ptr(),
+            out.data_ptr(), n_cols, nk, stream)
     if err != 0:
-        raise RuntimeError(f"merge_path kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"merge_path merge kernel launch failed: "
+                           f"cudaError {err}")
     LAUNCHES["merge_path"] += 1
     return out
+
+
+def merge_path_splits(a: torch.Tensor, b: torch.Tensor,
+                      nk: int) -> torch.Tensor:
+    """int64 [ceil((la+lb)/TILE) + 1]: entry t is the number of A rows
+    among the first min(t*TILE, la+lb) rows of the merge. The partition
+    kernel on CUDA operands, merge_path_splits_plain on CPU ones."""
+    _check(a, b, nk)
+    if a.device.type != "cuda":
+        return merge_path_splits_plain(a, b, nk)
+    return _launch_splits(a.contiguous(), b.contiguous(), nk)
+
+
+def merge_path_splits_plain(a: torch.Tensor, b: torch.Tensor,
+                            nk: int) -> torch.Tensor:
+    """merge_path_splits as a vectorised binary search over the key
+    columns, every tile boundary at once, with the kernels' predicate:
+    A's row precedes B's unless B's is strictly smaller."""
+    la, lb = a.shape[1], b.shape[1]
+    total = la + lb
+    n_tiles = -(-total // TILE)
+    d = torch.clamp(torch.arange(n_tiles + 1, device=a.device) * TILE,
+                    max=total)
+    lo = torch.clamp(d - lb, min=0)
+    hi = torch.clamp(d, max=la)
+    if la == 0 or lb == 0:
+        return lo
+    for _ in range(la.bit_length() + 1):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        ia = torch.clamp(mid, max=la - 1)
+        ib = torch.clamp(d - 1 - mid, 0, lb - 1)
+        take_a = ~lex_less(b[:nk, ib], a[:nk, ia])
+        lo = torch.where(active & take_a, mid + 1, lo)
+        hi = torch.where(active & ~take_a, mid, hi)
+    return lo
+
+
+_ARGTYPES = {
+    "merge_path_splits_i64": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "merge_path_merge_i64": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+}
+
+
+def _entry(name: str):
+    from ._build import load
+
+    fn = getattr(load("merge_path"), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_splits(a: torch.Tensor, b: torch.Tensor,
+                   nk: int) -> torch.Tensor:
+    if nk > MAX_KEYS:
+        raise ValueError(f"nk={nk} above the kernel's {MAX_KEYS} key columns")
+    la, lb = a.shape[1], b.shape[1]
+    splits = torch.empty(-(-(la + lb) // TILE) + 1, dtype=torch.int64,
+                         device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("merge_path_splits_i64")(
+            a.data_ptr(), la, b.data_ptr(), lb, nk, splits.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"merge_path partition kernel launch failed: "
+                           f"cudaError {err}")
+    return splits

@@ -4,15 +4,22 @@ JAX package's merges.
 On CPU tensors merge_path.merge_two_sorted runs the plain PyTorch merge;
 it must equal, byte for byte, both device_sort.merge_two_sorted (the XLA
 bitonic merge, trimmed to la+lb rows) and merge_two_sorted_pallas in
-interpret mode, on the shapes of tests/test_pallas_merge.py. The CUDA
-kernel itself is held against the plain merge on the card (the `cuda`
-marked test, and chip_smoke.py).
+interpret mode, on the shapes of tests/test_pallas_merge.py and on the
+cases aimed at the tiled CUDA kernel (chip_smoke.edge_cases). The plain
+partition pass, merge_path_splits_plain, must equal the splits of the
+plain merge's output at every tile boundary and the reference's
+_diagonal_splits at its CHUNK boundaries. The CUDA kernels themselves are
+held against the plain versions on the card (the `cuda` marked test, and
+chip_smoke.py).
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pegasus_tpu.ops import pallas_merge
 from pegasus_tpu.ops.device_sort import merge_two_sorted as xla_merge
 from pegasus_tpu_torch.ops import merge_path
@@ -111,6 +118,72 @@ def test_plain_merge_key_widths_match_xla(nk):
     np.testing.assert_array_equal(got, want)
 
 
+@functools.lru_cache(maxsize=1)
+def _kernel_cases():
+    return {name: (a, b, nk) for name, a, b, nk in chip_smoke.kernel_cases()}
+
+
+KERNEL_CASES = list(_kernel_cases())
+EDGE_CASES = [name for name, *_ in chip_smoke.edge_cases(
+    np.random.default_rng(0))]
+
+
+def _columns(op, nk):
+    """[nk+1, L] int64 operand -> (u32 key columns, int32 idx)."""
+    return [op[c].astype(np.uint32) for c in range(nk)], \
+        op[nk].astype(np.int32)
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_plain_merge_edge_cases_match_xla_and_pallas(name):
+    """Bench-shaped shared prefixes, one-sided window agreement, run
+    lengths around half the kernel tile and one tile, and an all-pad
+    tile. The reference's
+    Pallas merge takes no empty run (its runs pad to >= 256 rows), so an
+    empty run is held against the XLA merge alone."""
+    a, b, nk = _kernel_cases()[name]
+    (A, ia), (B, ib) = _columns(a, nk), _columns(b, nk)
+    got = merge_path.merge_two_sorted(torch.from_numpy(a),
+                                      torch.from_numpy(b), nk).numpy()
+    wants = reference_merges(A, B, (ia, ib),
+                             with_pallas=min(len(ia), len(ib)) > 0)
+    for want in wants:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_splits_plain_match_plain_merge(name):
+    a, b, nk = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                for x in _kernel_cases()[name])
+    got = merge_path.merge_path_splits_plain(a, b, nk)
+    tile = merge_path.TILE
+    assert got.shape == (-(-(a.shape[1] + b.shape[1]) // tile) + 1,)
+    assert torch.equal(got, chip_smoke.merged_splits(a, b, nk))
+    # the public entry takes the plain version for CPU operands
+    assert torch.equal(merge_path.merge_path_splits(a, b, nk), got)
+
+
+@pytest.mark.parametrize("name", [
+    n for n in KERNEL_CASES
+    if min(x.shape[1] for x in _kernel_cases()[n][:2]) > 0])
+def test_splits_plain_match_reference_diagonal_splits(name):
+    """At the reference's CHUNK boundaries, which are the kernel's tile
+    boundaries (runs of >= 1 row: the reference's search takes no empty
+    run)."""
+    import jax.numpy as jnp
+
+    assert merge_path.TILE == pallas_merge.CHUNK
+    a, b, nk = _kernel_cases()[name]
+    n_chunks = -(-(a.shape[1] + b.shape[1]) // pallas_merge.CHUNK)
+    want = pallas_merge._diagonal_splits(
+        [jnp.asarray(c) for c in _columns(a, nk)[0]],
+        [jnp.asarray(c) for c in _columns(b, nk)[0]], nk, n_chunks)
+    got = merge_path.merge_path_splits_plain(
+        torch.from_numpy(a), torch.from_numpy(b), nk)
+    np.testing.assert_array_equal(got[:n_chunks].numpy(),
+                                  np.asarray(want).astype(np.int64))
+
+
 def test_merge_rejects_bad_operands():
     a = torch.zeros((3, 4), dtype=torch.int64)
     with pytest.raises(TypeError):
@@ -144,3 +217,5 @@ def test_merge_kernel_matches_plain_on_card():
         assert merge_path.LAUNCHES["merge_path"] == before + 1
         torch.cuda.synchronize()
         assert torch.equal(got, merge_two_sorted_plain(ta, tb, nk)), name
+        # and the partition pass against the plain splits
+        chip_smoke._check_merge(ta, tb, nk, name)

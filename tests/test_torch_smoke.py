@@ -64,3 +64,49 @@ def test_value_residency_phase_at_tiny_size(tmp_path):
         assert ssts and all(s._device_run.val2d is not None for s in ssts)
     finally:
         eng.close()
+
+
+def _skips_by_window_ends(a, b, nk):
+    """Per tile, the leading key columns in which the first and last rows
+    of both non-empty input windows agree, walked row by row."""
+    from pegasus_tpu_torch.ops.merge_path import (TILE,
+                                                  merge_path_splits_plain)
+
+    splits = merge_path_splits_plain(a, b, nk).tolist()
+    total = a.shape[1] + b.shape[1]
+    skips = []
+    for t in range(len(splits) - 1):
+        d0, d1 = t * TILE, min((t + 1) * TILE, total)
+        a0, a1 = splits[t], splits[t + 1]
+        b0, b1 = d0 - a0, d1 - a1
+        rows = ([a[:nk, i] for i in (a0, a1 - 1) if a1 > a0]
+                + [b[:nk, j] for j in (b0, b1 - 1) if b1 > b0])
+        k = 0
+        while k < nk and all(r[k] == rows[0][k] for r in rows):
+            k += 1
+        skips.append(k)
+    return float(np.mean(skips)) if skips else 0.0
+
+
+@pytest.mark.parametrize("name", [n for n, *_ in chip_smoke.kernel_cases()])
+def test_skipped_key_columns_match_window_ends(name):
+    a, b, nk = next((a, b, nk) for n, a, b, nk in chip_smoke.kernel_cases()
+                    if n == name)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert chip_smoke.skipped_key_columns(ta, tb, nk) == \
+        pytest.approx(_skips_by_window_ends(ta, tb, nk))
+
+
+@pytest.mark.parametrize("col_bytes", [4, 8])
+def test_merge_bound_counts_the_columns_a_merge_needs(col_bytes):
+    """No skipped column: 9 columns read and 9 written. Every key column
+    skipped: the payload read and 9 columns written. Bytes bind."""
+    la = lb = 1 << 20
+    full, by = chip_smoke.merge_bound(la, lb, 9, 8, 0.0, col_bytes)
+    assert by == "bytes"
+    assert full == pytest.approx(
+        18 * col_bytes * (la + lb) / chip_smoke.PEAK_BYTES_S * 1e3)
+    none, _ = chip_smoke.merge_bound(la, lb, 9, 8, 8.0, col_bytes)
+    assert none == pytest.approx(full * 10 / 18)
+    half, _ = chip_smoke.merge_bound(la, lb, 9, 8, 5.0, col_bytes)
+    assert none < half < full
