@@ -18,6 +18,10 @@ exits non-zero before printing any result. Phases, one JSON line each:
               edge cases, and the compaction's own: a (4194304, 4194304)
               merge with nk=8 on random keys and on the bench keys'
               shared leading lanes, and a (8388608, 8388608) one, timed;
+              then the batched form ([B, n_cols, L] operands) on
+              batched_kernel_cases() against the plain batched merge
+              and splits, and a (32, 131072+131072, nk=8) merge on the
+              bench keys' heads timed beside 32 sequential 2-D calls;
      device_stage  the compaction's device stage alone on the bench runs
               (below), under torch.profiler: wall time, device busy time,
               device time by kernel; the three merges' own operands are
@@ -35,10 +39,29 @@ exits non-zero before printing any result. Phases, one JSON line each:
               device, the same digest;
   5. reads    200k write_batch puts + flush, get_batch of 100k keys (half
               hits, half misses) and 1000 scan_range_batch ranges, each
-              equal to the host walk (get / scan).
+              equal to the host walk (get / scan);
+  6. blockwise  the 10M runs through compact_blocks(backend="cuda",
+              max_device_records=2^22): at least 3 key ranges, at
+              PEGASUS_COMPACT_PIPELINE_DEPTH 1 and 2, each digest equal to
+              the cpu backend's; stage spans, the pipeline's stall and
+              overlap seconds, peak device memory;
+  7. batched  the node-level compaction after a partition split: the 10M
+              records cut into a 16-partition table by hash32 & 15, split
+              to 32 partitions (partition_mask 31; child p takes parent
+              p % 16's four runs, so half its rows are its sibling's),
+              each run primed, one compact_partition_batch call with
+              per-partition post options (half a user_specified_compaction
+              spec, half a default_ttl) under torch.profiler: 3 merge
+              calls over 96 batch rows by the launch counts, every
+              partition's digest equal to the cpu backend's on its job;
+              the same jobs one by one through compact_blocks; the batched
+              merges' own operands timed against the plain batched merge
+              and 32 sequential 2-D calls.
 
-Then, before the last line, the kernel table (times, launches, bounds)
-and the nvidia-smi line; the last line is
+The main paths (compact, blockwise, batched) each run with the launch
+counts set to 0 just before and read just after. Then, before the last
+line, the kernel table (times, launches, bounds; merge_path and
+merge_path_batched) and the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises and exits non-zero. Engine files go to
 .scratch/chip_smoke/ under the repository and are removed at the end.
@@ -68,6 +91,7 @@ VALUE_SIZE = 100
 TTL_FRAC = 0.10
 DEL_FRAC = 0.05
 NOW = 100
+BLOCKWISE_BUDGET = 1 << 22   # max_device_records of the blockwise phase
 
 
 def emit(phase: str, **kw) -> None:
@@ -292,6 +316,79 @@ def edge_cases(rng):
     return cases
 
 
+def batched_kernel_cases(seed: int = 2):
+    """(name, a [B, n_cols, la], b [B, n_cols, lb], nk) numpy batched
+    operand pairs: B = 1; B = 3 rows of different content (interleaved,
+    disjoint, bench-shaped prefixes with pads); a row made wholly of pad
+    rows beside a row with none; three rows whose key columns differ only
+    from the rows above and below (the payload is the same in each), and
+    three whose payloads differ only (the keys are the same): a tile that
+    read another row's columns writes another row's bytes."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for nk in (2, 8):
+        cases.append((f"B=1 nk={nk}", _sorted_operand(rng, 3000, nk)[None],
+                      _sorted_operand(rng, 5000, nk, prio=1,
+                                      idx_base=3000)[None], nk))
+    rows = [(_sorted_operand(rng, 4000, 8),
+             _sorted_operand(rng, 4000, 8, prio=1, idx_base=4000)),
+            (_sorted_operand(rng, 4000, 8, 0, 1000),
+             _sorted_operand(rng, 4000, 8, 10_000, 11_000, prio=1,
+                             idx_base=4000)),
+            (_headed_operand(rng, 3500, 8, BENCH_HEADS, pad_rows=500),
+             _headed_operand(rng, 3000, 8, BENCH_HEADS, pad_rows=1000,
+                             prio=1, idx_base=3500))]
+    cases.append(("B=3 mixed rows nk=8", np.stack([r[0] for r in rows]),
+                  np.stack([r[1] for r in rows]), 8))
+    pad = (_sorted_operand(rng, 0, 8, pad_rows=4096),
+           _sorted_operand(rng, 0, 8, pad_rows=4096, prio=1))
+    full = (_sorted_operand(rng, 4096, 8),
+            _sorted_operand(rng, 4096, 8, prio=1, idx_base=4096))
+    cases.append(("B=2 all-pad row beside a pad-free row nk=8",
+                  np.stack([pad[0], full[0]]), np.stack([pad[1], full[1]]),
+                  8))
+    # the same payload under three different key orders: rows 0 and 2
+    # put all of A after all of B, row 1 interleaves
+    keyed = [(_sorted_operand(rng, 3000, 8, 10_000, 11_000),
+              _sorted_operand(rng, 3000, 8, 0, 1000, prio=1)),
+             (_sorted_operand(rng, 3000, 8),
+              _sorted_operand(rng, 3000, 8, prio=1)),
+             (_sorted_operand(rng, 3000, 8, 20_000, 21_000),
+              _sorted_operand(rng, 3000, 8, 0, 1000, prio=1))]
+    for x, y in keyed:
+        x[8], y[8] = np.arange(3000), np.arange(3000, 6000)
+    cases.append(("B=3 rows differ in key columns only nk=8",
+                  np.stack([r[0] for r in keyed]),
+                  np.stack([r[1] for r in keyed]), 8))
+    a = _sorted_operand(rng, 3000, 8)
+    b = _sorted_operand(rng, 3000, 8, prio=1)
+    pa, pb = [], []
+    for r in range(3):
+        x, y = a.copy(), b.copy()
+        x[8] = np.arange(3000) + 10_000 * r
+        y[8] = np.arange(3000, 6000) + 10_000 * r
+        pa.append(x)
+        pb.append(y)
+    cases.append(("B=3 rows differ in payload only nk=8", np.stack(pa),
+                  np.stack(pb), 8))
+    return cases
+
+
+def timed_batched_operands(seed: int = 3, batch: int = 32,
+                           rows: int = 131072, nk: int = 8):
+    """(a, b) [batch, nk+1, rows] numpy operands: per batch row two runs of
+    `rows` rows, a quarter of them pads, the leading key columns drawn
+    from the bench keys' heads (BENCH_HEADS)."""
+    rng = np.random.default_rng(seed)
+    pad = rows // 4
+    a = np.stack([_headed_operand(rng, rows - pad, nk, BENCH_HEADS,
+                                  pad_rows=pad) for _ in range(batch)])
+    b = np.stack([_headed_operand(rng, rows - pad, nk, BENCH_HEADS,
+                                  pad_rows=pad, prio=1, idx_base=rows)
+                  for _ in range(batch)])
+    return a, b
+
+
 def _time_ms(fn, reps: int) -> float:
     import torch
 
@@ -469,6 +566,79 @@ def _time_merge(ta, tb, nk) -> dict:
             "bound_ms_int64": merge_bound(la, lb, nk + 1, nk, skipped, 8)[0]}
 
 
+def _check_batched(ta, tb, nk: int, name: str) -> int:
+    """Hold the batched merge and partition kernels against the plain
+    batched versions, and each batch row's splits against the plain
+    merge's of that row alone. -> max abs error."""
+    import torch
+
+    from pegasus_tpu_torch.ops.device_sort import merge_two_sorted_plain
+    from pegasus_tpu_torch.ops.merge_path import (merge_path_splits,
+                                                  merge_path_splits_plain,
+                                                  merge_two_sorted)
+
+    want = merge_two_sorted_plain(ta, tb, nk)
+    got = merge_two_sorted(ta, tb, nk)
+    splits = merge_path_splits(ta, tb, nk)
+    plain_splits = merge_path_splits_plain(ta, tb, nk)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"batched merge kernel != plain batched merge: "
+                             f"{name} (max abs err {err})")
+    if not torch.equal(splits, plain_splits) or not all(
+            torch.equal(splits[r], merged_splits(ta[r], tb[r], nk))
+            for r in range(ta.shape[0])):
+        raise AssertionError(f"batched partition kernel != plain splits: "
+                             f"{name}")
+    return err
+
+
+def _time_batched(ta, tb, nk: int) -> dict:
+    """Check one batched merge against the plain versions, then time it
+    (one call for the whole batch), the same rows as sequential 2-D calls,
+    and the plain batched merge; the bound sums each row's own bound
+    (merge_bound with that row's skipped key columns)."""
+    from pegasus_tpu_torch.ops.device_sort import merge_two_sorted_plain
+    from pegasus_tpu_torch.ops.merge_path import merge_two_sorted
+
+    batch, n_cols, la = ta.shape
+    lb = tb.shape[2]
+    err = _check_batched(ta, tb, nk, f"B={batch} {la}+{lb}")
+    ms = _time_ms(lambda: merge_two_sorted(ta, tb, nk), 20)
+    seq_ms = _time_ms(lambda: [merge_two_sorted(ta[r], tb[r], nk)
+                               for r in range(batch)], 10)
+    plain_ms = _time_ms(lambda: merge_two_sorted_plain(ta, tb, nk), 3)
+    skipped = [skipped_key_columns(ta[r], tb[r], nk) for r in range(batch)]
+    bounds = [merge_bound(la, lb, n_cols, nk, k) for k in skipped]
+    return {"batch": batch, "la": la, "lb": lb, "nk": nk, "ms": ms,
+            "sequential_ms": seq_ms, "plain_ms": plain_ms,
+            "skipped_key_columns": sum(skipped) / batch,
+            "bound_ms": sum(b[0] for b in bounds), "bound_by": bounds[0][1],
+            "bound_ms_int64": sum(merge_bound(la, lb, n_cols, nk, k, 8)[0]
+                                  for k in skipped),
+            "max_abs_err": err}
+
+
+def check_batched_kernel(device) -> dict:
+    """The batched cases (batched_kernel_cases), then the timed
+    (32, 131072+131072, nk=8) merge on bench-shaped keys."""
+    import torch
+
+    max_err = 0
+    cases = batched_kernel_cases()
+    for name, a, b, nk in cases:
+        max_err = max(max_err, _check_batched(
+            torch.from_numpy(a).to(device), torch.from_numpy(b).to(device),
+            nk, name))
+    a, b = timed_batched_operands()
+    timed = _time_batched(torch.from_numpy(a).to(device),
+                          torch.from_numpy(b).to(device), 8)
+    return {"cases": len(cases) + 1,
+            "max_abs_err": max(max_err, timed["max_abs_err"]),
+            "timed": timed}
+
+
 def _device_events(prof) -> list:
     """(name, device ms, calls) of a profile's device-side events
     (kernels, copies, sets), longest first. The operator-level events
@@ -505,7 +675,8 @@ def profile_device_stage(runs, device) -> dict:
     kernel_merge = compact.merge_two_sorted
 
     def keep_operands(a, b, nk):
-        operands.append((a, b, nk))
+        # a single merge is the batch-of-one case: keep its [n_cols, L] row
+        operands.append((a[0], b[0], nk))
         return kernel_merge(a, b, nk)
 
     compact.merge_two_sorted = keep_operands
@@ -513,8 +684,10 @@ def profile_device_stage(runs, device) -> dict:
         backend.survivors_cached_device(drs, *fargs)  # warm-up
     finally:
         compact.merge_two_sorted = kernel_merge
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.device(device).type == "cuda"
+        else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         _, count = backend.survivors_cached_device(drs, *fargs)
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -672,6 +845,252 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
                                                      "read.range")}}
 
 
+# --------------------------------------- batched multi-partition path
+
+N_CHILDREN = 32      # partitions after the split; child p takes over
+                     # the runs of parent p % 16
+DEFAULT_TTL = 86400
+TTL_FROM_NOW = 3600
+
+
+def partition_runs(runs, n_parts: int) -> list:
+    """Each run cut into the partitions of an n_parts table (partition =
+    hash32 & (n_parts - 1)). -> per partition its runs, newest first."""
+    out = [[] for _ in range(n_parts)]
+    for r in runs:
+        part = r.hash32 & (n_parts - 1)
+        for q in range(n_parts):
+            out[q].append(r.gather(np.nonzero(part == q)[0]))
+    return out
+
+
+def split_jobs(runs, device, n_children: int = N_CHILDREN) -> list:
+    """The compaction after a partition split (n_children / 2 ->
+    n_children partitions): child p's job is its parent's runs, primed on
+    `device` once per parent run and shared by the two siblings, with
+    pidx p; about half of each child's rows belong to its sibling and
+    must drop through partition_mask n_children - 1.
+    -> [(runs, device_runs, pidx)]."""
+    from pegasus_tpu_torch.ops.compact import pack_run_device
+
+    n_parents = n_children // 2
+    parents = partition_runs(runs, n_parents)
+    primed = [[pack_run_device(b, device=device) for b in pr]
+              for pr in parents]
+    return [(parents[p % n_parents], primed[p % n_parents], p)
+            for p in range(n_children)]
+
+
+def tenth_prefix(blocks, sample: int = 100_000) -> bytes:
+    """The hashkey prefix (of the bench keys' 16-byte hashkeys) whose
+    share of a sample of the records is nearest a tenth, by ratio."""
+    b = blocks[0]
+    n = min(b.n, sample)
+    keys = b.key_arena[: n * 26].reshape(n, 26)[:, 2:18]
+    best, best_err = b"", np.inf
+    for k in range(9, 17):
+        pref, counts = np.unique(keys[:, :k], axis=0, return_counts=True)
+        ratio = np.abs(np.log(counts / n / 0.1))  # 2x and 1/2x are as far
+        i = int(np.argmin(ratio))
+        err = float(ratio[i])
+        if err < best_err:
+            best, best_err = pref[i].tobytes(), err
+    return best
+
+
+def split_post_opts(jobs) -> list:
+    """Per child its own post-pass options: the first half carry a
+    user_specified_compaction spec (delete the hashkeys with the prefix
+    that holds about a tenth of them; give sort keys containing "A" a TTL
+    of TTL_FROM_NOW from now), the second half the table default_ttl."""
+    from pegasus_tpu_torch.engine.compaction_rules import \
+        parse_user_specified_compaction
+    from pegasus_tpu_torch.ops.compact import CompactOptions
+
+    prefix = tenth_prefix(jobs[0][0]).decode()
+    spec = json.dumps({"ops": [
+        {"type": "COT_DELETE", "params": "{}",
+         "rules": [{"type": "FRT_HASHKEY_PATTERN", "params": json.dumps(
+             {"pattern": prefix, "match_type": "SMT_MATCH_PREFIX"})}]},
+        {"type": "COT_UPDATE_TTL", "params": json.dumps(
+            {"type": "UTOT_FROM_NOW", "value": TTL_FROM_NOW}),
+         "rules": [{"type": "FRT_SORTKEY_PATTERN", "params": json.dumps(
+             {"pattern": "A", "match_type": "SMT_MATCH_ANYWHERE"})}]}]})
+    ops = tuple(parse_user_specified_compaction(spec))
+    if len(ops) != 2:
+        raise AssertionError(f"user_specified_compaction spec parsed to "
+                             f"{len(ops)} operations: {spec}")
+    half = len(jobs) // 2
+    return [CompactOptions(now=NOW, user_ops=ops) if j < half
+            else CompactOptions(now=NOW, default_ttl=DEFAULT_TTL)
+            for j in range(len(jobs))]
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_batched(jobs, post_opts, device) -> dict:
+    """compact_partition_batch over the split's jobs: a warm-up call that
+    keeps the merges' operands, then the counted call under torch.profiler
+    (wall, stage spans, device busy and idle share, peak device memory,
+    merge calls and rows); every partition's output digest held to the
+    port's cpu backend on its job with the same options; then the same
+    jobs one by one through compact_blocks(device_runs=...)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.ops import compact
+    from pegasus_tpu_torch.ops.batched_compact import (_job_opts,
+                                                       compact_partition_batch)
+    from pegasus_tpu_torch.ops.compact import CompactOptions
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    pmask = len(jobs) - 1  # the children of a split into len(jobs)
+    opts = CompactOptions(backend="cuda", device=device, now=NOW,
+                          partition_mask=pmask, bottommost=True,
+                          runs_sorted=True)
+    operands = []
+    kernel_merge = compact.merge_two_sorted
+
+    def keep_operands(a, b, nk):
+        operands.append((a, b, nk))
+        return kernel_merge(a, b, nk)
+
+    compact.merge_two_sorted = keep_operands
+    try:
+        compact_partition_batch(jobs, opts, post_opts=post_opts)  # warm-up
+    finally:
+        compact.merge_two_sorted = kernel_merge
+    _sync(device)
+    base = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if on_card else [])
+    LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+    with COMPACT_TRACER.session() as sess, \
+            profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        outs = compact_partition_batch(jobs, opts, post_opts=post_opts)
+        _sync(device)
+        wall_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated(device) - base) if on_card \
+        else None
+    events = _device_events(prof)
+    busy_s = sum(e[1] for e in events) / 1e3
+    t0 = time.perf_counter()
+    for (runs, _, pidx), got, po in zip(jobs, outs, post_opts):
+        want = compact.compact_blocks(runs, CompactOptions(
+            backend="cpu", now=NOW, pidx=pidx,
+            partition_mask=pmask, bottommost=True,
+            runs_sorted=True, user_ops=po.user_ops,
+            default_ttl=po.default_ttl)).block
+        if block_digest([got]) != block_digest([want]):
+            raise AssertionError(f"batched partition {pidx}: digest "
+                                 f"{block_digest([got])} != cpu backend "
+                                 f"{block_digest([want])}")
+    cpu_s = time.perf_counter() - t0
+    LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+    t0 = time.perf_counter()
+    one_by_one = [compact.compact_blocks(
+        runs, _job_opts(opts, post_opts, j, pidx, NOW),
+        device_runs=drs).block for j, (runs, drs, pidx) in enumerate(jobs)]
+    _sync(device)
+    seq_s = time.perf_counter() - t0
+    seq_launches = dict(LAUNCHES)
+    for got, seq in zip(outs, one_by_one):
+        if block_digest([got]) != block_digest([seq]):
+            raise AssertionError("one-by-one compact_blocks != batched")
+    return {"partitions": len(jobs), "runs_per_partition": len(jobs[0][0]),
+            "padded_rows": sum(sum(d.padded_len for d in drs)
+                               for _, drs, _ in jobs),
+            "records_in": sum(sum(b.n for b in r) for r, _, _ in jobs),
+            "records_out": sum(b.n for b in outs),
+            "wall_s": wall_s, "stages": sess.summary(),
+            "device_busy_s": busy_s,
+            "idle_share": max(0.0, 1 - busy_s / wall_s),
+            "top_device_events": [{"name": k[:90], "ms": ms, "calls": c}
+                                  for k, ms, c in events[:6]],
+            "peak_device_bytes": peak,
+            "merge_calls": launches["merge_path"],
+            "merge_rows": launches["merge_path_rows"],
+            "cpu_check_s": cpu_s,
+            "one_by_one_s": seq_s,
+            "one_by_one_merge_calls": seq_launches["merge_path"],
+            "digests_equal": True, "operands": operands}
+
+
+def run_blockwise(runs, device, want: dict, budget: int) -> dict:
+    """compact_blocks(backend="cuda", max_device_records=budget) over the
+    bench runs at PEGASUS_COMPACT_PIPELINE_DEPTH 1 and 2, each digest held
+    to the cpu backend's `want`: ranges (the device stage's calls), stage
+    spans, the pipeline's stall and overlap seconds, wall time, merge
+    calls and the peak device memory above what was allocated before."""
+    import gc
+
+    import torch
+
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    opts = CompactOptions(backend="cuda", device=device, now=NOW,
+                          bottommost=True, runs_sorted=True,
+                          max_device_records=budget)
+    env = "PEGASUS_COMPACT_PIPELINE_DEPTH"
+    saved = os.environ.get(env)
+    out = {"budget": budget, "records_in": sum(r.n for r in runs)}
+    try:
+        for depth in (1, 2):
+            os.environ[env] = str(depth)
+            gc.collect()
+            base = 0
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+            LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+            with COMPACT_TRACER.session() as sess:
+                t0 = time.perf_counter()
+                res = compact_blocks(runs, opts)
+                _sync(device)
+                wall_s = time.perf_counter() - t0
+            launches = LAUNCHES["merge_path"]
+            got = block_digest([res.block])
+            if got != want:
+                raise AssertionError(f"blockwise depth {depth}: digest {got} "
+                                     f"!= cpu backend digest {want}")
+            stages = sess.summary()
+            ranges = stages["device"]["calls"]
+            out[f"depth{depth}"] = {
+                "wall_s": wall_s, "ranges": ranges,
+                "padded_rows_per_range": stages["device"]["records"] / ranges,
+                "merge_calls": launches,
+                "stall_s": stages.get("pipeline.stall", {}).get("s", 0.0),
+                "overlap_s": stages.get("pipeline.overlap", {}).get("s",
+                                                                    0.0),
+                "stages": stages,
+                "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                      - base) if on_card else None,
+                "records_out": res.block.n, "digest": got}
+    finally:
+        if saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def ptxas_usage(report: str) -> dict:
@@ -722,6 +1141,7 @@ def main() -> int:
     from pegasus_tpu_torch.ops import _build
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
 
+    started = time.perf_counter()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
@@ -738,7 +1158,8 @@ def main() -> int:
                              f"ptxas report: {ptxas}")
 
     kern = check_kernel(device)
-    emit("kernel", **kern)
+    kern_b = check_batched_kernel(device)
+    emit("kernel", **kern, batched=kern_b)
 
     t0 = time.perf_counter()
     runs = fill(N_RECORDS)
@@ -754,7 +1175,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        LAUNCHES["merge_path"] = 0
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
         eng, comp = run_compaction(os.path.join(work, "db"), runs, device,
                                    want)
         launches = LAUNCHES["merge_path"]
@@ -775,9 +1196,40 @@ def main() -> int:
                                  "its values on the device")
         emit("compact_values", **comp_v)
         eng.close()
+        del eng
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
 
+    blockwise = run_blockwise(runs, device, want, BLOCKWISE_BUDGET)
+    for depth in (1, 2):
+        if blockwise[f"depth{depth}"]["ranges"] < 3 or \
+                blockwise[f"depth{depth}"]["merge_calls"] == 0:
+            raise AssertionError(f"blockwise depth {depth} ran fewer than 3 "
+                                 f"ranges or no merge kernel: {blockwise}")
+    emit("blockwise", **blockwise)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    jobs = split_jobs(runs, device)
+    post_opts = split_post_opts(jobs)
+    split_s = time.perf_counter() - t0
+    batched = run_batched(jobs, post_opts, device)
+    k_runs = batched["runs_per_partition"]
+    want_rows = (k_runs - 1) * len(jobs)
+    if (batched["merge_calls"] != k_runs - 1
+            or batched["merge_rows"] != want_rows):
+        raise AssertionError(f"the batched group took {batched['merge_calls']}"
+                             f" merge calls over {batched['merge_rows']} rows,"
+                             f" not {k_runs - 1} over {want_rows}")
+    del jobs
+    # the batched merges' own operands, timed against the plain batched
+    # merge and against one 2-D call per row
+    own_b = [_time_batched(a, b, nk) for a, b, nk in batched.pop("operands")]
+    emit("batched", split_s=split_s, merges=own_b, **batched)
+    torch.cuda.empty_cache()
+
+    emit("elapsed", seconds=time.perf_counter() - started)
     # the kernel line: per launch, averaged over the compaction's own
     # merges (its operands, not synthetic keys)
     merges = stage["merges"]
@@ -806,6 +1258,27 @@ def main() -> int:
         "synthetic_shared_prefix_ms": kern["large_shared_prefix"]["ms"],
         "own_over_synthetic": (own_half / kern["large"]["ms"]
                                if own_half else None),
+        "ptxas": ptxas,
+    }, {
+        "name": "merge_path_batched",
+        "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/merge_path.cu",
+        "replaces": "pegasus_tpu/ops/pallas_merge.py:324",
+        "launches": batched["merge_calls"],
+        "rows": batched["merge_rows"],
+        "max_abs_err": max(kern_b["max_abs_err"],
+                           max(m["max_abs_err"] for m in own_b)),
+        "ms": sum(m["ms"] for m in own_b) / len(own_b),
+        "plain_ms": sum(m["plain_ms"] for m in own_b) / len(own_b),
+        "bound_ms": sum(m["bound_ms"] for m in own_b) / len(own_b),
+        "bound_by": own_b[0]["bound_by"],
+        "library_ms": None,
+        "sequential_ms": sum(m["sequential_ms"] for m in own_b) / len(own_b),
+        "bound_ms_int64": sum(m["bound_ms_int64"] for m in own_b)
+        / len(own_b),
+        "batch": own_b[0]["batch"],
+        "synthetic_ms": kern_b["timed"]["ms"],
+        "synthetic_sequential_ms": kern_b["timed"]["sequential_ms"],
         "ptxas": ptxas,
     }]}), flush=True)
     print(smi, flush=True)

@@ -6,11 +6,16 @@
 // exactly la+lb ascending rows, every column carried. Compaction merges
 // its runs pairwise through this kernel (ops/compact.py _pipeline_body).
 //
-// Layout: each operand is one contiguous int64 buffer [n_cols, L] (column
-// c of A at a + c*la). The key columns hold u32 values widened to int64;
-// they are compared as u32 (pads 0xFFFFFFFF sort last). Ties take A
-// first; in compaction they occur only among identical pad rows of one
-// run, where any order writes the same bytes.
+// Layout: each operand is one contiguous int64 buffer [batch, n_cols, L]:
+// `batch` independent merges (a batch row b's column c of A at
+// a + (b*n_cols + c)*la), row b of A merged with row b of B into row b of
+// the output [batch, n_cols, la+lb]. A single merge is batch 1; the
+// batched multi-partition compaction (ops/batched_compact.py) merges one
+// row per partition in the same launches, in place of the reference's
+// jax.vmap. The key columns hold u32 values widened to int64; they are
+// compared as u32 (pads 0xFFFFFFFF sort last). Ties take A first; in
+// compaction they occur only among identical pad rows of one run, where
+// any order writes the same bytes.
 //
 // What bounds it: the work is a single pass over memory (each input row
 // read once, each output row written once, a few integer compares per
@@ -20,13 +25,13 @@
 // several scattered loads per decision. The design keeps both the
 // searches and the compares out of device memory, as the reference does
 // with its chunked VMEM merge:
-//   1. partition (merge_path_splits_kernel): one thread per tile
-//      boundary d_t = t * kTile binary-searches its merge-path split a_t
+//   1. partition (merge_path_splits_kernel): one thread per (row, tile
+//      boundary) d_t = t * kTile binary-searches its merge-path split a_t
 //      (a_t + b_t = d_t) over device memory and writes it to a scratch
 //      array: one search per kTile outputs (the reference's
 //      _diagonal_splits, :108-128). Each probe issues all its column
 //      loads at once, so a step costs one memory latency;
-//   2. merge (merge_path_tile_kernel): block t owns outputs
+//   2. merge (merge_path_tile_kernel): block (t, row) owns outputs
 //      [d_t, d_t+1), whose inputs are exactly A[a_t, a_t+1) and
 //      B[b_t, b_t+1). It finds the key columns in which the first and
 //      last rows of both non-empty windows agree (both runs are sorted,
@@ -39,7 +44,9 @@
 //      key columns widened from shared memory, payload columns gathered
 //      from the two contiguous windows.
 // Ties take A in both phases (the same strictness), so a tile boundary
-// never splits equal rows of one run onto the wrong side.
+// never splits equal rows of one run onto the wrong side. A batch row's
+// offsets are computed in int64 (a full batch can exceed 2^31 values),
+// and no thread or block reads outside its own row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,16 +87,21 @@ __device__ __forceinline__ bool b_less_a(const int64_t* __restrict__ a,
   return less;
 }
 
-// splits[t] = the number of A rows among the first min(t * kTile, la + lb)
-// outputs, t = 0..n_tiles: one thread per boundary, a binary search along
-// its diagonal
+// splits[row][t] = the number of A rows among the first
+// min(t * kTile, la + lb) outputs of batch row `row`, t = 0..n_tiles: one
+// thread per (row, boundary), a binary search along its diagonal
 __global__ void __launch_bounds__(kSplitThreads)
 merge_path_splits_kernel(const int64_t* __restrict__ a, int64_t la,
-                         const int64_t* __restrict__ b, int64_t lb, int nk,
-                         int64_t n_tiles, int64_t* __restrict__ splits) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kSplitThreads +
+                         const int64_t* __restrict__ b, int64_t lb,
+                         int n_cols, int nk, int64_t batch, int64_t n_tiles,
+                         int64_t* __restrict__ splits) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kSplitThreads +
                     threadIdx.x;
-  if (t > n_tiles) return;
+  if (g >= batch * (n_tiles + 1)) return;
+  const int64_t row = g / (n_tiles + 1);
+  const int64_t t = g - row * (n_tiles + 1);
+  a += row * n_cols * la;
+  b += row * n_cols * lb;
   const int64_t total = la + lb;
   const int64_t d = t * kTile < total ? t * kTile : total;
   int64_t lo = d > lb ? d - lb : 0;
@@ -103,7 +115,7 @@ merge_path_splits_kernel(const int64_t* __restrict__ a, int64_t la,
       hi = mid;
     }
   }
-  splits[t] = lo;
+  splits[g] = lo;
 }
 
 // strict row x < row y of a tile's staged key columns (column stride kTile)
@@ -122,6 +134,15 @@ merge_path_tile_kernel(const int64_t* __restrict__ a, int64_t la,
                        const int64_t* __restrict__ b, int64_t lb,
                        const int64_t* __restrict__ splits,
                        int64_t* __restrict__ out, int n_cols, int nk) {
+  // blockIdx.y is the batch row: every pointer below is that row's
+  const int64_t row = blockIdx.y;
+  const int64_t total = la + lb;
+  const int64_t n_tiles = (total + kTile - 1) / kTile;
+  a += row * n_cols * la;
+  b += row * n_cols * lb;
+  out += row * n_cols * total;
+  splits += row * (n_tiles + 1);
+
   // [nk - skip][kTile] staged key columns, each A's window then B's; then
   // src[kTile]: output k's row in that concatenated window (< na: A)
   extern __shared__ uint32_t keys[];
@@ -129,7 +150,6 @@ merge_path_tile_kernel(const int64_t* __restrict__ a, int64_t la,
   __shared__ int64_t head[kMaxKeys];  // the skipped columns' common values
   __shared__ int skip_s;
 
-  const int64_t total = la + lb;
   const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int64_t d1 = d0 + kTile < total ? d0 + kTile : total;
   const int64_t a0 = splits[blockIdx.x];
@@ -240,35 +260,44 @@ bool supported(int nk) { return nk >= 1 && nk <= kMaxKeys; }
 // Both entries launch on `stream` (a cudaStream_t, PyTorch's current
 // stream), do not synchronise and allocate nothing. They return the
 // cudaError_t of the launch (0 = success); cudaErrorInvalidValue for an
-// nk above 10. The caller validates shapes and types and allocates
-// `splits` as int64 [ceil((la+lb)/2048)+1].
+// nk above 10 or a batch outside 1..65535 (the grid's y extent). The
+// caller validates shapes and types and allocates `splits` as int64
+// [batch, ceil((la+lb)/2048)+1].
 
 extern "C" int merge_path_splits_i64(const void* a, int64_t la,
-                                     const void* b, int64_t lb, int nk,
-                                     void* splits, void* stream) {
-  if (!supported(nk)) return static_cast<int>(cudaErrorInvalidValue);
+                                     const void* b, int64_t lb, int n_cols,
+                                     int nk, int64_t batch, void* splits,
+                                     void* stream) {
+  if (!supported(nk) || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t n_tiles = (la + lb + kTile - 1) / kTile;
-  const int64_t blocks = (n_tiles + kSplitThreads) / kSplitThreads;
+  const int64_t blocks =
+      (batch * (n_tiles + 1) + kSplitThreads - 1) / kSplitThreads;
   merge_path_splits_kernel<<<static_cast<unsigned>(blocks), kSplitThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(a), la, static_cast<const int64_t*>(b), lb,
-      nk, n_tiles, static_cast<int64_t*>(splits));
+      n_cols, nk, batch, n_tiles, static_cast<int64_t*>(splits));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int merge_path_merge_i64(const void* a, int64_t la, const void* b,
                                     int64_t lb, const void* splits, void* out,
-                                    int n_cols, int nk, void* stream) {
-  if (!supported(nk)) return static_cast<int>(cudaErrorInvalidValue);
+                                    int n_cols, int nk, int64_t batch,
+                                    void* stream) {
+  if (!supported(nk) || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (la + lb == 0) return 0;
-  const int64_t blocks = (la + lb + kTile - 1) / kTile;
+  const dim3 blocks(static_cast<unsigned>((la + lb + kTile - 1) / kTile),
+                    static_cast<unsigned>(batch));
   const size_t smem = static_cast<size_t>(nk) * kTile * sizeof(uint32_t) +
                       kTile * sizeof(uint16_t);
   const cudaError_t err = cudaFuncSetAttribute(
       merge_path_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_path_tile_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+  merge_path_tile_kernel<<<blocks, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(a), la, static_cast<const int64_t*>(b), lb,
       static_cast<const int64_t*>(splits), static_cast<int64_t*>(out), n_cols,

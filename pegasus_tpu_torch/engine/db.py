@@ -84,6 +84,7 @@ class EngineOptions:
     # value residency: pin uniform-layout value rows on the device with
     # the key columns so compaction outputs gather their values there
     device_values: bool = False
+    user_ops: tuple = ()            # parsed user-specified compaction rules
     compression: str = "none"       # SST section compression: none | zlib
 
 
@@ -716,7 +717,8 @@ class LsmEngine:
         opts = self._compact_options(
             now=now, pidx=self.opts.pidx,
             partition_mask=self.opts.partition_mask, bottommost=bottommost,
-            default_ttl=self.opts.default_ttl, runs_sorted=True)
+            default_ttl=self.opts.default_ttl, runs_sorted=True,
+            user_ops=tuple(self.opts.user_ops))
         device_runs = None
         if self.opts.backend == "cuda":
             # device-resident run cache: each SST packs and uploads once in

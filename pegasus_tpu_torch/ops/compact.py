@@ -31,7 +31,7 @@ package's padding layout: pow2 buckets >= 256 rows, key pads 0xFFFFFFFF,
 gidx pads -1, aux pads 0.
 """
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ from ..runtime.tracing import COMPACT_TRACER as _TRACE
 from .merge_path import merge_two_sorted
 from .packing import (DEFAULT_PREFIX_U32, compute_suffix_ranks,
                       pack_key_prefixes, pack_sbytes)
+from .pipeline import CompactPipeline, pipeline_depth
 
 _U32_MAX = 0xFFFFFFFF
 _MIN_BUCKET = 256  # runs pad to pow2 buckets >= this (the reference layout)
@@ -65,6 +66,10 @@ class CompactOptions:
     backend: str = "cuda"          # "cuda" | "cpu"
     device: object = None          # cuda backend's device; None = "cuda"
     runs_sorted: bool = None       # None = detect; True skips the host check
+    user_ops: tuple = ()           # engine.compaction_rules Operations
+    # device merges of more records than this split into disjoint key
+    # ranges that compact one after another (the blockwise path)
+    max_device_records: int = 128 << 20
 
     def resolved_now(self) -> int:
         return epoch_now() if self.now is None else self.now
@@ -369,22 +374,26 @@ def pack_run_device(block, prefix_u32: int = DEFAULT_PREFIX_U32,
 
 def _pipeline_body(runs, aux_runs, padded_lens, nk, now, pidx, pmask,
                    bottommost, do_filter):
-    """merge -> dedup -> filter -> compact, shared by the host-packed and
-    the device-cached entry points.
+    """merge -> dedup -> filter -> compact over a leading batch axis of B
+    independent merges (one per partition in the batched path; B = 1 for
+    a single merge), shared by the host-packed and the device-cached
+    entry points.
 
-    runs[i] = (kcols int64 [nk-1, P_i], klen [P_i], idx [P_i]). Sort key
-    per record: (prefix lanes, [suffix rank,] klen<<8|prio). Pads carry
-    0xFFFFFFFF keys / idx -1 and sort to the tail of every merge; the
-    idx >= 0 guard at the end excludes them.
+    runs[i] = (kcols int64 [B, nk-1, P_i], klen [B, P_i], idx [B, P_i]).
+    Sort key per record: (prefix lanes, [suffix rank,] klen<<8|prio). Pads
+    carry 0xFFFFFFFF keys / idx -1 and sort to the tail of every merge;
+    the idx >= 0 guard at the end excludes them.
 
-    aux_runs[i] holds run i's ROW-aligned (expire, deleted, hash32): the
-    TTL/stale/tombstone filter folds into the idx column BEFORE the merge
-    (filtered rows get idx -1). A key's duplicates are masked by `same`
-    regardless of the newest version's filter bit, so a filtered newest
-    version still shadows (and drops) its older versions.
+    aux_runs[i] holds run i's ROW-aligned (expire, deleted, hash32), each
+    [B, P_i]: the TTL/stale/tombstone filter folds into the idx column
+    BEFORE the merge (filtered rows get idx -1). pidx is an int or a
+    [B, 1] tensor (each batch row's own partition). A key's duplicates
+    are masked by `same` regardless of the newest version's filter bit,
+    so a filtered newest version still shadows (and drops) its older
+    versions.
 
-    -> (out_idx int64 [sum P_i]: survivors first, then -1; count as a
-    0-d device tensor)."""
+    -> (out_idx int64 [B, sum P_i]: each row's survivors first, then -1;
+    counts int64 [B] on the device)."""
     items = []
     for i, (kcols, klen, idx) in enumerate(runs):
         if do_filter:
@@ -398,7 +407,7 @@ def _pipeline_body(runs, aux_runs, padded_lens, nk, now, pidx, pmask,
         # u32 arithmetic as in the reference: pads (klen 0xFFFFFFFF) wrap
         kp = ((klen << 8) & _U32_MAX) | i
         items.append((padded_lens[i],
-                      torch.cat([kcols, kp[None], idx[None]], dim=0)))
+                      torch.cat([kcols, kp[:, None], idx[:, None]], dim=1)))
     # merge smallest-first; the list sort is stable, so equal lengths keep
     # their order, as in the reference
     while len(items) > 1:
@@ -406,65 +415,61 @@ def _pipeline_body(runs, aux_runs, padded_lens, nk, now, pidx, pmask,
         (la, a), (lb, b) = items[0], items[1]
         items = items[2:] + [(la + lb, merge_two_sorted(a, b, nk))]
     cols = items[0][1]
-    idx = cols[nk]
-    n = idx.shape[0]
-    same = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    idx = cols[:, nk]
+    batch, n = idx.shape
+    same = torch.zeros((batch, n), dtype=torch.bool, device=idx.device)
     if n > 1:
-        kp_key = cols[nk - 1] >> 8   # run priority stripped
-        same[1:] = ((cols[: nk - 1, 1:] == cols[: nk - 1, :-1]).all(dim=0)
-                    & (kp_key[1:] == kp_key[:-1]))
+        kp_key = cols[:, nk - 1] >> 8   # run priority stripped
+        same[:, 1:] = ((cols[:, : nk - 1, 1:] == cols[:, : nk - 1, :-1])
+                       .all(dim=1) & (kp_key[:, 1:] == kp_key[:, :-1]))
     keep = (idx >= 0) & ~same
-    pos = torch.cumsum(keep, dim=0) - 1
-    count = pos[-1] + 1
+    pos = torch.cumsum(keep, dim=1) - 1
+    counts = pos[:, -1] + 1
     tgt = torch.where(keep, pos, n)
-    out_idx = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
-    out_idx.scatter_(0, tgt, idx)
-    return out_idx[:n], count
+    out_idx = torch.full((batch, n + 1), -1, dtype=torch.int64,
+                         device=idx.device)
+    out_idx.scatter_(1, tgt, idx)
+    return out_idx[:, :n], counts
 
 
-def _make_cached_fn(padded_lens: tuple, run_ws: tuple, w: int,
-                    want_padded: bool = False):
+def _make_cached_fn(padded_lens: tuple, run_ws: tuple, w: int):
     """The pipeline over CACHED device runs (DeviceRun columns, packed and
-    uploaded once when the SST was born or first joined a device merge).
+    uploaded once when the SST was born or first joined a device merge),
+    over a leading batch axis as _pipeline_body.
 
     Everything a specific merge needs beyond the cached columns is derived
-    here: missing prefix lanes for runs with shorter keys (0 in the run,
-    0xFFFFFFFF in the pad tail), the padded-concat index, and the mapping
-    of survivor indices from padded-concat space to real-concat space
-    (what the host gather indexes). want_padded additionally returns the
-    padded-concat index (the per-run value gather's input)."""
+    here, per batch row on the device: missing prefix lanes for runs with
+    shorter keys (0 in the run, 0xFFFFFFFF in the pad tail) and each
+    record's index in its row's real concat (what the host gather
+    indexes), which the merge carries as its payload. A run's pad rows
+    are those whose klen holds the pad 0xFFFFFFFF (real keys are shorter
+    than 16 MiB). real_off [B, K] (a device tensor, _real_offsets per
+    row) holds where each run starts in its row's real concat; pidx is an
+    int or a [B, 1] tensor."""
     nk = w + 1  # cached runs never carry a suffix-rank column
-    padded_offsets = np.cumsum([0] + list(padded_lens))
 
-    def fn(cached_runs, aux_runs, real_lens, now, pidx, pmask, bottommost,
+    def fn(cached_runs, aux_runs, real_off, now, pidx, pmask, bottommost,
            do_filter):
         runs = []
         for i, (kcols, klen) in enumerate(cached_runs):
-            iota = torch.arange(padded_lens[i], device=klen.device)
-            in_run = iota < real_lens[i]
+            in_run = klen != _U32_MAX
             if w > run_ws[i]:
                 extra = torch.where(in_run, 0, _U32_MAX)
                 kcols = torch.cat(
-                    [kcols, extra[None].expand(w - run_ws[i], -1)], dim=0)
-            gidx = torch.where(in_run, iota + int(padded_offsets[i]), -1)
+                    [kcols, extra[:, None].expand(-1, w - run_ws[i], -1)],
+                    dim=1)
+            iota = torch.arange(padded_lens[i], device=klen.device)
+            gidx = torch.where(in_run, iota + real_off[:, i: i + 1], -1)
             runs.append((kcols, klen, gidx))
-        out_idx, count = _pipeline_body(
-            runs, aux_runs, padded_lens, nk, now, pidx, pmask, bottommost,
-            do_filter)
-        # padded-concat -> real-concat: subtract each run's accumulated
-        # pad slack
-        real_off = np.cumsum([0] + list(real_lens))
-        mapped = out_idx
-        for i in range(len(padded_lens)):
-            d_i = int(padded_offsets[i] - real_off[i])
-            mapped = torch.where(out_idx >= int(padded_offsets[i]),
-                                 out_idx - d_i, mapped)
-        mapped = torch.where(out_idx >= 0, mapped, -1)
-        if want_padded:
-            return mapped, out_idx, count
-        return mapped, count
+        return _pipeline_body(runs, aux_runs, padded_lens, nk, now, pidx,
+                              pmask, bottommost, do_filter)
 
     return fn
+
+
+def _real_offsets(device_runs) -> list:
+    """Where each run starts in the concat of the runs' real rows."""
+    return np.cumsum([0] + [r.n for r in device_runs[:-1]]).tolist()
 
 
 class CudaBackend:
@@ -486,21 +491,23 @@ class CudaBackend:
         return c
 
     def survivors_cached_device(self, device_runs, now, pidx, pmask,
-                                bottommost, do_filter, want_padded=False):
+                                bottommost, do_filter):
         """The engine hot path: merge cached DeviceRuns (newest first)
-        without host packing or re-upload. -> (mapped index, count), or
-        (mapped, padded, count) with want_padded; indices stay on the
-        device."""
+        without host packing or re-upload. -> (survivor index into the
+        runs' real concat, on the device; count)."""
         w = max(r.w for r in device_runs)
         fn = _make_cached_fn(tuple(r.padded_len for r in device_runs),
-                             tuple(r.w for r in device_runs), w,
-                             want_padded=want_padded)
-        cached = [(r.cols, r.klen) for r in device_runs]
-        aux = [(r.expire, r.deleted, r.hash32) for r in device_runs]
+                             tuple(r.w for r in device_runs), w)
+        # a batch of one: views, no copies
+        cached = [(r.cols[None], r.klen[None]) for r in device_runs]
+        aux = [(r.expire[None], r.deleted[None], r.hash32[None])
+               for r in device_runs]
         with _TRACE.span("device", records=sum(r.n for r in device_runs)):
-            out = fn(cached, aux, [r.n for r in device_runs], now, pidx,
-                     pmask, bool(bottommost), bool(do_filter))
-            return (*out[:-1], self._count(out[-1]))
+            real_off = torch.tensor([_real_offsets(device_runs)],
+                                    device=self.device)
+            out_idx, counts = fn(cached, aux, real_off, now, pidx, pmask,
+                                 bool(bottommost), bool(do_filter))
+            return out_idx[0], self._count(counts[0])
 
     def prepare(self, packed: PackedRuns) -> DevicePacked:
         with _TRACE.span("h2d", records=sum(packed.lens)) as sp:
@@ -540,11 +547,14 @@ class CudaBackend:
         prep = packed if isinstance(packed, DevicePacked) \
             else self.prepare(packed)
         nk = prep.w + (1 if prep.has_rank else 0) + 1
+        # a batch of one: views, no copies
+        run_cols = [tuple(t[None] for t in rc) for rc in prep.run_cols]
+        aux = [tuple(t[None] for t in ax) for ax in prep.aux]
         with _TRACE.span("device", records=sum(prep.padded_lens)):
-            out_idx, count = _pipeline_body(
-                prep.run_cols, prep.aux, prep.padded_lens, nk, now, pidx,
-                pmask, bool(bottommost), bool(do_filter))
-            return out_idx, self._count(count)
+            out_idx, counts = _pipeline_body(
+                run_cols, aux, prep.padded_lens, nk, now, pidx, pmask,
+                bool(bottommost), bool(do_filter))
+            return out_idx[0], self._count(counts[0])
 
 
 def _checked_survivors(dev_idx: torch.Tensor, count: int, n: int):
@@ -567,38 +577,36 @@ def gather_device_survivors(concat: KVBlock, dev_idx, count: int) -> KVBlock:
         return concat.gather(_checked_survivors(dev_idx, count, concat.n))
 
 
-def _cached_val_gather(val2ds, padded_lens: tuple, idx: torch.Tensor,
+def _cached_val_gather(device_runs, idx: torch.Tensor,
                        vl0: int) -> torch.Tensor:
-    """Per-run masked value-row gather by PADDED-concat survivor index:
-    run i owns indices [offs[i], offs[i] + padded_lens[i])."""
-    offs = np.cumsum([0] + list(padded_lens))
+    """Per-run masked value-row gather by real-concat survivor index: run
+    i owns indices [offs[i], offs[i] + n_i), its first n_i val2d rows."""
+    offs = _real_offsets(device_runs)
     out = torch.zeros((idx.shape[0], vl0), dtype=torch.uint8,
                       device=idx.device)
-    for i, v in enumerate(val2ds):
-        local = idx - int(offs[i])
-        ok = (local >= 0) & (local < padded_lens[i])
-        rows = v[local.clamp(0, padded_lens[i] - 1)]
+    for r, off in zip(device_runs, offs):
+        local = idx - off
+        ok = (local >= 0) & (local < r.n)
+        rows = r.val2d[local.clamp(0, r.n - 1)]
         out = torch.where(ok[:, None], rows, out)
     return out
 
 
-def materialize_cached_survivors(concat: KVBlock, device_runs, mapped_idx,
-                                 padded_idx, count: int) -> KVBlock:
+def materialize_cached_survivors(concat: KVBlock, device_runs, dev_idx,
+                                 count: int) -> KVBlock:
     """Compaction output with the value rows gathered ON THE DEVICE per
-    run by padded-concat index and downloaded as one block; keys and aux
-    gather on the host by real-concat index. Preconditions (checked by
-    the caller): every run has val2d with one shared vl0, and concat has
-    the uniform layout matching it."""
+    run and downloaded as one block; keys and aux gather on the host,
+    both by the real-concat survivor index. Preconditions (checked by the
+    caller): every run has val2d with one shared vl0, and concat has the
+    uniform layout matching it."""
     if count == 0:
         return KVBlock.empty()
     kl0, vl0 = concat.uniform_layout()
     with _TRACE.span("gather", records=count,
                      nbytes=count * (kl0 + vl0)):
-        out_v = _cached_val_gather(
-            [r.val2d for r in device_runs],
-            tuple(r.padded_len for r in device_runs),
-            padded_idx[:count], vl0).cpu().numpy()
-        idx = _checked_survivors(mapped_idx, count, concat.n)
+        out_v = _cached_val_gather(device_runs, dev_idx[:count],
+                                   vl0).cpu().numpy()
+        idx = _checked_survivors(dev_idx, count, concat.n)
         return KVBlock(
             concat.key_arena.reshape(concat.n, kl0)[idx].reshape(-1),
             np.arange(count, dtype=np.int64) * kl0,
@@ -627,12 +635,25 @@ def compact_blocks(blocks, opts: CompactOptions,
     be None). When the backend is cuda and EVERY non-empty run has one,
     the merge consumes the resident columns directly: no host packing, no
     re-upload. A device failure raises; nothing falls back to the cpu
-    backend."""
+    backend.
+
+    A cuda merge of sorted runs with more than opts.max_device_records
+    records goes blockwise (_compact_blockwise): disjoint key ranges
+    compact one after another, each within the budget."""
     if device_runs is not None:
         device_runs = [d for b, d in zip(blocks, device_runs) if b.n]
     runs = [b for b in blocks if b.n]
     if not runs:
         return CompactResult(KVBlock.empty(), _stats(0, 0))
+    # bigger than the device budget: dedup and every filter are per key,
+    # so disjoint key ranges compact independently and their outputs
+    # concatenate into exactly the whole merge's. Sorted runs only: the
+    # range cuts binary-search each run (an unsorted input takes the
+    # normal path, whose pack step sorts it)
+    total_in = sum(b.n for b in runs)
+    if (opts.backend != "cpu" and opts.runs_sorted
+            and total_in > opts.max_device_records):
+        return _compact_blockwise(runs, opts, total_in)
     # run priority travels in 8 bits of the packed (klen<<8 | prio) sort
     # column; wider merges pre-combine the newest runs (no filtering: only
     # the final merge may drop tombstones/expired) to stay within it
@@ -663,14 +684,11 @@ def compact_blocks(blocks, opts: CompactOptions,
         vl0s = {d.vl0 for d in device_runs} \
             if all(d.val2d is not None for d in device_runs) else set()
         uni = whole.uniform_layout() if len(vl0s) == 1 else None
+        dev_idx, count = backend.survivors_cached_device(device_runs, *fargs)
         if uni is not None and uni[1] == next(iter(vl0s)):
-            mapped, padded, count = backend.survivors_cached_device(
-                device_runs, *fargs, want_padded=True)
-            out = materialize_cached_survivors(whole, device_runs, mapped,
-                                               padded, count)
+            out = materialize_cached_survivors(whole, device_runs, dev_idx,
+                                               count)
         else:
-            dev_idx, count = backend.survivors_cached_device(device_runs,
-                                                             *fargs)
             out = gather_device_survivors(whole, dev_idx, count)
     else:
         packed = pack_runs(runs, opts, need_sbytes=False)
@@ -683,10 +701,195 @@ def compact_blocks(blocks, opts: CompactOptions,
 
 def apply_post_filters(out: KVBlock, opts: CompactOptions,
                        now: int) -> KVBlock:
-    """Host-side post pass: the table default_ttl rewrite."""
+    """Host-side post passes of every merge entry point (single,
+    blockwise, batched): the user-specified compaction rules, then the
+    table default_ttl rewrite, in the reference's order (its TTL filter
+    runs the user ops first)."""
+    if opts.filter and opts.user_ops:
+        from ..engine.compaction_rules import apply_operations
+
+        drop, _ = apply_operations(out, opts.user_ops, now)
+        if drop.any():
+            out = out.gather(np.nonzero(~drop)[0])
     if opts.filter and opts.default_ttl > 0:
         _apply_default_ttl(out, now + opts.default_ttl)
     return out
+
+
+def _slice_block(b: KVBlock, lo: int, hi: int) -> KVBlock:
+    """Zero-copy row slice. Each arena is cut, as a view, to the span its
+    rows' bytes occupy, and their offsets rebased onto it: a range's
+    concat and gather then copy that range's bytes, not every run's whole
+    arena."""
+    def cut(arena, off, length):
+        off, length = off[lo:hi], length[lo:hi]
+        if len(off) == 0:
+            return arena[:0], off
+        start = int(off.min())
+        return arena[start: int((off + length).max())], off - start
+
+    ka, ko = cut(b.key_arena, b.key_off, b.key_len)
+    va, vo = cut(b.val_arena, b.val_off, b.val_len)
+    return KVBlock(ka, ko, b.key_len[lo:hi], va, vo, b.val_len[lo:hi],
+                   b.expire_ts[lo:hi], b.hash32[lo:hi], b.deleted[lo:hi])
+
+
+def _compact_blockwise(runs, opts: CompactOptions,
+                       total_in: int) -> CompactResult:
+    """Range-decomposed compaction for merges bigger than the device
+    budget: boundary keys from the largest run's quantiles cut EVERY run
+    into aligned disjoint key ranges; each range merges, dedups and
+    filters on its own and the outputs concatenate in key order. `now` is
+    pinned once, so every range filters against the same clock.
+
+    With PEGASUS_COMPACT_PIPELINE_DEPTH > 1 (default 2) the ranges run
+    double-buffered (_compact_blockwise_pipelined); at depth 1 one after
+    another through compact_blocks."""
+    opts = replace(opts, now=opts.resolved_now())
+    n_ranges = max(2, -(-total_in // opts.max_device_records))
+    pivot = max(runs, key=lambda b: b.n)
+    boundaries = []
+    for j in range(1, n_ranges):
+        k = pivot.key(min(pivot.n - 1, j * pivot.n // n_ranges))
+        if not boundaries or k > boundaries[-1]:
+            boundaries.append(k)
+    cuts = [[0] * len(runs)]
+    for k in boundaries:
+        cuts.append([b.lower_bound(k) for b in runs])
+    cuts.append([b.n for b in runs])
+    # long keys take pack_runs' suffix-rank path, which concatenates its
+    # inputs: zero-copy slices would drag the full shared arenas into
+    # every range (n_ranges x the memory, on the bounded-memory path), so
+    # such slices are compacted down to their own rows first
+    long_keys = max(int(b.key_len.max()) for b in runs) > 4 * opts.prefix_u32
+    jobs = []  # (non-empty range runs, range total, direct)
+    for lo_cut, hi_cut in zip(cuts, cuts[1:]):
+        range_runs = [_slice_block(b, lo, hi)
+                      for b, lo, hi in zip(runs, lo_cut, hi_cut)]
+        if long_keys:
+            range_runs = [rb.gather(np.arange(rb.n, dtype=np.int64))
+                          for rb in range_runs]
+        range_runs = [rb for rb in range_runs if rb.n]
+        range_total = sum(rb.n for rb in range_runs)
+        if range_total == 0:
+            continue
+        # direct ranges re-enter compact_blocks whole instead of the split
+        # pack/device/gather stages: non-shrinking (degenerate) ranges,
+        # ranges still over budget (skewed keys: recursive blockwise) and
+        # >255-run merges (the pre-combine path)
+        direct = (range_total >= total_in
+                  or range_total > opts.max_device_records
+                  or len(range_runs) > 255)
+        jobs.append((range_runs, range_total, direct))
+    if len(jobs) > 1 and pipeline_depth() > 1:
+        return _compact_blockwise_pipelined(jobs, opts, total_in)
+    out_blocks = []
+    for range_runs, range_total, _ in jobs:
+        res = compact_blocks(range_runs,
+                             _range_opts(opts, range_total, total_in))
+        if res.block.n:
+            out_blocks.append(res.block)
+    return _concat_ranges(out_blocks, total_in)
+
+
+def _range_opts(opts: CompactOptions, range_total: int,
+                total_in: int) -> CompactOptions:
+    """Per-range CompactOptions: a range that cannot shrink (one key
+    repeated across the whole input) merges directly with a raised budget
+    instead of recursing forever."""
+    if range_total >= total_in:
+        return replace(opts, max_device_records=range_total + 1)
+    return opts
+
+
+def _concat_ranges(out_blocks, total_in: int) -> CompactResult:
+    out = (KVBlock.concat(out_blocks) if len(out_blocks) != 1
+           else out_blocks[0])
+    return CompactResult(out, _stats(total_in, out.n))
+
+
+class _SideStream:
+    """Device work of a pipeline worker on a CUDA stream of its own, so it
+    overlaps the calling thread's kernels (on the default stream it would
+    serialise with them). The consumer waits on the work's event before
+    it reads the tensors, and marks them used on its own stream, so the
+    caching allocator does not hand their memory out again while its
+    kernels still read them. On a CPU device both steps are no-ops.
+
+    The work may read DeviceRun columns, whose uploads were queued on the
+    default stream (a pageable copy can return before its DMA ends), so
+    the side stream first waits for what the default stream holds. That
+    may include the dispatch in flight: milliseconds of device work beside
+    the host stages the pipeline overlaps."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def run(self, fn, *args):
+        """-> (fn(*args), event to wait on, or None)."""
+        if self.stream is None:
+            return fn(*args), None
+        self.stream.wait_stream(torch.cuda.default_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            out = fn(*args)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        return out, ev
+
+    def adopt(self, tensors, ev) -> None:
+        """Make the calling thread's stream wait for `ev` and own
+        `tensors`."""
+        if ev is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(ev)
+        for t in tensors:
+            t.record_stream(cur)
+
+
+def _compact_blockwise_pipelined(jobs, opts: CompactOptions,
+                                 total_in: int) -> CompactResult:
+    """Double-buffered range loop: range i+1 packs and uploads on a host
+    worker (on a side stream) and range i-1 gathers and post-filters on
+    another while range i runs its device merge. opts.now is pinned. A
+    failure in any stage drains the workers and raises."""
+    now = opts.now
+    fargs = (now, opts.pidx, opts.partition_mask,
+             bool(opts.bottommost), bool(opts.filter))
+    backend = get_backend(opts.backend, opts.device)
+    side = _SideStream(backend.device)
+
+    def _prefetch(job):
+        range_runs, _, direct = job
+        if direct:
+            return None
+        packed = pack_runs(range_runs, opts, need_sbytes=False)
+        return side.run(backend.prepare, packed)  # h2d on the worker
+
+    def _dispatch(i, pre):
+        range_runs, range_total, direct = jobs[i]
+        if direct:
+            return compact_blocks(
+                range_runs, _range_opts(opts, range_total, total_in)).block
+        prep, ev = pre
+        side.adopt([t for group in prep.run_cols + prep.aux for t in group],
+                   ev)
+        return backend.survivors_device(prep, *fargs)
+
+    def _finish(i, disp):
+        range_runs, _, direct = jobs[i]
+        if direct:
+            return disp
+        dev_idx, count = disp
+        concat = (range_runs[0] if len(range_runs) == 1
+                  else KVBlock.concat(range_runs))
+        out = gather_device_survivors(concat, dev_idx, count)
+        return apply_post_filters(out, opts, now)
+
+    blocks = CompactPipeline().map(jobs, _prefetch, _dispatch, _finish)
+    return _concat_ranges([b for b in blocks if b.n], total_in)
 
 
 def sort_block(block: KVBlock, opts: CompactOptions = None) -> KVBlock:

@@ -9,7 +9,8 @@ device (ops/compact.py pack_run_device, prepare) or carried over from the
 JAX package (carry.py).
 
 A merge operand is one stacked int64 tensor [n_cols, L]: rows 0..nk-1
-are the key columns, most significant first; the rest are payload.
+are the key columns, most significant first; the rest are payload. A
+batched operand [B, n_cols, L] holds B independent operands.
 
 merge_two_sorted_plain is the yardstick for the merge-path kernel
 (ops/merge_path.py): independent of it, and what CPU tensors run.
@@ -37,14 +38,20 @@ def lex_less(a_cols, b_cols):
 def merge_two_sorted_plain(a: torch.Tensor, b: torch.Tensor,
                            nk: int) -> torch.Tensor:
     """Merge two [n_cols, L] operands, each ascending over rows 0..nk-1,
-    into one [n_cols, la+lb] operand ascending over the same rows.
+    into one [n_cols, la+lb] operand ascending over the same rows; with a
+    leading batch axis ([B, n_cols, L]) each batch row merges on its own.
 
-    Stable sort passes from the least significant key row up (an LSD
-    radix over whole columns): the result is the lexicographic order, and
-    equal keys keep concat order, A's rows before B's."""
-    cat = torch.cat([a, b], dim=1)
-    perm = torch.arange(cat.shape[1], device=cat.device)
+    Stable sort passes along the last dim from the least significant key
+    row up (an LSD radix over whole columns): the result is the
+    lexicographic order, and equal keys keep concat order, A's rows
+    before B's."""
+    if a.dim() == 2:
+        return merge_two_sorted_plain(a[None], b[None], nk)[0]
+    cat = torch.cat([a, b], dim=2)
+    batch, n_cols, n = cat.shape
+    perm = torch.arange(n, device=cat.device).expand(batch, -1)
     for c in range(nk - 1, -1, -1):
-        order = torch.sort(cat[c, perm], stable=True).indices
-        perm = perm[order]
-    return cat[:, perm]
+        order = torch.sort(torch.gather(cat[:, c], 1, perm), dim=1,
+                           stable=True).indices
+        perm = torch.gather(perm, 1, order)
+    return torch.gather(cat, 2, perm[:, None].expand(-1, n_cols, -1))

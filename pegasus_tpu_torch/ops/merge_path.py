@@ -6,14 +6,19 @@ Port of pegasus_tpu/ops/pallas_merge.py merge_two_sorted_pallas. One merge
 is two launches: the partition pass finds the merge-path split of every
 TILE-output boundary (merge_path_splits; the reference's
 _diagonal_splits), then one block per tile merges its two input windows
-in shared memory. The dispatch is on the tensors' device only: a CUDA
-operand launches the kernels or raises (a build or launch failure is
-never papered over with the plain merge); a CPU operand takes
-merge_path_splits_plain and device_sort.merge_two_sorted_plain.
+in shared memory. Operands are [n_cols, L] for one merge or
+[B, n_cols, L] for B independent merges in the same two launches (a grid
+row per batch row: the batched multi-partition compaction's merge, where
+the reference vmaps its XLA merge). The dispatch is on the tensors'
+device only: a CUDA operand launches the kernels or raises (a build or
+launch failure is never papered over with the plain merge); a CPU operand
+takes merge_path_splits_plain and device_sort.merge_two_sorted_plain.
 
-LAUNCHES counts merges that went through the kernels, one per
-merge_two_sorted call; a run proves it went through them by reading the
-count before and after.
+LAUNCHES["merge_path"] counts merges that went through the kernels, one
+per merge_two_sorted call whatever its batch; LAUNCHES["merge_path_rows"]
+adds each call's batch rows. A run proves it went through the kernels by
+reading the counts before and after, and a batched run that B merges
+shared each call by the ratio of the two.
 """
 
 import ctypes
@@ -22,21 +27,24 @@ import torch
 
 from .device_sort import lex_less, merge_two_sorted_plain
 
-LAUNCHES = {"merge_path": 0}
+LAUNCHES = {"merge_path": 0, "merge_path_rows": 0}
 
 TILE = 2048    # outputs per block of the merge kernel (kTile)
 MAX_KEYS = 10  # key columns: 8 lanes + suffix rank + kp (kMaxKeys)
+MAX_BATCH = 65535  # batch rows per launch (the grid's y extent)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, nk: int) -> None:
     if a.dtype != torch.int64 or b.dtype != torch.int64:
         raise TypeError(f"merge operands must be int64, got {a.dtype}, "
                         f"{b.dtype}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
-        raise ValueError(f"merge operands must be [n_cols, L] with equal "
-                         f"n_cols, got {tuple(a.shape)}, {tuple(b.shape)}")
-    if not 1 <= nk <= a.shape[0]:
-        raise ValueError(f"nk={nk} outside 1..{a.shape[0]}")
+    if (a.dim() not in (2, 3) or a.dim() != b.dim()
+            or a.shape[:-1] != b.shape[:-1]):
+        raise ValueError(f"merge operands must be [n_cols, L] or "
+                         f"[B, n_cols, L] with equal B and n_cols, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if not 1 <= nk <= a.shape[-2]:
+        raise ValueError(f"nk={nk} outside 1..{a.shape[-2]}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
 
@@ -45,58 +53,72 @@ def merge_two_sorted(a: torch.Tensor, b: torch.Tensor,
                      nk: int) -> torch.Tensor:
     """Merge [n_cols, la] and [n_cols, lb] int64 operands, each ascending
     lexicographically over rows 0..nk-1 (u32 values), into
-    [n_cols, la+lb] ascending rows (ties: A first)."""
+    [n_cols, la+lb] ascending rows (ties: A first). With a leading batch
+    axis ([B, n_cols, la] and [B, n_cols, lb]) batch row r of A merges
+    with batch row r of B into [B, n_cols, la+lb], in the same launches."""
     _check(a, b, nk)
     if a.device.type != "cuda":
         return merge_two_sorted_plain(a, b, nk)
+    if a.dim() == 2:
+        return merge_two_sorted(a[None], b[None], nk)[0]
     a, b = a.contiguous(), b.contiguous()
-    n_cols, la = a.shape
-    lb = b.shape[1]
-    out = torch.empty((n_cols, la + lb), dtype=torch.int64, device=a.device)
+    batch, n_cols, la = a.shape
+    lb = b.shape[2]
+    out = torch.empty((batch, n_cols, la + lb), dtype=torch.int64,
+                      device=a.device)
     splits = _launch_splits(a, b, nk)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry("merge_path_merge_i64")(
             a.data_ptr(), la, b.data_ptr(), lb, splits.data_ptr(),
-            out.data_ptr(), n_cols, nk, stream)
+            out.data_ptr(), n_cols, nk, batch, stream)
     if err != 0:
         raise RuntimeError(f"merge_path merge kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES["merge_path"] += 1
+    LAUNCHES["merge_path_rows"] += batch
     return out
 
 
 def merge_path_splits(a: torch.Tensor, b: torch.Tensor,
                       nk: int) -> torch.Tensor:
-    """int64 [ceil((la+lb)/TILE) + 1]: entry t is the number of A rows
-    among the first min(t*TILE, la+lb) rows of the merge. The partition
-    kernel on CUDA operands, merge_path_splits_plain on CPU ones."""
+    """int64 [ceil((la+lb)/TILE) + 1] ([B, ...] for batched operands):
+    entry t is the number of A rows among the first min(t*TILE, la+lb)
+    rows of the merge. The partition kernel on CUDA operands,
+    merge_path_splits_plain on CPU ones."""
     _check(a, b, nk)
     if a.device.type != "cuda":
         return merge_path_splits_plain(a, b, nk)
+    if a.dim() == 2:
+        return _launch_splits(a[None].contiguous(), b[None].contiguous(),
+                              nk)[0]
     return _launch_splits(a.contiguous(), b.contiguous(), nk)
 
 
 def merge_path_splits_plain(a: torch.Tensor, b: torch.Tensor,
                             nk: int) -> torch.Tensor:
     """merge_path_splits as a vectorised binary search over the key
-    columns, every tile boundary at once, with the kernels' predicate:
-    A's row precedes B's unless B's is strictly smaller."""
-    la, lb = a.shape[1], b.shape[1]
+    columns, every tile boundary of every batch row at once, with the
+    kernels' predicate: A's row precedes B's unless B's is strictly
+    smaller."""
+    if a.dim() == 2:
+        return merge_path_splits_plain(a[None], b[None], nk)[0]
+    batch, la, lb = a.shape[0], a.shape[2], b.shape[2]
     total = la + lb
     n_tiles = -(-total // TILE)
     d = torch.clamp(torch.arange(n_tiles + 1, device=a.device) * TILE,
-                    max=total)
+                    max=total).expand(batch, -1)
     lo = torch.clamp(d - lb, min=0)
     hi = torch.clamp(d, max=la)
     if la == 0 or lb == 0:
-        return lo
+        return lo.contiguous()
     for _ in range(la.bit_length() + 1):
         active = lo < hi
         mid = (lo + hi) // 2
         ia = torch.clamp(mid, max=la - 1)
         ib = torch.clamp(d - 1 - mid, 0, lb - 1)
-        take_a = ~lex_less(b[:nk, ib], a[:nk, ia])
+        take_a = ~lex_less([torch.gather(b[:, c], 1, ib) for c in range(nk)],
+                           [torch.gather(a[:, c], 1, ia) for c in range(nk)])
         lo = torch.where(active & take_a, mid + 1, lo)
         hi = torch.where(active & ~take_a, mid, hi)
     return lo
@@ -105,11 +127,12 @@ def merge_path_splits_plain(a: torch.Tensor, b: torch.Tensor,
 _ARGTYPES = {
     "merge_path_splits_i64": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p],
     "merge_path_merge_i64": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
+        ctypes.c_int64, ctypes.c_void_p],
 }
 
 
@@ -124,16 +147,20 @@ def _entry(name: str):
 
 def _launch_splits(a: torch.Tensor, b: torch.Tensor,
                    nk: int) -> torch.Tensor:
+    """The partition kernel on contiguous [B, n_cols, L] operands."""
     if nk > MAX_KEYS:
         raise ValueError(f"nk={nk} above the kernel's {MAX_KEYS} key columns")
-    la, lb = a.shape[1], b.shape[1]
-    splits = torch.empty(-(-(la + lb) // TILE) + 1, dtype=torch.int64,
-                         device=a.device)
+    batch, n_cols, la = a.shape
+    lb = b.shape[2]
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"batch={batch} outside the kernel's 1..{MAX_BATCH}")
+    splits = torch.empty((batch, -(-(la + lb) // TILE) + 1),
+                         dtype=torch.int64, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry("merge_path_splits_i64")(
-            a.data_ptr(), la, b.data_ptr(), lb, nk, splits.data_ptr(),
-            stream)
+            a.data_ptr(), la, b.data_ptr(), lb, n_cols, nk, batch,
+            splits.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"merge_path partition kernel launch failed: "
                            f"cudaError {err}")

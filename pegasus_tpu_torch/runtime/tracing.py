@@ -8,6 +8,10 @@ packages compare line for line:
   sst_write                   the SST write-out (engine/sstable.py)
   read.lookup, read.range     device-served point and range reads
                               (ops/device_lookup.py)
+  pipeline.stall              the calling thread waiting on a pipeline
+                              worker (ops/pipeline.py)
+  pipeline.overlap            an event, not a span: the seconds one item's
+                              worker stages ran beside other work
 
 A span measures host wall time. Where a stage ends in a device
 synchronisation (the `device` span ends after torch.cuda.synchronize),
@@ -53,6 +57,12 @@ class StageTracer:
             dur_s = time.perf_counter() - t0
             for sess in self._sessions:
                 sess._add(stage, dur_s, box["records"], box["bytes"])
+
+    def event(self, stage: str, dur_s: float, records: int = 0,
+              nbytes: int = 0) -> None:
+        """Record a duration measured elsewhere under `stage`."""
+        for sess in self._sessions:
+            sess._add(stage, dur_s, records, nbytes)
 
     @contextmanager
     def session(self):

@@ -52,7 +52,9 @@ def test_no_jax_or_reference_imports(path):
 def test_source_walk_covers_the_package():
     paths = _sources()
     for mod in ("engine/db.py", "ops/compact.py", "ops/merge_path.py",
-                "ops/device_lookup.py", "carry.py", "runtime/tracing.py"):
+                "ops/device_lookup.py", "carry.py", "runtime/tracing.py",
+                "engine/compaction_rules.py", "ops/pipeline.py",
+                "ops/batched_compact.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
 
 

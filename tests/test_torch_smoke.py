@@ -3,8 +3,10 @@
 The script itself refuses to run without a CUDA device; its phases are
 functions, and here they run on device="cpu" (the plain merge in place of
 the kernel): the fill, the engine compaction held against the cpu
-backend's digest, and the batched reads held against the host walk. The
-kernel cases are held against a numpy lexsort of the same rows.
+backend's digest, the batched reads held against the host walk, the
+blockwise compaction at depth 1 and 2, and the batched compaction after
+a partition split. The kernel cases are held against a numpy lexsort of
+the same rows.
 """
 
 import numpy as np
@@ -110,3 +112,67 @@ def test_merge_bound_counts_the_columns_a_merge_needs(col_bytes):
     assert none == pytest.approx(full * 10 / 18)
     half, _ = chip_smoke.merge_bound(la, lb, 9, 8, 5.0, col_bytes)
     assert none < half < full
+
+
+def test_timed_batched_operands_are_sorted_rows():
+    a, b = chip_smoke.timed_batched_operands(batch=3, rows=4096)
+    assert a.shape == b.shape == (3, 9, 4096)
+    for x in (a, b):
+        for r in range(3):
+            keys = [tuple(x[r, :8, i]) for i in range(4096)]
+            assert keys == sorted(keys)
+    got = merge_two_sorted(torch.from_numpy(a), torch.from_numpy(b), 8)
+    assert got.shape == (3, 9, 8192)
+
+
+def test_blockwise_phase_at_tiny_size():
+    """A budget that forces three ranges; both depths digest-equal to
+    the cpu backend (run_blockwise raises otherwise)."""
+    runs = chip_smoke.fill(8000)
+    want, _ = chip_smoke.cpu_digest(runs)
+    rep = chip_smoke.run_blockwise(runs, "cpu", want, 3000)
+    for depth in (1, 2):
+        d = rep[f"depth{depth}"]
+        assert d["ranges"] == 3 and d["digest"] == want
+        assert {"pack", "h2d", "device", "gather"} <= set(d["stages"])
+    assert rep["depth2"]["overlap_s"] > 0.0
+
+
+def test_batched_phase_at_tiny_size():
+    """A split into 4 partitions (B = 4): every output digest-equal to the
+    cpu backend on its job with its own post options (run_batched raises
+    otherwise), half the rows dropped as the sibling's, the rules of the
+    first half applied."""
+    runs = chip_smoke.fill(8000)
+    jobs = chip_smoke.split_jobs(runs, "cpu", 4)
+    assert [p for _, _, p in jobs] == [0, 1, 2, 3]
+    assert jobs[0][1] is jobs[2][1]  # siblings share their parent's runs
+    post = chip_smoke.split_post_opts(jobs)
+    assert post[0].user_ops and not post[0].default_ttl
+    assert post[3].default_ttl and not post[3].user_ops
+    rep = chip_smoke.run_batched(jobs, post, "cpu")
+    assert rep["digests_equal"] and rep["partitions"] == 4
+    assert 0 < rep["records_out"] < rep["records_in"] * 0.6
+    assert {"h2d", "device", "gather"} <= set(rep["stages"])
+    assert len(rep["operands"]) >= 3
+
+
+def test_tenth_prefix_holds_about_a_tenth():
+    runs = chip_smoke.fill(40_000)
+    prefix = chip_smoke.tenth_prefix(runs)
+    hks = [runs[0].key(i)[2:18] for i in range(runs[0].n)]
+    share = sum(h.startswith(prefix) for h in hks) / len(hks)
+    assert prefix.startswith(b"userhash") and 0.05 <= share <= 0.2
+
+
+def test_device_stage_phase_keeps_each_merge_as_two_d_operands(monkeypatch):
+    """The single merge runs as a batch of one; the phase times each of
+    its three merges on their [n_cols, L] operands."""
+    runs = chip_smoke.fill(8000)
+    seen = []
+    monkeypatch.setattr(chip_smoke, "_time_merge",
+                        lambda a, b, nk: seen.append((a.dim(), b.dim(), nk))
+                        or {"ms": 0.0})
+    rep = chip_smoke.profile_device_stage(runs, "cpu")
+    assert seen == [(2, 2, 8)] * 3
+    assert 0 < rep["survivors"] <= sum(r.n for r in runs)
