@@ -56,15 +56,33 @@ exits non-zero before printing any result. Phases, one JSON line each:
               partition's digest equal to the cpu backend's on its job;
               the same jobs one by one through compact_blocks; the batched
               merges' own operands timed against the plain batched merge
-              and 32 sequential 2-D calls.
+              and 32 sequential 2-D calls;
+  8. offload  the compaction offload service in-process
+              (runtime/service_app.CompactOffloadApp, backend = cuda, 2
+              merge slots), its tenants the port's client over loopback
+              RPC: the 10M-record job digest-equal to the cpu backend with
+              its merge kernels launched on the service (3), under
+              torch.profiler; the same job again shipping 0 bytes; two
+              tenants at once (one partition each of a 16-way split, one
+              with a default_ttl, one with user rules), each digest-equal
+              to its own cpu merge; per round its wall time, the
+              offload.ship/merge/fetch spans, bytes and MB/s, the
+              service's load/merge/publish seconds; the same runs through
+              compact_blocks(backend="cuda") locally; device busy time over
+              the service's merge and peak device memory;
+  9. server   python -m pegasus_tpu_torch.server --config <ini> --app
+              offload as a subprocess: boot, offload-status over
+              RPC_CLI_CLI_CALL (backend cuda, 2 free slots), one partition
+              digest-equal to its cpu merge, SIGTERM, exit 0.
 
-The main paths (compact, blockwise, batched) each run with the launch
-counts set to 0 just before and read just after. Then, before the last
+The main paths (compact, blockwise, batched, offload) each run with the
+launch counts set to 0 just before and read just after. Then, before the last
 line, the kernel table (times, launches, bounds; merge_path and
 merge_path_batched) and the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Any failed check raises and exits non-zero. Engine files go to
-.scratch/chip_smoke/ under the repository and are removed at the end.
+Any failed check raises and exits non-zero. Engine and offload-service
+files go to .scratch/chip_smoke/ under the repository and are removed at
+the end.
 """
 
 import hashlib
@@ -898,16 +916,15 @@ def tenth_prefix(blocks, sample: int = 100_000) -> bytes:
     return best
 
 
-def split_post_opts(jobs) -> list:
-    """Per child its own post-pass options: the first half carry a
-    user_specified_compaction spec (delete the hashkeys with the prefix
-    that holds about a tenth of them; give sort keys containing "A" a TTL
-    of TTL_FROM_NOW from now), the second half the table default_ttl."""
+def rule_ops(blocks) -> tuple:
+    """A parsed user_specified_compaction spec for runs like `blocks`:
+    delete the hashkeys with the prefix that holds about a tenth of them
+    (tenth_prefix); give sort keys containing "A" a TTL of TTL_FROM_NOW
+    from now."""
     from pegasus_tpu_torch.engine.compaction_rules import \
         parse_user_specified_compaction
-    from pegasus_tpu_torch.ops.compact import CompactOptions
 
-    prefix = tenth_prefix(jobs[0][0]).decode()
+    prefix = tenth_prefix(blocks).decode()
     spec = json.dumps({"ops": [
         {"type": "COT_DELETE", "params": "{}",
          "rules": [{"type": "FRT_HASHKEY_PATTERN", "params": json.dumps(
@@ -920,6 +937,16 @@ def split_post_opts(jobs) -> list:
     if len(ops) != 2:
         raise AssertionError(f"user_specified_compaction spec parsed to "
                              f"{len(ops)} operations: {spec}")
+    return ops
+
+
+def split_post_opts(jobs) -> list:
+    """Per child its own post-pass options: the first half carry the
+    user_specified_compaction spec of rule_ops, the second half the table
+    default_ttl."""
+    from pegasus_tpu_torch.ops.compact import CompactOptions
+
+    ops = rule_ops(jobs[0][0])
     half = len(jobs) // 2
     return [CompactOptions(now=NOW, user_ops=ops) if j < half
             else CompactOptions(now=NOW, default_ttl=DEFAULT_TTL)
@@ -1091,6 +1118,276 @@ def run_blockwise(runs, device, want: dict, budget: int) -> dict:
     return out
 
 
+# ------------------------------------------------ compaction offload
+
+OFFLOAD_PARTS = 16   # the two-tenant rounds ship one partition each of a
+                     # 16-way split of the fill
+
+
+def _offload_ini(work: str, device) -> str:
+    """The [apps.offload] section of a compaction offload service on the
+    card (`device = cpu` only when rehearsed on the CPU)."""
+    import torch
+
+    dev = "" if torch.device(device).type == "cuda" else \
+        f"device = {device}\n"
+    return (f"[apps.offload]\ntype = compact_offload\nbackend = cuda\n"
+            f"port = 0\njob_dir = {os.path.join(work, 'offload')}\n{dev}")
+
+
+def _round(runs, opts, addr: str, tenant: str) -> dict:
+    """One offload round. -> {result, wall_s, the service's
+    load/merge/publish seconds, bytes and runs shipped, bytes fetched}."""
+    from pegasus_tpu_torch.replication.compact_offload import \
+        offload_compact_blocks
+
+    t0 = time.perf_counter()
+    res = offload_compact_blocks(runs, opts, addr, tenant=tenant)
+    wall_s = time.perf_counter() - t0
+    st = res.stats
+    return {"result": res, "wall_s": wall_s,
+            "service_s": {sp["name"].rsplit(".", 1)[-1] + "_s":
+                          sp["duration_us"] / 1e6
+                          for sp in st["service_spans"]
+                          if sp["name"] in ("offload.svc.load",
+                                            "offload.svc.merge",
+                                            "offload.svc.publish")},
+            "shipped_bytes": st["shipped_bytes"],
+            "fetched_bytes": st["fetched_bytes"],
+            "shipped_runs": st["shipped_runs"],
+            "skipped_runs": st["skipped_runs"],
+            "records_in": st["input_records"],
+            "records_out": res.block.n}
+
+
+def _spans(sess, rnd: dict) -> dict:
+    """The offload.ship/merge/fetch seconds of a trace session that saw
+    one round, and the wire's MB/s through ship and fetch."""
+    stages = sess.summary()
+    spans = {k: stages[k]["s"] for k in ("offload.ship", "offload.merge",
+                                         "offload.fetch")}
+    return {"spans_s": spans,
+            "ship_mb_s": (rnd["shipped_bytes"] / 1e6 / spans["offload.ship"]
+                          if rnd["shipped_bytes"] else None),
+            "fetch_mb_s": rnd["fetched_bytes"] / 1e6
+            / spans["offload.fetch"]}
+
+
+def run_offload(runs, device, want: dict, work: str) -> dict:
+    """The compaction offload service in-process (CompactOffloadApp from
+    an ini: backend = cuda, max_concurrent 2, root under `work`), its
+    tenants the port's client in this process:
+
+      1. the 10M-record job (`runs`, the cpu_digest options): digest equal
+         to `want`, offloaded, one merge done; its merge-kernel launches
+         counted on the service; under torch.profiler for the device's
+         busy time over the service's merge, and the peak device memory;
+      2. the same job again: nothing shipped, the same digest;
+      3. two tenants at once, each one partition of a 16-way split, one
+         with a default_ttl, one with user rules: each digest equal to
+         its own cpu merge, neither refused;
+
+    plus the same runs through compact_blocks(backend="cuda") locally,
+    for the wire's share."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.runtime.config import Config
+    from pegasus_tpu_torch.runtime.service_app import CompactOffloadApp
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    app = CompactOffloadApp("offload", Config(text=_offload_ini(work, device)),
+                            "apps.offload").start()
+    out = {}
+    try:
+        status = app.svc.status()
+        if status["backend"] != "cuda" or status["max_concurrent"] != 2:
+            raise AssertionError(f"offload service status {status}")
+        opts = CompactOptions(backend="cpu", now=NOW, bottommost=True,
+                              runs_sorted=True)
+        base = 0
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                               if on_card else [])
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        with COMPACT_TRACER.session() as sess, \
+                profile(activities=activities) as prof:
+            first = _round(runs, opts, app.address, "bench")
+        launches = LAUNCHES["merge_path"]
+        first.update(_spans(sess, first))
+        events = _device_events(prof)
+        busy_s = sum(e[1] for e in events) / 1e3
+        merge_s = first["service_s"]["merge_s"]
+        res = first.pop("result")
+        got = block_digest([res.block])
+        if got != want or not res.stats["offloaded"]:
+            raise AssertionError(f"offloaded job digest {got} != cpu backend "
+                                 f"digest {want}")
+        if app.svc.status()["merges_done"] != 1:
+            raise AssertionError(f"service status {app.svc.status()}")
+        out["job"] = dict(
+            first, merge_launches=launches, device_busy_s=busy_s,
+            idle_share_over_merge=(max(0.0, 1 - busy_s / merge_s)
+                                   if busy_s else None),
+            top_device_events=[{"name": k[:90], "ms": ms, "calls": c}
+                               for k, ms, c in events[:6]],
+            peak_device_bytes=(torch.cuda.max_memory_allocated(device)
+                               - base) if on_card else None,
+            digest=got)
+        del res
+
+        with COMPACT_TRACER.session() as sess:
+            again = _round(runs, opts, app.address, "bench")
+        again.update(_spans(sess, again))
+        res = again.pop("result")
+        if (again["shipped_bytes"] != 0 or again["skipped_runs"] != len(runs)
+                or block_digest([res.block]) != want):
+            raise AssertionError(f"repeated job shipped "
+                                 f"{again['shipped_bytes']} bytes, skipped "
+                                 f"{again['skipped_runs']} runs")
+        out["again"] = again
+        del res
+
+        local_opts = CompactOptions(backend="cuda", device=device, now=NOW,
+                                    bottommost=True, runs_sorted=True)
+        t0 = time.perf_counter()
+        local = compact_blocks(runs, local_opts)
+        _sync(device)
+        out["local_s"] = time.perf_counter() - t0
+        if block_digest([local.block]) != want:
+            raise AssertionError("local cuda compaction digest != cpu backend")
+        del local
+
+        parts = partition_runs(runs, OFFLOAD_PARTS)[:2]
+        tenants = [CompactOptions(backend="cpu", now=NOW, bottommost=True,
+                                  runs_sorted=True, default_ttl=DEFAULT_TTL),
+                   CompactOptions(backend="cpu", now=NOW, bottommost=True,
+                                  runs_sorted=True,
+                                  user_ops=rule_ops(parts[1]))]
+        rounds, errors = [None, None], []
+
+        def tenant(i):
+            try:
+                rounds[i] = _round(parts[i], tenants[i], app.address,
+                                   f"tenant{i}")
+            except Exception as e:  # raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=tenant, args=(i,))
+                   for i in (0, 1)]
+        with COMPACT_TRACER.session() as sess:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            both_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"concurrent tenants failed: {errors}")
+        for i, (prt, o) in enumerate(zip(parts, tenants)):
+            ref = compact_blocks(prt, o).block
+            if block_digest([rounds[i].pop("result").block]) != \
+                    block_digest([ref]):
+                raise AssertionError(f"tenant {i}: offloaded digest != its "
+                                     f"cpu merge")
+        # the session saw both rounds: their spans overlap, so the wire's
+        # rate is both rounds' bytes over the wall time
+        nbytes = sum(r["shipped_bytes"] + r["fetched_bytes"] for r in rounds)
+        out["two_tenants"] = {"wall_s": both_s, "rounds": rounds,
+                              "spans_s_both": {
+                                  k: v["s"] for k, v in sess.summary().items()
+                                  if k.startswith("offload.")},
+                              "wire_mb_s_over_wall": nbytes / 1e6 / both_s}
+        out["status"] = app.svc.status()
+    finally:
+        app.stop()
+    return out
+
+
+def _remote_command(addr: str, command: str) -> str:
+    from pegasus_tpu_torch.rpc import codec
+    from pegasus_tpu_torch.rpc.transport import RpcConnection
+    from pegasus_tpu_torch.runtime.remote_command import (
+        RemoteCommandRequest, RemoteCommandResponse)
+
+    host, _, port = addr.rpartition(":")
+    conn = RpcConnection((host, int(port)))
+    try:
+        _, body = conn.call("RPC_CLI_CLI_CALL",
+                            codec.encode(RemoteCommandRequest(command)),
+                            timeout=30)
+    finally:
+        conn.close()
+    return codec.decode(RemoteCommandResponse, body).output
+
+
+def run_server(runs, device, work: str) -> dict:
+    """`python -m pegasus_tpu_torch.server --config <ini> --app offload` as
+    a subprocess (backend = cuda, port 0): wait for its started line,
+    read offload-status (backend cuda, 2 free slots), run one partition
+    of a 16-way split through it (digest equal to its cpu merge), stop it
+    with SIGTERM. -> boot, round and stop seconds."""
+    import signal
+
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    os.makedirs(work, exist_ok=True)
+    ini = os.path.join(work, "server.ini")
+    with open(ini, "w") as f:
+        f.write(_offload_ini(work, device))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pegasus_tpu_torch.server", "--config", ini,
+         "--app", "offload"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=work,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        line = ""
+        while "started" not in line:
+            line = proc.stdout.readline()
+            if not line and proc.poll() is not None:
+                raise AssertionError(f"server exited {proc.returncode}: "
+                                     f"{proc.stderr.read()[-2000:]}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("server did not start in 300 s")
+        boot_s = time.perf_counter() - t0
+        addr = line.split()[-1]
+        status = json.loads(_remote_command(addr, "offload-status"))
+        if status["backend"] != "cuda" or status["free_slots"] != 2:
+            raise AssertionError(f"server offload-status {status}")
+        part = partition_runs(runs, OFFLOAD_PARTS)[2]
+        opts = CompactOptions(backend="cpu", now=NOW, bottommost=True,
+                              runs_sorted=True)
+        with COMPACT_TRACER.session() as sess:
+            rnd = _round(part, opts, addr, "server")
+        rnd.update(_spans(sess, rnd))
+        if block_digest([rnd.pop("result").block]) != \
+                block_digest([compact_blocks(part, opts).block]):
+            raise AssertionError("server round digest != its cpu merge")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"server exited {rc} on SIGTERM: "
+                                 f"{proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"boot_s": boot_s, "status": status, "round": rnd,
+            "stop_s": stop_s, "rc": rc}
+
+
 # ------------------------------------------------------------------ main
 
 def ptxas_usage(report: str) -> dict:
@@ -1228,6 +1525,21 @@ def main() -> int:
     own_b = [_time_batched(a, b, nk) for a, b, nk in batched.pop("operands")]
     emit("batched", split_s=split_s, merges=own_b, **batched)
     torch.cuda.empty_cache()
+
+    os.makedirs(work, exist_ok=True)
+    try:
+        offload = run_offload(runs, device, want,
+                              os.path.join(work, "offload"))
+        if offload["job"]["merge_launches"] < N_RUNS - 1:
+            raise AssertionError(f"the offloaded job launched "
+                                 f"{offload['job']['merge_launches']} merge "
+                                 f"kernels on the service, not {N_RUNS - 1}")
+        emit("offload", **offload)
+        torch.cuda.empty_cache()
+        emit("server", **run_server(runs, device,
+                                    os.path.join(work, "server")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     emit("elapsed", seconds=time.perf_counter() - started)
     # the kernel line: per launch, averaged over the compaction's own

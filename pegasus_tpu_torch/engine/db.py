@@ -23,6 +23,12 @@ compactions merge the resident runs, and batched reads probe them. A
 device failure raises to the caller; the cpu backend runs only when the
 caller asks for it (backend="cpu").
 
+Compaction offload: a backend="cpu" engine holding a live placement
+lease (set_offload_target) ships its merges to that compaction service
+(replication/compact_offload.py) instead of merging locally. A failed
+round raises; a lapsed lease compacts locally again. A cuda engine never
+offloads.
+
 Durability: the manifest's last_flushed_decree only advances to decrees
 whose data is fully covered by on-disk SSTs (memtables flush oldest-first
 and each records the last decree it contains).
@@ -45,6 +51,8 @@ from ..base.utils import epoch_now
 from ..base.value_schema import check_if_ts_expired
 from ..ops.compact import (CompactOptions, compact_blocks, resolve_device,
                            sort_block)
+from ..runtime import events
+from ..runtime.perf_counters import counters
 from ..runtime.tracing import COMPACT_TRACER
 from .block import KVBlock
 from .memtable import Memtable
@@ -143,6 +151,13 @@ class LsmEngine:
         self._compaction_lock = threading.RLock()
         self._device_cache_used = 0     # bytes pinned by resident runs
         self._device_resident_ssts = 0
+        # compaction-offload placement: a service address this cpu engine
+        # ships its merges to while the lease lives
+        self._offload_addr = ""        #: guarded_by self._lock
+        self._offload_expire = 0.0     #: guarded_by self._lock
+        self._offload_ttl_s = float(os.environ.get("PEGASUS_SCHED_TTL_S",
+                                                   "30"))
+        self._c_offload = counters.rate("engine.compact.offload_count")
         os.makedirs(path, exist_ok=True)
         self._load_manifest()
 
@@ -154,6 +169,33 @@ class LsmEngine:
 
     def last_committed_decree(self) -> int:
         return self._last_committed_decree
+
+    # ------------------------------------------------------------- placement
+
+    def set_offload_target(self, addr: str, ttl_s: float = None) -> None:
+        """Install a compaction-offload placement: while the lease is live
+        (ttl_s, default PEGASUS_SCHED_TTL_S = 30 s), this engine's merges
+        ship to the compaction service at `addr` ("host:port"; empty =
+        compact locally). Only a backend="cpu" engine offloads."""
+        with self._lock:
+            changed = self._offload_addr != (addr or "")
+            self._offload_addr = addr or ""
+            self._offload_expire = time.monotonic() + (
+                self._offload_ttl_s if ttl_s is None else float(ttl_s))
+        if changed:
+            events.emit("offload.placement", engine=self.path,
+                        service=addr or "")
+
+    def offload_target(self):
+        """The live placement address, or None (none set / lease
+        lapsed)."""
+        with self._lock:
+            if not self._offload_addr:
+                return None
+            if time.monotonic() >= self._offload_expire:
+                self._offload_addr = ""
+                return None
+            return self._offload_addr
 
     # ----------------------------------------------------------------- write
 
@@ -719,12 +761,24 @@ class LsmEngine:
             partition_mask=self.opts.partition_mask, bottommost=bottommost,
             default_ttl=self.opts.default_ttl, runs_sorted=True,
             user_ops=tuple(self.opts.user_ops))
-        device_runs = None
-        if self.opts.backend == "cuda":
-            # device-resident run cache: each SST packs and uploads once in
-            # its lifetime; this and every later merge reads device memory
-            device_runs = [self._device_run_budgeted(s) for s in inputs]
-        result = compact_blocks(input_blocks, opts, device_runs=device_runs)
+        offload_addr = (self.offload_target() if self.opts.backend == "cpu"
+                        else None)
+        if offload_addr:
+            from ..replication.compact_offload import offload_compact_blocks
+
+            result = offload_compact_blocks(
+                input_blocks, opts, offload_addr,
+                tenant=f"{self.opts.pidx}@{os.path.basename(self.path)}")
+            self._c_offload.increment()
+        else:
+            device_runs = None
+            if self.opts.backend == "cuda":
+                # device-resident run cache: each SST packs and uploads
+                # once in its lifetime; this and every later merge reads
+                # device memory
+                device_runs = [self._device_run_budgeted(s) for s in inputs]
+            result = compact_blocks(input_blocks, opts,
+                                    device_runs=device_runs)
         self._install_merge_output(newer_files, older_files, result.block,
                                    target_level)
         return result.stats

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -22,6 +23,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".torch_ext")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOADED = {}
+# one build or load at a time in this process: the first merges of a
+# cold service arrive on concurrent RPC threads
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,11 +57,17 @@ def build(name: str) -> str:
     """Compile csrc/<name>.cu unless it is built already. -> nvcc's ptxas
     report (registers, shared memory, spills), kept beside the library.
     Raises with the compiler output when the build fails."""
+    with _LOCK:
+        return _build_locked(name)
+
+
+def _build_locked(name: str) -> str:
     out = _lib_path(name)
     report = out + ".ptxas.txt"
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = out + f".{os.getpid()}.tmp"
+        # another process may build the same library beside this one
+        tmp = out + f".{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
@@ -72,8 +82,9 @@ def build(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, building it if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build(name)
-        lib = _LOADED[name] = ctypes.CDLL(_lib_path(name))
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            _build_locked(name)
+            lib = _LOADED[name] = ctypes.CDLL(_lib_path(name))
+        return lib

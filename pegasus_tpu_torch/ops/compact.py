@@ -68,8 +68,12 @@ class CompactOptions:
     runs_sorted: bool = None       # None = detect; True skips the host check
     user_ops: tuple = ()           # engine.compaction_rules Operations
     # device merges of more records than this split into disjoint key
-    # ranges that compact one after another (the blockwise path)
-    max_device_records: int = 128 << 20
+    # ranges that compact one after another (the blockwise path). Sized
+    # for an 80 GB card: runs pad to powers of two, so 2x worst-case
+    # padding gives 134 M padded rows, and at 455 B per padded row at
+    # pipeline depth 2 (measured on an NVIDIA H100 80GB HBM3 at 700 W,
+    # PERF.md) that is 61 GB. The JAX package's default is 128 << 20.
+    max_device_records: int = 64 << 20
 
     def resolved_now(self) -> int:
         return epoch_now() if self.now is None else self.now

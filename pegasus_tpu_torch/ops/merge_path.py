@@ -22,12 +22,16 @@ shared each call by the ratio of the two.
 """
 
 import ctypes
+import threading
 
 import torch
 
 from .device_sort import lex_less, merge_two_sorted_plain
 
 LAUNCHES = {"merge_path": 0, "merge_path_rows": 0}
+# merges of concurrent compactions (the offload service's RPC threads)
+# count from several threads
+_LAUNCHES_LOCK = threading.Lock()
 
 TILE = 2048    # outputs per block of the merge kernel (kTile)
 MAX_KEYS = 10  # key columns: 8 lanes + suffix rank + kp (kMaxKeys)
@@ -75,8 +79,9 @@ def merge_two_sorted(a: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"merge_path merge kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES["merge_path"] += 1
-    LAUNCHES["merge_path_rows"] += batch
+    with _LAUNCHES_LOCK:
+        LAUNCHES["merge_path"] += 1
+        LAUNCHES["merge_path_rows"] += batch
     return out
 
 

@@ -17,11 +17,78 @@ The full device sort key is (prefix_lanes..., suffix_rank, key_len):
 
 So (window, rank, len) equality <=> full-key equality, and its order is
 full byte order.
+
+The module also holds the run wire: a KVBlock as one byte string for
+shipping whole runs between processes (replication/compact_offload.py).
 """
+
+import json
+import struct
 
 import numpy as np
 
 DEFAULT_PREFIX_U32 = 8  # 32-byte prefix window
+
+# ---------------------------------------------------------------- run wire
+# A KVBlock flattened to one deterministic byte string: magic, u32 LE
+# header length, a json header (n, and per column its dtype, shape and
+# byte count), then the raw column buffers in _RUN_COLUMNS order. The
+# JAX package writes the same bytes for the same block, and their md5 is
+# the offload service's content address, so every byte here (magic, key
+# order and separators of the json, column order, dtypes) is wire
+# contract. A transfer form, not a storage format: no bloom, no meta.
+
+_RUN_MAGIC = b"PGRN1\n"
+_RUN_COLUMNS = (
+    ("key_arena", np.uint8), ("key_off", np.int64), ("key_len", np.int32),
+    ("val_arena", np.uint8), ("val_off", np.int64), ("val_len", np.int32),
+    ("expire_ts", np.uint32), ("hash32", np.uint32), ("deleted", np.bool_),
+)
+
+
+def pack_run_bytes(block) -> bytes:
+    """One KVBlock -> its wire bytes (the same block gives the same
+    bytes)."""
+    cols = {}
+    parts = []
+    for name, dtype in _RUN_COLUMNS:
+        arr = np.ascontiguousarray(getattr(block, name), dtype=dtype)
+        raw = arr.tobytes()
+        cols[name] = {"dtype": np.dtype(dtype).str, "shape": list(arr.shape),
+                      "nbytes": len(raw)}
+        parts.append(raw)
+    hdr = json.dumps({"n": int(block.n), "cols": cols},
+                     sort_keys=True).encode()
+    return b"".join([_RUN_MAGIC, struct.pack("<I", len(hdr)), hdr] + parts)
+
+
+def unpack_run_bytes(data: bytes):
+    """Wire bytes -> KVBlock (inverse of pack_run_bytes). Raises
+    ValueError on bytes that are not a whole run."""
+    from ..engine.block import KVBlock
+
+    if data[:len(_RUN_MAGIC)] != _RUN_MAGIC:
+        raise ValueError("bad run wire magic")
+    base = len(_RUN_MAGIC) + 4
+    if len(data) < base:
+        raise ValueError("truncated run wire header")
+    (hlen,) = struct.unpack_from("<I", data, len(_RUN_MAGIC))
+    try:
+        cols = json.loads(data[base:base + hlen])["cols"]
+        secs = [(name, cols[name]["nbytes"], np.dtype(cols[name]["dtype"]),
+                 cols[name]["shape"]) for name, _ in _RUN_COLUMNS]
+    except (UnicodeDecodeError, KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"bad run wire header: {e!r}") from None
+    off = base + hlen
+    kwargs = {}
+    for name, nbytes, dtype, shape in secs:
+        raw = data[off:off + nbytes]
+        if len(raw) != nbytes:
+            raise ValueError(f"truncated run wire column {name}")
+        kwargs[name] = np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
+        off += nbytes
+    return KVBlock(**kwargs)
+
 
 # rows per chunk of pack_key_prefixes: bounds its int64 [rows, 4*W] index
 # temporary to ~64 MiB at the widest window (a 2.5M-row run would

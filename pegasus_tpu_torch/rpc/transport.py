@@ -1,0 +1,393 @@
+"""TCP RPC transport: framed request/response with task-code dispatch.
+
+Port of pegasus_tpu/rpc/transport.py: its framing, header and error
+codes, so a pegasus_tpu peer and a pegasus_tpu_torch peer talk to each
+other on one socket. Pure Python: the JAX package's native frame reader
+and vectored writer send the same bytes and are not ported, nor are its
+batch handlers, middlewares, serverlets, priority-code threads, fail
+points and request tracing.
+
+Frame: u32 LE payload length | payload. Payload = u32 LE header length |
+codec-encoded RpcHeader | body bytes. Requests and responses share the
+frame; `is_response` tells them apart. Every connection is full-duplex:
+a reader thread matches responses to pending sequence numbers, so many
+calls can be in flight at once.
+"""
+
+import socket
+import socketserver
+import struct
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+from . import codec
+from ..runtime.perf_counters import counters
+
+# RPC-layer error codes (a handler's own status rides in its response
+# body's `error` field)
+ERR_OK = 0
+ERR_HANDLER_NOT_FOUND = 1
+ERR_TIMEOUT = 2
+ERR_INVALID_STATE = 3
+ERR_OBJECT_NOT_FOUND = 4
+ERR_BUSY = 5
+ERR_INVALID_DATA = 6
+ERR_NETWORK_FAILURE = 7
+ERR_FORWARD_TO_PRIMARY = 8
+
+
+@dataclass
+class RpcHeader:
+    """Every field of the JAX package's header, in its order, so frames
+    decode on both sides. The port sends trace_id 0 (untraced) and never
+    sets `sharded`."""
+
+    seq: int = 0
+    code: str = ""
+    app_id: int = 0
+    partition_index: int = 0
+    partition_hash: int = 0
+    error: int = 0          # response-only: rpc-level error
+    error_text: str = ""
+    is_response: bool = False
+    trace_id: int = 0
+    trace_sampled: bool = False
+    sharded: bool = False
+
+
+class RpcError(Exception):
+    def __init__(self, err: int, text: str = ""):
+        super().__init__(f"rpc error {err}: {text}")
+        self.err = err
+        self.text = text
+
+
+def _send_frame(sock, header: RpcHeader, body: bytes, lock=None) -> None:
+    h = codec.encode(header)
+    hl = len(h)
+    # one buffer, one copy of the body
+    frame = bytearray(8 + hl + len(body))
+    struct.pack_into("<II", frame, 0, 4 + hl + len(body), hl)
+    frame[8: 8 + hl] = h
+    frame[8 + hl:] = body
+    if lock:
+        with lock:
+            sock.sendall(frame)
+    else:
+        sock.sendall(frame)
+
+
+class _FrameReader:
+    """Buffered framing for a socket with a single reader thread: one recv
+    may yield several pipelined frames."""
+
+    __slots__ = ("sock", "buf", "pos")
+
+    def __init__(self, sock):
+        self.sock = sock
+        self.buf = bytearray()
+        self.pos = 0
+
+    def _fill(self, need: int) -> None:
+        buf = self.buf
+        if self.pos and (len(buf) == self.pos or self.pos > (1 << 16)):
+            del buf[: self.pos]  # compact consumed bytes
+            self.pos = 0
+        while len(buf) - self.pos < need:
+            chunk = self.sock.recv(1 << 16)
+            if not chunk:
+                raise ConnectionError("peer closed")
+            buf += chunk
+
+    def frame(self):
+        self._fill(4)
+        pos = self.pos
+        (plen,) = struct.unpack_from("<I", self.buf, pos)
+        self._fill(4 + plen)
+        pos = self.pos  # _fill may have compacted
+        (hlen,) = struct.unpack_from("<I", self.buf, pos + 4)
+        if plen < 4 or hlen > plen - 4:
+            raise codec.CodecError("corrupt frame lengths")
+        mv = memoryview(self.buf)
+        try:
+            header = codec.decode(RpcHeader, mv[pos + 8: pos + 8 + hlen])
+            body = bytes(mv[pos + 8 + hlen: pos + 4 + plen])
+        finally:
+            mv.release()  # buf must be resizable before the next _fill
+        self.pos = pos + 4 + plen
+        return header, body
+
+    def _buffered_frame(self) -> bool:
+        """A complete frame sits in the buffer (no recv needed)?"""
+        avail = len(self.buf) - self.pos
+        if avail < 4:
+            return False
+        (plen,) = struct.unpack_from("<I", self.buf, self.pos)
+        return avail >= 4 + plen
+
+    def wave(self):
+        """-> every complete frame currently available (blocking for the
+        first)."""
+        out = [self.frame()]
+        while self._buffered_frame():
+            out.append(self.frame())
+        return out
+
+
+class RpcServer:
+    """Threaded TCP server. Handlers: code -> fn(header, body) -> body.
+
+    A handler may raise RpcError to return an rpc-level error; any other
+    exception becomes an ERR_INVALID_DATA response carrying its repr.
+    Requests run on a bounded worker pool; requests beyond it queue."""
+
+    POOL_WORKERS = 16
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self._handlers = {}
+        self._pool = ThreadPoolExecutor(self.POOL_WORKERS,
+                                        thread_name_prefix="rpc-serve")
+        # live accepted connections: stop() shuts them down so a stopped
+        # server looks like a killed one to its peers (in-flight calls
+        # fail at once instead of waiting out the client timeout)
+        self._conn_lock = threading.Lock()
+        self._conns = set()  #: guarded_by self._conn_lock
+        self._c_qps = counters.rate("rpc.server.qps")
+        self._c_err = counters.rate("rpc.server.error_count")
+        outer = self
+
+        class _Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                outer.serve_connection(self.request)
+
+        class _Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._srv = _Server((host, port), _Handler)
+        self.address = self._srv.server_address  # (host, actual_port)
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        name="rpc-accept", daemon=True)
+
+    def serve_connection(self, sock) -> None:
+        """Serve one connection to exhaustion: read pipelined frames and
+        dispatch each request to the pool."""
+        try:
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            return
+        wlock = threading.Lock()
+        with self._conn_lock:
+            self._conns.add(sock)
+        try:
+            reader = _FrameReader(sock)
+            while True:
+                for header, body in reader.wave():
+                    try:
+                        self._pool.submit(self._serve_one, sock, wlock,
+                                          header, body)
+                    except RuntimeError:  # stopping: the pool is shut down
+                        return
+        except (ConnectionError, OSError, codec.CodecError):
+            pass
+        finally:
+            with self._conn_lock:
+                self._conns.discard(sock)
+
+    def register(self, code: str, handler) -> None:
+        self._handlers[code] = handler
+
+    def start(self) -> "RpcServer":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread.is_alive():
+            self._srv.shutdown()
+        self._srv.server_close()
+        # shutdown (never close: the handler thread owns the fd) every
+        # live connection, so peers see EOF now, as after a process kill
+        with self._conn_lock:
+            conns = list(self._conns)
+        for s in conns:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self._pool.shutdown(wait=False)
+
+    def _serve_one(self, sock, wlock, header: RpcHeader, body: bytes) -> None:
+        resp = RpcHeader(seq=header.seq, code=header.code, is_response=True)
+        out = b""
+        try:
+            fn = self._handlers.get(header.code)
+            if fn is None:
+                resp.error = ERR_HANDLER_NOT_FOUND
+                resp.error_text = header.code
+            else:
+                out = fn(header, body)
+        except RpcError as e:
+            resp.error, resp.error_text = e.err, e.text
+        except Exception as e:  # handler failure -> error, not a dead connection
+            resp.error, resp.error_text = ERR_INVALID_DATA, repr(e)
+        self._c_qps.increment()
+        if resp.error:
+            self._c_err.increment()
+        try:
+            _send_frame(sock, resp, out, lock=wlock)
+        except (ConnectionError, OSError):
+            pass
+
+
+class RpcConnection:
+    """One full-duplex client connection with pipelined calls."""
+
+    def __init__(self, addr, connect_timeout: float = 5.0):
+        self.addr = tuple(addr)
+        self._sock = socket.create_connection(self.addr,
+                                              timeout=connect_timeout)
+        self._sock.settimeout(None)
+        # request/response pairs: Nagle + delayed ACK would stall them
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._wlock = threading.Lock()
+        self._plock = threading.Lock()
+        self._pending = {}   # seq -> (event, slot)  #: guarded_by self._plock
+        self._seq = 0        #: guarded_by self._plock
+        self._dead = None
+        self._reader = threading.Thread(target=self._read_loop,
+                                        name="rpc-conn-reader", daemon=True)
+        self._reader.start()
+
+    def _read_loop(self):
+        try:
+            reader = _FrameReader(self._sock)
+            while True:
+                frames = reader.wave()
+                with self._plock:
+                    ents = [(self._pending.pop(h.seq, None), h, b)
+                            for h, b in frames]
+                for ent, header, body in ents:
+                    if ent:
+                        ev, slot = ent
+                        slot.append((header, body))
+                        ev.set()
+        except (ConnectionError, OSError, codec.CodecError) as e:
+            self._dead = e
+            with self._plock:
+                pending = list(self._pending.values())
+                self._pending.clear()
+            for ev, slot in pending:
+                slot.append(None)
+                ev.set()
+
+    def _register(self, code: str):
+        """-> (seq, event, slot, header) of one new pending call."""
+        with self._plock:
+            self._seq += 1
+            seq = self._seq
+            ev, slot = threading.Event(), []
+            self._pending[seq] = (ev, slot)
+        return seq, ev, slot, RpcHeader(seq=seq, code=code)
+
+    def _result(self, slot):
+        if not slot or slot[0] is None:
+            raise RpcError(ERR_NETWORK_FAILURE, str(self._dead))
+        rh, rbody = slot[0]
+        if rh.error != ERR_OK:
+            raise RpcError(rh.error, rh.error_text)
+        return rh, rbody
+
+    def call(self, code: str, body: bytes, timeout: float = 10.0):
+        """-> (RpcHeader, body bytes); raises RpcError on rpc-level
+        failure."""
+        if self._dead:
+            raise RpcError(ERR_NETWORK_FAILURE, str(self._dead))
+        seq, ev, slot, header = self._register(code)
+        try:
+            _send_frame(self._sock, header, body, lock=self._wlock)
+        except (ConnectionError, OSError) as e:
+            with self._plock:
+                self._pending.pop(seq, None)
+            raise RpcError(ERR_NETWORK_FAILURE, str(e))
+        if not ev.wait(timeout):
+            with self._plock:
+                self._pending.pop(seq, None)
+            raise RpcError(ERR_TIMEOUT, f"{code} after {timeout}s")
+        return self._result(slot)
+
+    def call_many(self, calls, timeout: float = 10.0):
+        """Pipelined batch of (code, body) calls: every request frame
+        leaves in ONE coalesced socket send, then the responses are
+        collected in issue order. -> [(RpcHeader, body)]; raises RpcError
+        on the first failure."""
+        if not calls:
+            return []
+        if self._dead:
+            raise RpcError(ERR_NETWORK_FAILURE, str(self._dead))
+        pend, buf = [], bytearray()
+        for code, body in calls:
+            seq, ev, slot, header = self._register(code)
+            pend.append((seq, ev, slot))
+            h = codec.encode(header)
+            buf += struct.pack("<II", 4 + len(h) + len(body), len(h))
+            buf += h
+            buf += body
+        try:
+            with self._wlock:
+                self._sock.sendall(buf)
+        except (ConnectionError, OSError) as e:
+            with self._plock:
+                for seq, _, _ in pend:
+                    self._pending.pop(seq, None)
+            raise RpcError(ERR_NETWORK_FAILURE, str(e))
+        deadline = time.monotonic() + timeout
+        out = []
+        for i, (seq, ev, slot) in enumerate(pend):
+            if not ev.wait(max(0.0, deadline - time.monotonic())):
+                with self._plock:  # abandon everything still in flight
+                    for s2, _, _ in pend[i:]:
+                        self._pending.pop(s2, None)
+                raise RpcError(ERR_TIMEOUT,
+                               f"{calls[i][0]} after {timeout}s")
+            out.append(self._result(slot))
+        return out
+
+    def close(self):
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+class ConnectionPool:
+    """addr -> RpcConnection cache with reconnect-on-failure."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._conns = {}  #: guarded_by self._lock
+
+    def get(self, addr) -> RpcConnection:
+        addr = tuple(addr)
+        with self._lock:
+            conn = self._conns.get(addr)
+        if conn is not None and not conn._dead:
+            return conn
+        # connect outside the pool lock: a black-holed peer blocks for the
+        # connect timeout and must not serialize every other caller
+        fresh = RpcConnection(addr)
+        with self._lock:
+            cur = self._conns.get(addr)
+            if cur is not None and not cur._dead and cur is not conn:
+                fresh.close()  # lost the race to another connector
+                return cur
+            self._conns[addr] = fresh
+        return fresh
+
+    def close(self):
+        with self._lock:
+            conns = list(self._conns.values())
+            self._conns.clear()
+        for c in conns:
+            c.close()

@@ -12,15 +12,19 @@ packages compare line for line:
                               worker (ops/pipeline.py)
   pipeline.overlap            an event, not a span: the seconds one item's
                               worker stages ran beside other work
+  offload.ship, offload.merge, offload.fetch
+                              one compaction-offload round, tenant side
+                              (replication/compact_offload.py)
 
 A span measures host wall time. Where a stage ends in a device
 synchronisation (the `device` span ends after torch.cuda.synchronize),
 that wall time covers the device work it launched.
 
-A TraceSession aggregates every span closed while it is active:
-stage -> {s, calls, records, bytes}.
+A TraceSession aggregates every span closed while it is active, on any
+thread: stage -> {s, calls, records, bytes}.
 """
 
+import threading
 import time
 from contextlib import contextmanager
 
@@ -28,17 +32,20 @@ from contextlib import contextmanager
 class TraceSession:
     def __init__(self):
         self.stages = {}
+        self._lock = threading.Lock()
 
     def _add(self, stage: str, dur_s: float, records: int, nbytes: int):
-        agg = self.stages.setdefault(
-            stage, {"s": 0.0, "calls": 0, "records": 0, "bytes": 0})
-        agg["s"] += dur_s
-        agg["calls"] += 1
-        agg["records"] += records
-        agg["bytes"] += nbytes
+        with self._lock:
+            agg = self.stages.setdefault(
+                stage, {"s": 0.0, "calls": 0, "records": 0, "bytes": 0})
+            agg["s"] += dur_s
+            agg["calls"] += 1
+            agg["records"] += records
+            agg["bytes"] += nbytes
 
     def summary(self) -> dict:
-        return {k: dict(v) for k, v in self.stages.items()}
+        with self._lock:
+            return {k: dict(v) for k, v in self.stages.items()}
 
 
 class StageTracer:
@@ -55,13 +62,13 @@ class StageTracer:
             yield box
         finally:
             dur_s = time.perf_counter() - t0
-            for sess in self._sessions:
+            for sess in list(self._sessions):
                 sess._add(stage, dur_s, box["records"], box["bytes"])
 
     def event(self, stage: str, dur_s: float, records: int = 0,
               nbytes: int = 0) -> None:
         """Record a duration measured elsewhere under `stage`."""
-        for sess in self._sessions:
+        for sess in list(self._sessions):
             sess._add(stage, dur_s, records, nbytes)
 
     @contextmanager

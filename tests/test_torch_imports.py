@@ -54,7 +54,13 @@ def test_source_walk_covers_the_package():
     for mod in ("engine/db.py", "ops/compact.py", "ops/merge_path.py",
                 "ops/device_lookup.py", "carry.py", "runtime/tracing.py",
                 "engine/compaction_rules.py", "ops/pipeline.py",
-                "ops/batched_compact.py"):
+                "ops/batched_compact.py", "ops/packing.py",
+                "runtime/perf_counters.py", "runtime/events.py",
+                "rpc/codec.py", "rpc/messages.py", "rpc/transport.py",
+                "runtime/remote_command.py", "replication/learn.py",
+                "parallel/sharded_compact.py",
+                "replication/compact_offload.py", "runtime/config.py",
+                "runtime/service_app.py", "server/__main__.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
 
 

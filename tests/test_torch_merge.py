@@ -14,6 +14,7 @@ chip_smoke.py).
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -219,3 +220,50 @@ def test_merge_kernel_matches_plain_on_card():
         assert torch.equal(got, merge_two_sorted_plain(ta, tb, nk)), name
         # and the partition pass against the plain splits
         chip_smoke._check_merge(ta, tb, nk, name)
+
+
+def test_concurrent_builds_make_one_library(tmp_path, monkeypatch):
+    """Threads that run the first merges of a cold process together build
+    csrc/merge_path.cu once, into one library, without error (here a fake
+    compiler command writes the output file)."""
+    import sys
+    import threading
+
+    from pegasus_tpu_torch.ops import _build
+
+    calls = []
+
+    def fake_command(name, out):
+        calls.append(out)
+        return [sys.executable, "-c",
+                "import sys, time; time.sleep(0.2); "
+                "open(sys.argv[1], 'w').write('lib'); print('ptxas info')",
+                out]
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_command", fake_command)
+    reports, errors = [], []
+
+    def worker():
+        try:
+            reports.append(_build.build("merge_path"))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and len(reports) == 8
+    assert all(r.strip() == "ptxas info" for r in reports)
+    assert len(calls) == 1
+    libs = sorted(os.listdir(tmp_path))
+    assert len(libs) == 2 and libs[0].endswith(".so") \
+        and libs[1] == libs[0] + ".ptxas.txt"

@@ -4,9 +4,10 @@ The script itself refuses to run without a CUDA device; its phases are
 functions, and here they run on device="cpu" (the plain merge in place of
 the kernel): the fill, the engine compaction held against the cpu
 backend's digest, the batched reads held against the host walk, the
-blockwise compaction at depth 1 and 2, and the batched compaction after
-a partition split. The kernel cases are held against a numpy lexsort of
-the same rows.
+blockwise compaction at depth 1 and 2, the batched compaction after a
+partition split, the compaction offload service with its tenants, and
+the server entry point as a subprocess. The kernel cases are held
+against a numpy lexsort of the same rows.
 """
 
 import numpy as np
@@ -176,3 +177,33 @@ def test_device_stage_phase_keeps_each_merge_as_two_d_operands(monkeypatch):
     rep = chip_smoke.profile_device_stage(runs, "cpu")
     assert seen == [(2, 2, 8)] * 3
     assert 0 < rep["survivors"] <= sum(r.n for r in runs)
+
+
+def test_offload_phase_at_tiny_size(tmp_path):
+    """The service from its ini on device="cpu": the whole job
+    digest-equal to the cpu backend, the repeat shipping nothing, two
+    concurrent tenants each equal to their own cpu merge (run_offload
+    raises otherwise)."""
+    runs = chip_smoke.fill(8000)
+    want, _ = chip_smoke.cpu_digest(runs)
+    rep = chip_smoke.run_offload(runs, "cpu", want, str(tmp_path))
+    job = rep["job"]
+    assert job["digest"] == want and job["shipped_runs"] == 4
+    assert job["shipped_bytes"] > 0 and job["fetched_bytes"] > 0
+    assert set(job["spans_s"]) == {"offload.ship", "offload.merge",
+                                   "offload.fetch"}
+    assert set(job["service_s"]) == {"load_s", "merge_s", "publish_s"}
+    assert rep["again"]["shipped_bytes"] == 0
+    assert rep["again"]["skipped_runs"] == 4
+    assert len(rep["two_tenants"]["rounds"]) == 2
+    assert rep["status"]["merges_done"] == 4
+    assert rep["status"]["running_merges"] == 0
+
+
+def test_server_phase_at_tiny_size(tmp_path):
+    """The entry point as a subprocess (device = cpu): boots, answers
+    offload-status, merges one partition, exits 0 on SIGTERM."""
+    runs = chip_smoke.fill(8000)
+    rep = chip_smoke.run_server(runs, "cpu", str(tmp_path))
+    assert rep["rc"] == 0 and rep["status"]["free_slots"] == 2
+    assert rep["round"]["records_out"] > 0
