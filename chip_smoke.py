@@ -62,10 +62,10 @@ exits non-zero before printing any result. Phases, one JSON line each:
               merge slots), its tenants the port's client over loopback
               RPC: the 10M-record job digest-equal to the cpu backend with
               its merge kernels launched on the service (3), under
-              torch.profiler; the same job again shipping 0 bytes; two
-              tenants at once (one partition each of a 16-way split, one
-              with a default_ttl, one with user rules), each digest-equal
-              to its own cpu merge; per round its wall time, the
+              torch.profiler; two tenants at once (one partition each of a
+              16-way split, one with a default_ttl, one with user rules),
+              each digest-equal to its own cpu merge, and the first one's
+              job again, shipping 0 bytes; per round its wall time, the
               offload.ship/merge/fetch spans, bytes and MB/s, the
               service's load/merge/publish seconds; the same runs through
               compact_blocks(backend="cuda") locally; device busy time over
@@ -73,10 +73,26 @@ exits non-zero before printing any result. Phases, one JSON line each:
   9. server   python -m pegasus_tpu_torch.server --config <ini> --app
               offload as a subprocess: boot, offload-status over
               RPC_CLI_CLI_CALL (backend cuda, 2 free slots), one partition
-              digest-equal to its cpu merge, SIGTERM, exit 0.
+              digest-equal to its cpu merge, SIGTERM, exit 0;
+ 10. serve    the partition data plane at BASELINE config #3 (YCSB
+              workload-A, 32 hash partitions): 32 PegasusServers (cuda
+              backend) behind two in-process RpcServers; 10M records
+              (hash key "user"+fnvhash64(rank), sort key field0, 100-byte
+              value) bulk-loaded from 4 unsorted raw sets per partition,
+              one RPC_BULK_LOAD_INGEST each (>= 32 merge-kernel launches),
+              each partition's installed run digest-equal to the cpu
+              backend's compaction of the same raw sets; 200k closed-loop ops from 8 PegasusClient threads, 50 % get,
+              50 % set on zipfian ranks (theta 0.99), every read the loaded
+              or an issued value; read-back of every updated key and a
+              100k sample of untouched keys; a manual compaction of every
+              partition through update_app_envs (>= 32 launches) under
+              torch.profiler, each output digest-equal to the cpu
+              backend's compaction of the partition's runs from just
+              before; the read-back again.
 
-The main paths (compact, blockwise, batched, offload) each run with the
-launch counts set to 0 just before and read just after. Then, before the last
+The main paths (compact, blockwise, batched, offload, and serve's ingest
+and compaction) each run with the launch counts set to 0 just before and
+read just after. Then, before the last
 line, the kernel table (times, launches, bounds; merge_path and
 merge_path_batched) and the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -200,6 +216,22 @@ def block_digest(blocks) -> dict:
         h["expire"].update(np.ascontiguousarray(b.expire_ts).tobytes())
         h["deleted"].update(np.ascontiguousarray(b.deleted).tobytes())
     return {"records": n, **{k: v.hexdigest() for k, v in h.items()}}
+
+
+def engine_blocks(path: str) -> list:
+    """Every SST block of an engine directory, newest first (L0, then
+    each level in key order), as the MANIFEST lists them on disk."""
+    from pegasus_tpu_torch.engine.sstable import read_sst
+
+    return [read_sst(f)[0] for f in engine_files(path)]
+
+
+def engine_files(path: str) -> list:
+    with open(os.path.join(path, "MANIFEST")) as f:
+        m = json.load(f)
+    names = list(m["l0"]) + [n for lv in sorted(m["levels"], key=int)
+                             for n in m["levels"][lv]]
+    return [os.path.join(path, n) for n in names]
 
 
 def level_blocks(path: str, level: int) -> list:
@@ -1182,10 +1214,10 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
          to `want`, offloaded, one merge done; its merge-kernel launches
          counted on the service; under torch.profiler for the device's
          busy time over the service's merge, and the peak device memory;
-      2. the same job again: nothing shipped, the same digest;
-      3. two tenants at once, each one partition of a 16-way split, one
+      2. two tenants at once, each one partition of a 16-way split, one
          with a default_ttl, one with user rules: each digest equal to
          its own cpu merge, neither refused;
+      3. the first tenant's job again: nothing shipped, the same digest;
 
     plus the same runs through compact_blocks(backend="cuda") locally,
     for the wire's share."""
@@ -1244,18 +1276,6 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
             digest=got)
         del res
 
-        with COMPACT_TRACER.session() as sess:
-            again = _round(runs, opts, app.address, "bench")
-        again.update(_spans(sess, again))
-        res = again.pop("result")
-        if (again["shipped_bytes"] != 0 or again["skipped_runs"] != len(runs)
-                or block_digest([res.block]) != want):
-            raise AssertionError(f"repeated job shipped "
-                                 f"{again['shipped_bytes']} bytes, skipped "
-                                 f"{again['skipped_runs']} runs")
-        out["again"] = again
-        del res
-
         local_opts = CompactOptions(backend="cuda", device=device, now=NOW,
                                     bottommost=True, runs_sorted=True)
         t0 = time.perf_counter()
@@ -1306,6 +1326,21 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
                                   k: v["s"] for k, v in sess.summary().items()
                                   if k.startswith("offload.")},
                               "wire_mb_s_over_wall": nbytes / 1e6 / both_s}
+
+        # tenant 0's job again: every run already staged, nothing shipped
+        with COMPACT_TRACER.session() as sess:
+            again = _round(parts[0], tenants[0], app.address, "tenant0")
+        again.update(_spans(sess, again))
+        res = again.pop("result")
+        if (again["shipped_bytes"] != 0
+                or again["skipped_runs"] != len(parts[0])
+                or block_digest([res.block]) != block_digest(
+                    [compact_blocks(parts[0], tenants[0]).block])):
+            raise AssertionError(f"repeated job shipped "
+                                 f"{again['shipped_bytes']} bytes, skipped "
+                                 f"{again['skipped_runs']} runs")
+        out["again"] = again
+        del res
         out["status"] = app.svc.status()
     finally:
         app.stop()
@@ -1386,6 +1421,568 @@ def run_server(runs, device, work: str) -> dict:
             proc.wait()
     return {"boot_s": boot_s, "status": status, "round": rnd,
             "stop_s": stop_s, "rc": rc}
+
+
+# ------------------------------------------- the partition data plane
+
+# BASELINE config #3: YCSB workload-A (50/50 read/update), 32 hash
+# partitions. One replica per partition; records of YCSB's core workload
+# (insertorder=hashed key names, fieldlength=100) cut from 10 fields to 1
+# as tools/ycsb_bench.py does.
+SERVE_PARTITIONS = 32
+SERVE_RECORDS = 10_000_000
+SERVE_FILES = 4            # raw-set files per partition
+SERVE_OPS = 200_000
+SERVE_THREADS = 8
+SERVE_SAMPLE = 100_000     # untouched keys read back
+SERVE_THETA = 0.99
+SERVE_APP_ID = 3
+SERVE_FIELD = b"field0"
+SERVE_TIMEOUT_S = 900.0    # one partition's ingest RPC
+_FNV_OFFSET = 0xCBF29CE484222325
+_FNV_PRIME = 1099511628211
+
+
+def ycsb_hash_keys(ranks: np.ndarray) -> tuple:
+    """YCSB's hashed key names, "user" + the decimal of fnvhash64(rank)
+    (CoreWorkload.buildKeyName with insertorder=hashed). -> ([n, 23]
+    uint8 rows, int32 lengths): row i's first lengths[i] bytes."""
+    h = np.full(len(ranks), _FNV_OFFSET, np.uint64)
+    v = ranks.astype(np.uint64)
+    with np.errstate(over="ignore"):
+        for _ in range(8):
+            h ^= v & np.uint64(0xFF)
+            h *= np.uint64(_FNV_PRIME)
+            v >>= np.uint64(8)
+    # Java's Math.abs of the signed 64-bit value
+    mag = h.view(np.int64)
+    neg = mag < 0
+    h = np.where(neg, (~h) + np.uint64(1), h)
+    digits = np.zeros((len(ranks), 19), np.uint8)
+    ndig = np.ones(len(ranks), np.int32)
+    x = h.copy()
+    for j in range(19):
+        digits[:, 18 - j] = (x % np.uint64(10)).astype(np.uint8) + 48
+        x //= np.uint64(10)
+        ndig = np.where(x > 0, j + 2, ndig)
+    rows = np.zeros((len(ranks), 23), np.uint8)
+    rows[:, :4] = np.frombuffer(b"user", np.uint8)
+    # left-align the significant digits after "user"
+    col = np.arange(19)[None, :]
+    src = 19 - ndig[:, None] + col
+    ok = col < ndig[:, None]
+    rows[:, 4:][ok] = digits[np.nonzero(ok)[0], src[ok]]
+    return rows, (4 + ndig).astype(np.int32)
+
+
+def hash_key(rank: int) -> bytes:
+    """ycsb_hash_keys for one rank, in plain integers (the client path)."""
+    h, v = _FNV_OFFSET, rank
+    for _ in range(8):
+        h = ((h ^ (v & 0xFF)) * _FNV_PRIME) & 0xFFFFFFFFFFFFFFFF
+        v >>= 8
+    return b"user%d" % (h if h < 1 << 63 else (1 << 64) - h)
+
+
+_FILLER = np.random.default_rng(12345).integers(
+    65, 91, 80, dtype=np.uint8).tobytes()
+
+
+def loaded_value(rank: int) -> bytes:
+    """The 100-byte value a record is bulk-loaded with."""
+    return b"L%019d" % rank + _FILLER
+
+
+def loaded_values(ranks: np.ndarray) -> np.ndarray:
+    """[n, 100] uint8 rows of loaded_value(rank) for many ranks."""
+    out = np.empty((len(ranks), 100), np.uint8)
+    out[:, 0] = ord("L")
+    x = ranks.astype(np.int64).copy()
+    for j in range(19):
+        out[:, 19 - j] = (x % 10 + 48).astype(np.uint8)
+        x //= 10
+    out[:, 20:] = np.frombuffer(_FILLER, np.uint8)
+    return out
+
+
+def update_value(tid: int, seq: int) -> bytes:
+    return b"U%02d%017d" % (tid, seq) + _FILLER
+
+
+class ZipfRanks:
+    """YCSB's quick-zipfian rank generator over [0, n): P(rank k) ~
+    1/(k+1)^theta (bench.py's ZipfKeys formula, copied)."""
+
+    def __init__(self, n: int, theta: float = SERVE_THETA):
+        self.n = n
+        self.zetan = float(np.sum(1.0 / np.arange(1, n + 1,
+                                                  dtype=np.float64) ** theta))
+        self.zeta2 = 1.0 + 0.5 ** theta
+        self.alpha = 1.0 / (1.0 - theta)
+        self.eta = ((1.0 - (2.0 / n) ** (1.0 - theta))
+                    / (1.0 - self.zeta2 / self.zetan))
+
+    def pick(self, rng) -> int:
+        u = rng.random()
+        uz = u * self.zetan
+        if uz < 1.0:
+            return 0
+        if uz < self.zeta2:
+            return 1
+        return min(self.n - 1,
+                   int(self.n * (self.eta * u - self.eta + 1.0)
+                       ** self.alpha))
+
+
+def _partition_of(hk_rows, hk_lens, n_parts: int) -> np.ndarray:
+    from pegasus_tpu_torch.base.crc64 import crc64_batch
+
+    n = len(hk_lens)
+    h = crc64_batch(hk_rows.reshape(-1),
+                    np.arange(n, dtype=np.int64) * hk_rows.shape[1],
+                    hk_lens.astype(np.int64))
+    return (h % np.uint64(n_parts)).astype(np.int64)
+
+
+def write_provider(root: str, app: str, n_records: int, n_parts: int,
+                   n_files: int, seed: int = 21) -> list:
+    """The bulk-load provider tree: every record's hash key routed to its
+    partition (key_hash % n_parts), each partition's rows shuffled (raw
+    sets are unsorted) and cut into n_files raw-set files. -> records per
+    partition."""
+    from pegasus_tpu_torch.engine.bulk_load import (write_metadata,
+                                                    write_raw_columns)
+
+    rng = np.random.default_rng(seed)
+    counts = [0] * n_parts
+    rows = np.empty((n_records, 23), np.uint8)
+    lens = np.empty(n_records, np.int32)
+    chunk = 1 << 21
+    for lo in range(0, n_records, chunk):
+        hi = min(n_records, lo + chunk)
+        rows[lo:hi], lens[lo:hi] = ycsb_hash_keys(
+            np.arange(lo, hi, dtype=np.int64))
+    part = _partition_of(rows, lens, n_parts)
+    order = np.argsort(part, kind="stable")
+    bounds = np.searchsorted(part[order], np.arange(n_parts + 1))
+    for p in range(n_parts):
+        ranks = rng.permutation(order[bounds[p]: bounds[p + 1]])
+        counts[p] = len(ranks)
+        pdir = os.path.join(root, app, str(n_parts), str(p))
+        os.makedirs(pdir, exist_ok=True)
+        for f, fr in enumerate(np.array_split(ranks, n_files)):
+            n = len(fr)
+            fl = lens[fr]
+            ok = np.arange(rows.shape[1])[None, :] < fl[:, None]
+            hk_off = np.zeros(n, np.int64)
+            np.cumsum(fl[:-1], out=hk_off[1:])
+            sk = np.frombuffer(SERVE_FIELD * n, np.uint8)
+            write_raw_columns(
+                os.path.join(pdir, f"{f:02d}.raw"),
+                (rows[fr][ok], hk_off, fl),
+                (sk, np.arange(n, dtype=np.int64) * len(SERVE_FIELD),
+                 np.full(n, len(SERVE_FIELD), np.int32)),
+                (loaded_values(fr).reshape(-1),
+                 np.arange(n, dtype=np.int64) * 100,
+                 np.full(n, 100, np.int32)),
+                np.zeros(n, np.uint32))
+    write_metadata(root, app, n_parts)
+    return counts
+
+
+def _parallel(fn, items) -> list:
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        return list(ex.map(fn, items))
+
+
+def check_ingest(servers, provider: str, app: str, n_parts: int) -> float:
+    """Hold every partition's installed ingest run to the cpu backend's
+    compaction of the same raw sets with the same filter (rows that do
+    not hash to the partition dropped, partition_mask n_parts - 1, now 0).
+    -> seconds."""
+    from pegasus_tpu_torch.base.value_schema import SCHEMAS
+    from pegasus_tpu_torch.engine.bulk_load import load_ingest_file
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+
+    def one(srv):
+        eng = srv.engine
+        pdir = os.path.join(provider, app, str(n_parts), str(srv.pidx))
+        schema = SCHEMAS[eng.data_version()]
+        raw = [load_ingest_file(os.path.join(pdir, n), schema)
+               for n in sorted(os.listdir(pdir))]
+        want = block_digest([compact_blocks(raw, CompactOptions(
+            backend="cpu", prefix_u32=eng.opts.prefix_u32, filter=True,
+            pidx=srv.pidx, partition_mask=n_parts - 1, bottommost=False,
+            runs_sorted=False, now=0)).block])
+        got = block_digest(engine_blocks(eng.path))
+        if got != want:
+            raise AssertionError(f"partition {srv.pidx}: ingested run {got}"
+                                 f" != cpu backend {want}")
+
+    t0 = time.perf_counter()
+    _parallel(one, servers)
+    return time.perf_counter() - t0
+
+
+def keep_runs(servers, snap: str) -> dict:
+    """Flush every partition and hard-link its SSTs (newest first) under
+    `snap`, so they outlive the compaction that deletes them. -> {pidx:
+    [file, ...]}."""
+    kept = {}
+    for srv in servers:
+        srv.engine.flush()
+        d = os.path.join(snap, str(srv.pidx))
+        os.makedirs(d)
+        kept[srv.pidx] = []
+        for f in engine_files(srv.engine.path):
+            os.link(f, os.path.join(d, os.path.basename(f)))
+            kept[srv.pidx].append(os.path.join(d, os.path.basename(f)))
+    return kept
+
+
+def check_compaction(servers, kept: dict) -> float:
+    """Hold every partition's manual-compaction output to the cpu
+    backend's compaction of its kept pre-compaction runs with the
+    engine's own options. -> seconds."""
+    from pegasus_tpu_torch.engine.sstable import read_sst
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+
+    def one(srv):
+        o = srv.engine.opts
+        runs = [read_sst(f)[0] for f in kept[srv.pidx]]
+        want = block_digest([compact_blocks(runs, CompactOptions(
+            backend="cpu", prefix_u32=o.prefix_u32, pidx=o.pidx,
+            partition_mask=o.partition_mask, bottommost=True,
+            default_ttl=o.default_ttl, runs_sorted=True,
+            user_ops=tuple(o.user_ops))).block])
+        got = block_digest(engine_blocks(srv.engine.path))
+        if got != want:
+            raise AssertionError(f"partition {srv.pidx}: manual compaction "
+                                 f"{got} != cpu backend {want}")
+
+    t0 = time.perf_counter()
+    _parallel(one, servers)
+    return time.perf_counter() - t0
+
+
+class _GcPauses:
+    """Full (generation 2) garbage collections of this process while the
+    context is open: every thread, the servers' RPC workers included,
+    stops for each one."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses, self._t0 = [], None
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append(time.perf_counter() - self._t0)
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+    def summary(self) -> dict:
+        return {"count": len(self.pauses), "s": sum(self.pauses),
+                "max_s": max(self.pauses, default=0.0)}
+
+
+def _percentiles(lat) -> dict:
+    if not lat:
+        return {"count": 0}
+    a = np.sort(np.asarray(lat)) * 1e3
+    return {"count": len(a), "p50_ms": float(a[len(a) // 2]),
+            "p99_ms": float(a[min(len(a) - 1, int(len(a) * 0.99))]),
+            "mean_ms": float(a.mean())}
+
+
+# The client side of the serve phase runs in a process of its own (its
+# 8 threads share one interpreter, as YCSB's client threads do), so the
+# clients' Python does not contend with the servers' for one lock.
+# _CLIENT holds that process's state between its two calls.
+_CLIENT = {}
+
+
+def _client_run(addresses, n_records: int, n_ops: int, n_threads: int,
+                n_sample: int) -> dict:
+    """In the client process: n_ops closed-loop operations from n_threads
+    PegasusClient threads, 50 % get and 50 % set on zipfian ranks, each
+    key's updates from one thread (rank mod n_threads), every read the
+    loaded value or one issued for its key; then picks the keys to read
+    back (every updated key, a seeded sample of untouched keys)."""
+    import threading
+
+    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
+
+    resolver = StaticResolver(SERVE_APP_ID, addresses)
+    zipf = ZipfRanks(n_records)
+    issued = {}       # rank -> every value issued for it (owner only)
+    acked = {}        # rank -> last acknowledged value
+    lat = {"get": [], "set": []}
+    errors = []
+    per_thread = n_ops // n_threads
+
+    def worker(tid):
+        rng = np.random.default_rng(1000 + tid)
+        c = PegasusClient(resolver)
+        seq = 0
+        my_lat = {"get": [], "set": []}
+        try:
+            for _ in range(per_thread):
+                if rng.random() < 0.5:
+                    r = zipf.pick(rng)
+                    t = time.perf_counter()
+                    v = c.get(hash_key(r), SERVE_FIELD)
+                    my_lat["get"].append(time.perf_counter() - t)
+                    if v != loaded_value(r) and v not in issued.get(r, ()):
+                        raise AssertionError(f"read of rank {r}: {v!r}")
+                else:
+                    r = zipf.pick(rng)
+                    while r % n_threads != tid:
+                        r = zipf.pick(rng)
+                    val = update_value(tid, seq)
+                    seq += 1
+                    issued.setdefault(r, set()).add(val)
+                    t = time.perf_counter()
+                    c.set(hash_key(r), SERVE_FIELD, val)
+                    my_lat["set"].append(time.perf_counter() - t)
+                    acked[r] = val
+        except Exception as e:  # raised below
+            errors.append(e)
+        finally:
+            c.close()
+            for k in lat:
+                lat[k].extend(my_lat[k])
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=3600)
+    run_s = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"YCSB run failed: {errors[:3]}")
+    rng = np.random.default_rng(77)
+    upd = sorted(acked)
+    pick = rng.choice(n_records, min(n_records, n_sample + len(acked)),
+                      replace=False).tolist()
+    sample = [r for r in pick if r not in acked][:n_sample]
+    rows, lens = ycsb_hash_keys(np.asarray(sample, np.int64))
+    _CLIENT.update(
+        resolver=resolver,
+        updated=([(hash_key(r), SERVE_FIELD) for r in upd],
+                 [acked[r] for r in upd]),
+        sampled=([(rows[i, :lens[i]].tobytes(), SERVE_FIELD)
+                  for i in range(len(sample))],
+                 [loaded_value(r) for r in sample]))
+    done = len(lat["get"]) + len(lat["set"])
+    return {"seconds": run_s, "ops_done": done, "ops_per_s": done / run_s,
+            "get": _percentiles(lat["get"]), "set": _percentiles(lat["set"]),
+            "keys_updated": len(acked)}
+
+
+def _client_read_back(what: str, chunk: int = 4000) -> dict:
+    """In the client process: batch_get every updated key (its last
+    acknowledged value) and every sampled untouched key (its loaded
+    value); any other answer raises."""
+    from pegasus_tpu_torch.client import PegasusClient
+
+    client = PegasusClient(_CLIENT["resolver"], timeout=120)
+    out = {}
+    try:
+        for name in ("updated", "sampled"):
+            keys, want = _CLIENT[name]
+            t0 = time.perf_counter()
+            for lo in range(0, len(keys), chunk):
+                got = client.batch_get(keys[lo: lo + chunk])
+                for k, g, w in zip(keys[lo: lo + chunk], got,
+                                   want[lo: lo + chunk]):
+                    if g != w:
+                        raise AssertionError(f"{what}: {name} key {k!r} "
+                                             f"read {g!r}, want {w!r}")
+            out[f"{name}_keys"] = len(keys)
+            out[f"{name}_s"] = time.perf_counter() - t0
+    finally:
+        client.close()
+    out["keys_per_s"] = (out["updated_keys"] + out["sampled_keys"]) / (
+        out["updated_s"] + out["sampled_s"])
+    return out
+
+
+def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
+              n_parts: int = SERVE_PARTITIONS, n_ops: int = SERVE_OPS,
+              n_threads: int = SERVE_THREADS,
+              n_sample: int = SERVE_SAMPLE) -> dict:
+    """The partition data plane, BASELINE config #3 (YCSB workload-A, 32
+    hash partitions): n_parts PegasusServers (cuda backend) behind two
+    in-process RpcServers, one replica each; the records bulk-loaded from
+    SERVE_FILES unsorted raw sets per partition with one
+    RPC_BULK_LOAD_INGEST per partition (the merges on the card), each
+    partition's installed run held to the cpu backend (check_ingest); the
+    YCSB-A run and the read-backs from a client process (_client_run,
+    _client_read_back); between the read-backs, a manual compaction of
+    every partition through update_app_envs
+    (manual_compact.once.trigger_time) under torch.profiler, each
+    partition's output held to the cpu backend's compaction of its runs
+    from just before (check_compaction). Merge-kernel launches are
+    counted from 0 around the ingest and around the compaction."""
+    import multiprocessing
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.base import consts
+    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
+    from pegasus_tpu_torch.engine.db import EngineOptions
+    from pegasus_tpu_torch.engine.replica_service import ReplicaService
+    from pegasus_tpu_torch.engine.server_impl import PegasusServer
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.rpc import codec
+    from pegasus_tpu_torch.rpc import messages as msg
+    from pegasus_tpu_torch.rpc.task_codes import RPC_BULK_LOAD_INGEST
+    from pegasus_tpu_torch.rpc.transport import RpcServer
+    from pegasus_tpu_torch.runtime.perf_counters import counters
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    os.makedirs(work, exist_ok=True)
+    out = {"config": "BASELINE #3: YCSB workload-A (50/50 read/update), "
+           f"{n_parts} hash partitions",
+           "partitions": n_parts, "records": n_records, "ops": n_ops,
+           "threads": n_threads, "zipf_theta": SERVE_THETA,
+           "guarantee": "read-your-acknowledged-writes on one copy (no "
+                        "mutation log, one replica per partition)",
+           "reduced": {"fields": "YCSB core fieldcount 10 -> 1 "
+                       "(field0, fieldlength 100), as tools/ycsb_bench.py",
+                       "replicas": "3 -> 1 (PacificA not ported yet)"}}
+    t0 = time.perf_counter()
+    provider = os.path.join(work, "provider")
+    counts = write_provider(provider, "usertable", n_records, n_parts,
+                            SERVE_FILES)
+    out["load_s"] = time.perf_counter() - t0
+
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    rpcs, servers, addr = [], [], {}
+    loader = pool = None
+    try:
+        for node in range(2):
+            svc = ReplicaService()
+            rpc = RpcServer().start()
+            rpcs.append(rpc)
+            for p in range(node, n_parts, 2):
+                srv = PegasusServer(os.path.join(work, f"p{p}"),
+                                    app_id=SERVE_APP_ID, pidx=p,
+                                    server=f"node{node}",
+                                    options=EngineOptions(device=device))
+                svc.add_replica(srv, n_parts)
+                servers.append(srv)
+                addr[p] = rpc.address
+            rpc.register_serverlet(svc)
+        addresses = [addr[p] for p in range(n_parts)]
+        loader = PegasusClient(StaticResolver(SERVE_APP_ID, addresses))
+
+        def ingest(p):
+            conn = loader.pool.get(addresses[p], shard=p)
+            _, body = conn.call(RPC_BULK_LOAD_INGEST, codec.encode(
+                msg.BulkLoadIngestRequest(provider, "usertable", n_parts)),
+                app_id=SERVE_APP_ID, partition_index=p,
+                timeout=SERVE_TIMEOUT_S)
+            return codec.decode(msg.BulkLoadIngestResponse, body)
+
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n_parts) as ex:
+            resps = list(ex.map(ingest, range(n_parts)))
+        out["ingest_s"] = time.perf_counter() - t0
+        out["ingest_merge_launches"] = LAUNCHES["merge_path"]
+        for p, r in enumerate(resps):
+            if r.error or r.ingested_records != counts[p]:
+                raise AssertionError(f"partition {p} ingested "
+                                     f"{r.ingested_records} of {counts[p]} "
+                                     f"(error {r.error})")
+        out["ingested_records"] = sum(r.ingested_records for r in resps)
+        out["ingest_check_s"] = check_ingest(servers, provider, "usertable",
+                                             n_parts)
+
+        pool = multiprocessing.get_context("spawn").Pool(1)
+        with _GcPauses() as gcp:
+            out["run"] = pool.apply(_client_run, (addresses, n_records,
+                                                  n_ops, n_threads, n_sample))
+        out["run"]["server_gc_pauses"] = gcp.summary()
+
+        def read_back(what):
+            with COMPACT_TRACER.session() as sess, _GcPauses() as gcp:
+                rb = pool.apply(_client_read_back, (what,))
+            lk = sess.summary().get("read.lookup", {})
+            return dict(rb, batch_size=counters.percentile(
+                "read.batch.size").percentiles(),
+                device_lookup_calls=lk.get("calls", 0),
+                device_lookup_keys=lk.get("records", 0),
+                server_gc_pauses=gcp.summary())
+
+        out["read_back_after_run"] = read_back("after the run")
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                               if on_card else [])
+        kept = keep_runs(servers, os.path.join(work, "pre_compaction"))
+        trigger = {consts.MANUAL_COMPACT_ONCE_TRIGGER_TIME_KEY:
+                   str(int(time.time()) - 1)}
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for srv in servers:
+                srv.update_app_envs(trigger)
+            if on_card:
+                torch.cuda.synchronize(device)
+            compact_s = time.perf_counter() - t0
+        launches = LAUNCHES["merge_path"]
+        events = _device_events(prof)
+        busy_s = sum(e[1] for e in events) / 1e3
+        states = [srv.manual_compact_service.query_compact_state()
+                  for srv in servers]
+        if any(not st.startswith("idle; last finish") for st in states):
+            raise AssertionError(f"a manual compaction did not finish: "
+                                 f"{states}")
+        out["compaction"] = {
+            "seconds": compact_s, "merge_launches": launches,
+            "device_busy_s": busy_s,
+            "idle_share": max(0.0, 1 - busy_s / compact_s),
+            "top_device_events": [{"name": k[:90], "ms": ms, "calls": c}
+                                  for k, ms, c in events[:6]],
+            "l0_files_after": sum(srv.engine.stats()["l0_files"]
+                                  for srv in servers),
+            "check_s": check_compaction(servers, kept)}
+        shutil.rmtree(os.path.join(work, "pre_compaction"))
+        out["read_back_after_compaction"] = read_back("after the compaction")
+        if on_card:
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        if loader is not None:
+            loader.close()
+        for r in rpcs:
+            r.stop()
+        for srv in servers:
+            srv.close()
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1540,6 +2137,21 @@ def main() -> int:
                                     os.path.join(work, "server")))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    os.makedirs(work, exist_ok=True)
+    try:
+        serve = run_serve(device, os.path.join(work, "serve"))
+        emit("serve", **serve)
+        if serve["ingest_merge_launches"] < SERVE_PARTITIONS or \
+                serve["compaction"]["merge_launches"] < SERVE_PARTITIONS:
+            raise AssertionError(
+                f"merge-kernel launches below {SERVE_PARTITIONS}: ingest "
+                f"{serve['ingest_merge_launches']}, compaction "
+                f"{serve['compaction']['merge_launches']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     emit("elapsed", seconds=time.perf_counter() - started)
     # the kernel line: per launch, averaged over the compaction's own
@@ -1570,6 +2182,9 @@ def main() -> int:
         "synthetic_shared_prefix_ms": kern["large_shared_prefix"]["ms"],
         "own_over_synthetic": (own_half / kern["large"]["ms"]
                                if own_half else None),
+        "serve_launches": {
+            "ingest": serve["ingest_merge_launches"],
+            "compaction": serve["compaction"]["merge_launches"]},
         "ptxas": ptxas,
     }, {
         "name": "merge_path_batched",

@@ -45,3 +45,28 @@ def key_hash(key: bytes) -> int:
                 "key length must be no less than (2 + hash_key_len)")
         return crc64(key[2: 2 + hash_key_len])
     return crc64(key[2:])
+
+
+def expire_ts_from_ttl(ttl_seconds: int) -> int:
+    """TTL seconds -> absolute expire timestamp (2016-based epoch); 0 =
+    none."""
+    from .utils import epoch_now
+
+    return epoch_now() + int(ttl_seconds) if ttl_seconds > 0 else 0
+
+
+def restore_key(key: bytes) -> tuple:
+    """(hash_key, sort_key) from a stored key."""
+    if len(key) < 2:
+        raise ValueError("key length must be no less than 2")
+    (hash_key_len,) = struct.unpack_from(">H", key, 0)
+    if len(key) < 2 + hash_key_len:
+        raise ValueError(
+            "key length must be no less than (2 + hash_key_len)")
+    return key[2: 2 + hash_key_len], key[2 + hash_key_len:]
+
+
+def check_key_hash(key: bytes, pidx: int, partition_version: int) -> bool:
+    """True iff this key is served by partition `pidx` under
+    `partition_version` (a 2^k-1 mask during and after a split)."""
+    return (key_hash(key) & partition_version) == pidx

@@ -1,4 +1,4 @@
-"""Base utilities: the expire_ts clock."""
+"""Base utilities: the expire_ts clock and C-style escaping for logs."""
 
 import time
 
@@ -9,3 +9,21 @@ epoch_begin = 1451606400
 def epoch_now(now: float = None) -> int:
     """Seconds since the 2016 epoch; the expire_ts clock."""
     return int(now if now is not None else time.time()) - epoch_begin
+
+
+_PRINTABLE = set(range(0x20, 0x7F)) - {ord('"'), ord("\\")}
+
+
+def c_escape_string(data: bytes) -> str:
+    """C-style escaping for log display (the same text as pegasus_tpu's)."""
+    out = []
+    for b in data:
+        if b in _PRINTABLE:
+            out.append(chr(b))
+        elif b == ord('"'):
+            out.append('\\"')
+        elif b == ord("\\"):
+            out.append("\\\\")
+        else:
+            out.append(f"\\x{b:02X}")
+    return "".join(out)

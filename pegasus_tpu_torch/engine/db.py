@@ -158,10 +158,22 @@ class LsmEngine:
         self._offload_ttl_s = float(os.environ.get("PEGASUS_SCHED_TTL_S",
                                                    "30"))
         self._c_offload = counters.rate("engine.compact.offload_count")
+        # hard L0 debt ceiling the admission throttle measures against:
+        # 3x the L0 trigger, the reference's default
+        self._sched_ceiling = max(1, self.opts.l0_compaction_trigger * 3)
         os.makedirs(path, exist_ok=True)
         self._load_manifest()
 
     # ------------------------------------------------------------------ meta
+
+    @property
+    def meta_store(self) -> dict:
+        """The live meta-CF dict: what is set here persists with the next
+        manifest write (the manual-compact finish time lives here)."""
+        return self._meta
+
+    def data_version(self) -> int:
+        return int(self._meta.get(META_DATA_VERSION, self.opts.data_version))
 
     def last_durable_decree(self) -> int:
         """Decree covered by on-disk SSTs (manifest's last_flushed_decree)."""
@@ -169,6 +181,35 @@ class LsmEngine:
 
     def last_committed_decree(self) -> int:
         return self._last_committed_decree
+
+    # ------------------------------------------------- compaction scheduling
+
+    def compact_policy(self) -> tuple:
+        """-> (policy, reasons, expires_in_s). The port has no cluster
+        compaction scheduler yet, so no token is ever delivered and the
+        policy reads ('normal', [], 0.0): the engine-local triggers."""
+        return "normal", [], 0.0
+
+    def compaction_debt(self) -> dict:
+        """L0 file count, debt bytes (L0 bytes plus every level's
+        over-budget overflow) and the hard ceiling: what stats() and the
+        admission throttle read. The port installs synchronously, so no
+        install is ever pending."""
+        with self._lock:
+            over = 0
+            for lv in self._levels:
+                if self._levels[lv]:
+                    over += max(0, self._level_bytes(lv)
+                                - self._level_budget(lv))
+            return {"l0_files": len(self._l0),
+                    "debt_bytes": sum(s.data_bytes for s in self._l0) + over,
+                    "pending_installs": 0,
+                    "ceiling_files": self._sched_ceiling}
+
+    def compact_debt_ratio(self) -> float:
+        """L0 debt as a fraction of the hard ceiling; a deliberately
+        lock-free racy read (charged on every write)."""
+        return len(self._l0) / float(self._sched_ceiling)
 
     # ------------------------------------------------------------- placement
 
@@ -269,6 +310,11 @@ class LsmEngine:
 
     # ------------------------------------------------------------------ read
 
+    def _device_reads_on(self) -> bool:
+        """Batched reads probe resident runs on the device (the cuda
+        backend); the server's read coalescers batch only then."""
+        return self.opts.backend == "cuda"
+
     def get(self, key: bytes, now: int = None):
         """-> value bytes, or None (missing / deleted / expired).
 
@@ -336,7 +382,7 @@ class LsmEngine:
         pending = [i for i in range(n) if out[i] is _UNRESOLVED]
         if pending:
             res = self._walk_sources(keys, nows, h32s, pending, sources,
-                                     levels, self.opts.backend == "cuda")
+                                     levels, self._device_reads_on())
             for i, v in res.items():
                 out[i] = v
         return [None if v is _UNRESOLVED else v for v in out]
@@ -509,7 +555,7 @@ class LsmEngine:
         nows = list(now) if isinstance(now, (list, tuple)) else [now] * n
         h32s = list(hash32s) if hash32s is not None else [None] * n
         snap = self._scan_snapshot()
-        if reverse or self.opts.backend != "cuda":
+        if reverse or not self._device_reads_on():
             return [self._scan_over(snap, s, t, nows[i], False, reverse,
                                     h32s[i])
                     for i, (s, t) in enumerate(ranges)]
@@ -950,6 +996,34 @@ class LsmEngine:
             ssts = self._all_ssts_locked()
         for s in ssts:
             self._release_device_run(s)
+
+    # ------------------------------------------------------------- statistics
+
+    def stats(self) -> dict:
+        with self._lock:
+            debt = self.compaction_debt()  # RLock: nested re-acquire
+            policy, reasons, _ = self.compact_policy()
+            return {
+                "compact_debt_bytes": debt["debt_bytes"],
+                "pending_installs": debt["pending_installs"],
+                "compact_ceiling_files": debt["ceiling_files"],
+                "compact_policy": policy,
+                "compact_policy_reasons": reasons,
+                "compact_offload": self._offload_addr,
+                "memtable_records": len(self._mem),
+                "memtable_bytes": self._mem.approximate_bytes,
+                "immutable_memtables": len(self._imm),
+                "l0_files": len(self._l0),
+                "level_files": {lv: len(fs) for lv, fs in self._levels.items()
+                                if fs},
+                "level_bytes": {lv: self._level_bytes(lv)
+                                for lv in self._levels if self._levels[lv]},
+                "total_sst_records": sum(s.n for s in self._all_ssts_locked()),
+                "last_committed_decree": self._last_committed_decree,
+                "last_durable_decree": self.last_durable_decree(),
+                "device_resident_bytes": self._device_cache_used,
+                "device_resident_ssts": self._device_resident_ssts,
+            }
 
 
 def _split_block(block: KVBlock, target_bytes: int) -> list:

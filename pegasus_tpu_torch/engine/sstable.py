@@ -214,8 +214,7 @@ class SSTable:
         self._device_budgeted = False
         self._bloom = None
         if self.header.get("bloom"):
-            self._bloom = np.frombuffer(
-                bytes.fromhex(self.header["bloom"]), dtype=np.uint8)
+            self._bloom = bytes.fromhex(self.header["bloom"])
         self._bloom_log2m = int(self.header.get("bloom_log2m", 0))
 
     @property
@@ -231,15 +230,15 @@ class SSTable:
         return int(db)
 
     def maybe_contains_hash(self, h32) -> bool:
-        """Hashkey bloom probe; False = definitely absent (no disk read)."""
+        """Hashkey bloom probe; False = definitely absent (no disk read).
+        Plain integers on the bloom's bytes: the probe runs per key per
+        file on the read path, where numpy scalars cost ~10x."""
         if self._bloom is None:
             return self.n > 0
-        h = np.uint64(h32)
+        h, shift, bloom = int(h32), 32 - self._bloom_log2m, self._bloom
         for salt in _BLOOM_SALTS:
-            pos = ((h * np.uint64(salt)) & np.uint64(0xFFFFFFFF)) \
-                >> np.uint64(32 - self._bloom_log2m)
-            if not (self._bloom[int(pos >> np.uint64(3))]
-                    >> np.uint8(pos & np.uint64(7))) & 1:
+            pos = ((h * salt) & 0xFFFFFFFF) >> shift
+            if not (bloom[pos >> 3] >> (pos & 7)) & 1:
                 return False
         return True
 

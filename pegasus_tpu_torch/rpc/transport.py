@@ -2,10 +2,13 @@
 
 Port of pegasus_tpu/rpc/transport.py: its framing, header and error
 codes, so a pegasus_tpu peer and a pegasus_tpu_torch peer talk to each
-other on one socket. Pure Python: the JAX package's native frame reader
+other on one socket. Serverlets register their per-frame handlers
+(register_serverlet); calls carry the partition routing fields
+(app_id, partition_index, partition_hash) and, on a sharded connection,
+the `sharded` flag. Pure Python: the JAX package's native frame reader
 and vectored writer send the same bytes and are not ported, nor are its
-batch handlers, middlewares, serverlets, priority-code threads, fail
-points and request tracing.
+batch handlers, middlewares, priority-code threads, fail points and
+request tracing.
 
 Frame: u32 LE payload length | payload. Payload = u32 LE header length |
 codec-encoded RpcHeader | body bytes. Requests and responses share the
@@ -41,8 +44,8 @@ ERR_FORWARD_TO_PRIMARY = 8
 @dataclass
 class RpcHeader:
     """Every field of the JAX package's header, in its order, so frames
-    decode on both sides. The port sends trace_id 0 (untraced) and never
-    sets `sharded`."""
+    decode on both sides. The port sends trace_id 0 (untraced); `sharded`
+    marks a connection that carries one partition's traffic."""
 
     seq: int = 0
     code: str = ""
@@ -168,8 +171,11 @@ class RpcServer:
 
         self._srv = _Server((host, port), _Handler)
         self.address = self._srv.server_address  # (host, actual_port)
-        self._thread = threading.Thread(target=self._srv.serve_forever,
-                                        name="rpc-accept", daemon=True)
+        # a short poll: stop() waits out at most one poll of the accept
+        # loop (socketserver's default half second made every stop slow)
+        self._thread = threading.Thread(
+            target=self._srv.serve_forever, kwargs={"poll_interval": 0.05},
+            name="rpc-accept", daemon=True)
 
     def serve_connection(self, sock) -> None:
         """Serve one connection to exhaustion: read pipelined frames and
@@ -198,6 +204,11 @@ class RpcServer:
 
     def register(self, code: str, handler) -> None:
         self._handlers[code] = handler
+
+    def register_serverlet(self, obj) -> None:
+        """Register every (code, fn) pair of obj.rpc_handlers()."""
+        for code, fn in obj.rpc_handlers().items():
+            self.register(code, fn)
 
     def start(self) -> "RpcServer":
         self._thread.start()
@@ -242,10 +253,16 @@ class RpcServer:
 
 
 class RpcConnection:
-    """One full-duplex client connection with pipelined calls."""
+    """One full-duplex client connection with pipelined calls.
 
-    def __init__(self, addr, connect_timeout: float = 5.0):
+    shard: any hashable marking this connection as carrying exactly one
+    partition's traffic (the ConnectionPool's shard key); its frames set
+    RpcHeader.sharded, which lets a pegasus_tpu partition-group node hand
+    the whole connection to the owning group executor."""
+
+    def __init__(self, addr, connect_timeout: float = 5.0, shard=None):
         self.addr = tuple(addr)
+        self.shard = shard
         self._sock = socket.create_connection(self.addr,
                                               timeout=connect_timeout)
         self._sock.settimeout(None)
@@ -282,14 +299,17 @@ class RpcConnection:
                 slot.append(None)
                 ev.set()
 
-    def _register(self, code: str):
+    def _register(self, code: str, app_id: int = 0, pidx: int = 0,
+                  phash: int = 0):
         """-> (seq, event, slot, header) of one new pending call."""
         with self._plock:
             self._seq += 1
             seq = self._seq
             ev, slot = threading.Event(), []
             self._pending[seq] = (ev, slot)
-        return seq, ev, slot, RpcHeader(seq=seq, code=code)
+        return seq, ev, slot, RpcHeader(
+            seq=seq, code=code, app_id=app_id, partition_index=pidx,
+            partition_hash=phash, sharded=self.shard is not None)
 
     def _result(self, slot):
         if not slot or slot[0] is None:
@@ -299,12 +319,15 @@ class RpcConnection:
             raise RpcError(rh.error, rh.error_text)
         return rh, rbody
 
-    def call(self, code: str, body: bytes, timeout: float = 10.0):
+    def call(self, code: str, body: bytes, app_id: int = 0,
+             partition_index: int = 0, partition_hash: int = 0,
+             timeout: float = 10.0):
         """-> (RpcHeader, body bytes); raises RpcError on rpc-level
         failure."""
         if self._dead:
             raise RpcError(ERR_NETWORK_FAILURE, str(self._dead))
-        seq, ev, slot, header = self._register(code)
+        seq, ev, slot, header = self._register(code, app_id, partition_index,
+                                               partition_hash)
         try:
             _send_frame(self._sock, header, body, lock=self._wlock)
         except (ConnectionError, OSError) as e:
@@ -318,17 +341,27 @@ class RpcConnection:
         return self._result(slot)
 
     def call_many(self, calls, timeout: float = 10.0):
-        """Pipelined batch of (code, body) calls: every request frame
-        leaves in ONE coalesced socket send, then the responses are
-        collected in issue order. -> [(RpcHeader, body)]; raises RpcError
-        on the first failure."""
+        """Pipelined batch of calls: every request frame leaves in ONE
+        coalesced socket send, then the responses are collected in issue
+        order. Each call is (code, body) or (code, body, app_id, pidx,
+        phash), the latter routed like call(). -> [(RpcHeader, body)];
+        raises RpcError on the first failure."""
+        return self.call_many_collect(self.call_many_send(calls), calls,
+                                      timeout)
+
+    def call_many_send(self, calls):
+        """Send half of call_many: one coalesced write, -> a pending token
+        for call_many_collect. Lets a caller send waves on several
+        connections before collecting any."""
         if not calls:
             return []
         if self._dead:
             raise RpcError(ERR_NETWORK_FAILURE, str(self._dead))
         pend, buf = [], bytearray()
-        for code, body in calls:
-            seq, ev, slot, header = self._register(code)
+        for call in calls:
+            code, body = call[0], call[1]
+            route = tuple(call[2:5]) if len(call) > 2 else ()
+            seq, ev, slot, header = self._register(code, *route)
             pend.append((seq, ev, slot))
             h = codec.encode(header)
             buf += struct.pack("<II", 4 + len(h) + len(body), len(h))
@@ -342,6 +375,10 @@ class RpcConnection:
                 for seq, _, _ in pend:
                     self._pending.pop(seq, None)
             raise RpcError(ERR_NETWORK_FAILURE, str(e))
+        return pend
+
+    def call_many_collect(self, pend, calls, timeout: float = 10.0):
+        """Collect half of call_many: the responses in issue order."""
         deadline = time.monotonic() + timeout
         out = []
         for i, (seq, ev, slot) in enumerate(pend):
@@ -362,28 +399,41 @@ class RpcConnection:
 
 
 class ConnectionPool:
-    """addr -> RpcConnection cache with reconnect-on-failure."""
+    """(addr, shard) -> RpcConnection cache with reconnect-on-failure.
+
+    shard=None is one connection per node; a non-None shard keys a
+    dedicated connection for one partition's traffic."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._conns = {}  #: guarded_by self._lock
 
-    def get(self, addr) -> RpcConnection:
-        addr = tuple(addr)
+    def get(self, addr, shard=None) -> RpcConnection:
+        key = (tuple(addr), shard)
         with self._lock:
-            conn = self._conns.get(addr)
+            conn = self._conns.get(key)
         if conn is not None and not conn._dead:
             return conn
         # connect outside the pool lock: a black-holed peer blocks for the
         # connect timeout and must not serialize every other caller
-        fresh = RpcConnection(addr)
+        fresh = RpcConnection(key[0], shard=shard)
         with self._lock:
-            cur = self._conns.get(addr)
+            cur = self._conns.get(key)
             if cur is not None and not cur._dead and cur is not conn:
                 fresh.close()  # lost the race to another connector
                 return cur
-            self._conns[addr] = fresh
+            self._conns[key] = fresh
         return fresh
+
+    def invalidate(self, addr) -> None:
+        """Drop every shard's connection to addr (a dead node is dead for
+        all of its partitions)."""
+        addr = tuple(addr)
+        with self._lock:
+            dead = [k for k in self._conns if k[0] == addr]
+            conns = [self._conns.pop(k) for k in dead]
+        for c in conns:
+            c.close()
 
     def close(self):
         with self._lock:

@@ -21,7 +21,9 @@ synchronisation (the `device` span ends after torch.cuda.synchronize),
 that wall time covers the device work it launched.
 
 A TraceSession aggregates every span closed while it is active, on any
-thread: stage -> {s, calls, records, bytes}.
+thread: stage -> {s, calls, records, bytes}. The tracer also keeps each
+thread's open spans, so the device watchdog can name the stage a wedged
+device stopped in (innermost_open).
 """
 
 import threading
@@ -51,16 +53,22 @@ class TraceSession:
 class StageTracer:
     def __init__(self):
         self._sessions = []
+        # thread id -> its open stages, outermost first (each list is
+        # touched only by its own thread; readers take snapshots)
+        self._open = {}
 
     @contextmanager
     def span(self, stage: str, records: int = 0, nbytes: int = 0):
         """Time one stage. Yields a mutable {records, bytes} box so counts
         discovered mid-span can be added before the span closes."""
         box = {"records": records, "bytes": nbytes}
+        stack = self._open.setdefault(threading.get_ident(), [])
+        stack.append(stage)
         t0 = time.perf_counter()
         try:
             yield box
         finally:
+            stack.pop()
             dur_s = time.perf_counter() - t0
             for sess in list(self._sessions):
                 sess._add(stage, dur_s, box["records"], box["bytes"])
@@ -70,6 +78,16 @@ class StageTracer:
         """Record a duration measured elsewhere under `stage`."""
         for sess in list(self._sessions):
             sess._add(stage, dur_s, records, nbytes)
+
+    def innermost_open(self):
+        """The innermost open stage of some thread, or None when no span
+        is open."""
+        for stack in list(self._open.values()):
+            try:
+                return stack[-1]
+            except IndexError:  # empty, or emptied by its thread just now
+                continue
+        return None
 
     @contextmanager
     def session(self):

@@ -60,7 +60,17 @@ def test_source_walk_covers_the_package():
                 "runtime/remote_command.py", "replication/learn.py",
                 "parallel/sharded_compact.py",
                 "replication/compact_offload.py", "runtime/config.py",
-                "runtime/service_app.py", "server/__main__.py"):
+                "runtime/service_app.py", "server/__main__.py",
+                "base/value_schema.py", "base/consts.py", "base/utils.py",
+                "rpc/task_codes.py", "engine/scan_context.py",
+                "engine/range_read_limiter.py", "engine/throttling.py",
+                "engine/hotkey_collector.py",
+                "engine/capacity_unit_calculator.py",
+                "engine/write_service.py", "engine/bulk_load.py",
+                "ops/device_watchdog.py",
+                "engine/manual_compact_service.py",
+                "engine/server_impl.py", "engine/replica_service.py",
+                "client/client.py", "client/__init__.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
 
 

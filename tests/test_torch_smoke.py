@@ -207,3 +207,77 @@ def test_server_phase_at_tiny_size(tmp_path):
     rep = chip_smoke.run_server(runs, "cpu", str(tmp_path))
     assert rep["rc"] == 0 and rep["status"]["free_slots"] == 2
     assert rep["round"]["records_out"] > 0
+
+
+def test_serve_phase_at_tiny_size(tmp_path):
+    """The partition data plane on device="cpu": raw sets bulk-loaded into
+    4 partitions through RPC_BULK_LOAD_INGEST, a zipfian 50/50 run from 4
+    client threads (every read the loaded or an issued value), read-back
+    of every updated and a sample of untouched keys before and after a
+    manual compaction of every partition through update_app_envs, each
+    partition's ingested run and compaction output held to the cpu
+    backend (run_serve raises on any mismatch)."""
+    rep = chip_smoke.run_serve("cpu", str(tmp_path), n_records=6000,
+                               n_parts=4, n_ops=600, n_threads=4,
+                               n_sample=300)
+    assert rep["ingested_records"] == 6000
+    assert rep["ingest_check_s"] > 0 and rep["compaction"]["check_s"] > 0
+    assert rep["run"]["ops_done"] == 600 and rep["run"]["keys_updated"] > 0
+    assert rep["compaction"]["l0_files_after"] == 0
+    for tag in ("read_back_after_run", "read_back_after_compaction"):
+        assert rep[tag]["sampled_keys"] == 300
+        assert rep[tag]["updated_keys"] == rep["run"]["keys_updated"]
+        assert rep[tag]["server_gc_pauses"]["count"] >= 0
+
+
+@pytest.mark.parametrize("where", ["ingest", "compaction"])
+def test_serve_phase_holds_merges_to_the_cpu_backend(tmp_path, monkeypatch,
+                                                     where):
+    """One value byte flipped in the run an ingest or a manual compaction
+    installs (the updated and sampled keys may all miss it) fails the
+    serve phase's cpu-backend check of that step."""
+    from pegasus_tpu_torch.engine.db import LsmEngine
+
+    def flip(block):
+        block.val_arena = block.val_arena.copy()
+        block.val_arena[len(block.val_arena) // 2] ^= 1
+
+    if where == "ingest":
+        install = LsmEngine.install_ingested_block
+
+        def patched(self, block):
+            flip(block)
+            return install(self, block)
+
+        monkeypatch.setattr(LsmEngine, "install_ingested_block", patched)
+        match = "ingested run"
+    else:
+        install = LsmEngine._install_merge_output
+
+        def patched(self, newer, older, out_block, target_level):
+            flip(out_block)
+            return install(self, newer, older, out_block, target_level)
+
+        monkeypatch.setattr(LsmEngine, "_install_merge_output", patched)
+        match = "manual compaction"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.run_serve("cpu", str(tmp_path), n_records=3000, n_parts=2,
+                             n_ops=0, n_threads=1, n_sample=0)
+
+
+def test_ycsb_key_names():
+    """YCSB's hashed key names (fnvhash64, Java's Math.abs): the first
+    key of every YCSB load is user6284781860667377211; the vectorized and
+    scalar forms agree, and the loaded values are 100 bytes."""
+    ranks = np.array([0, 1, 7, 123456, 9_999_999, 1 << 40], np.int64)
+    rows, lens = chip_smoke.ycsb_hash_keys(ranks)
+    assert chip_smoke.hash_key(0) == b"user6284781860667377211"
+    for i, r in enumerate(ranks.tolist()):
+        assert rows[i, :lens[i]].tobytes() == chip_smoke.hash_key(r)
+        assert chip_smoke.loaded_values(ranks)[i].tobytes() == \
+            chip_smoke.loaded_value(r)
+        assert len(chip_smoke.loaded_value(r)) == 100
+    z, rng = chip_smoke.ZipfRanks(1000), np.random.default_rng(3)
+    picks = [z.pick(rng) for _ in range(2000)]
+    assert min(picks) == 0 and max(picks) < 1000
+    assert picks.count(0) > picks.count(500)
