@@ -84,21 +84,34 @@ exits non-zero before printing any result. Phases, one JSON line each:
               backend's compaction of the same raw sets; 200k closed-loop ops from 8 PegasusClient threads, 50 % get,
               50 % set on zipfian ranks (theta 0.99), every read the loaded
               or an issued value; read-back of every updated key and a
-              100k sample of untouched keys; a manual compaction of every
-              partition through update_app_envs (>= 32 launches) under
-              torch.profiler, each output digest-equal to the cpu
-              backend's compaction of the partition's runs from just
-              before; the read-back again.
+              20k sample of untouched keys through batch dispatch (its
+              batches above 1 and device lookups made); a manual
+              compaction of every partition through update_app_envs
+              (>= 32 launches) under torch.profiler, each output
+              digest-equal to the cpu backend's compaction of the
+              partition's runs from just before; the read-back again.
+ 11. replicate  PacificA at BASELINE #3's per-partition scale: partitions
+              0-3 of the serve table, each a ReplicaGroup of 3 replicas
+              (cuda engines, quorum 2), loaded through PacificA with one
+              RPC_BULK_LOAD_INGEST write each (36 merge launches);
+              YCSB-A, 40k ops from 8 threads (gets through
+              primary.server.on_get_batch), group 0's primary killed at
+              op 15k and restarted as a learner at op 25k (writes commit
+              throughout); every acknowledged update and a 20k sample
+              read back from every replica; state digests equal per
+              group; a manual compaction of all 12 replicas, each output
+              digest-equal to the cpu backend's compaction of its runs.
 
-The main paths (compact, blockwise, batched, offload, and serve's ingest
-and compaction) each run with the launch counts set to 0 just before and
-read just after. Then, before the last
+The main paths (compact, blockwise, batched, offload, serve's ingest
+and compaction, replicate's load and compaction) each run with the
+launch counts set to 0 just before and read just after. Then, before the last
 line, the kernel table (times, launches, bounds; merge_path and
 merge_path_batched) and the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises and exits non-zero. Engine and offload-service
 files go to .scratch/chip_smoke/ under the repository and are removed at
-the end.
+the end; every phase line is also appended to
+.scratch/chip_smoke_phases.jsonl.
 """
 
 import hashlib
@@ -128,8 +141,17 @@ NOW = 100
 BLOCKWISE_BUDGET = 1 << 22   # max_device_records of the blockwise phase
 
 
+# every phase line again, whole, beside the run's output (whose end is
+# all a caller may get back)
+PHASE_LOG = os.path.join(ROOT, ".scratch", "chip_smoke_phases.jsonl")
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    line = json.dumps({"phase": phase, **kw})
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(PHASE_LOG), exist_ok=True)
+    with open(PHASE_LOG, "a") as f:
+        f.write(line + "\n")
 
 
 # ---------------------------------------------------------------- the fill
@@ -1434,7 +1456,8 @@ SERVE_RECORDS = 10_000_000
 SERVE_FILES = 4            # raw-set files per partition
 SERVE_OPS = 200_000
 SERVE_THREADS = 8
-SERVE_SAMPLE = 100_000     # untouched keys read back
+SERVE_SAMPLE = 20_000      # untouched keys read back (device-served
+                           # read-backs run at ~500 keys/s: the clock)
 SERVE_THETA = 0.99
 SERVE_APP_ID = 3
 SERVE_FIELD = b"field0"
@@ -1626,32 +1649,33 @@ def check_ingest(servers, provider: str, app: str, n_parts: int) -> float:
     return time.perf_counter() - t0
 
 
-def keep_runs(servers, snap: str) -> dict:
-    """Flush every partition and hard-link its SSTs (newest first) under
-    `snap`, so they outlive the compaction that deletes them. -> {pidx:
-    [file, ...]}."""
-    kept = {}
-    for srv in servers:
+def keep_runs(servers, snap: str) -> list:
+    """Flush every engine and hard-link its SSTs (newest first) under
+    `snap`, so they outlive the compaction that deletes them. -> one
+    [file, ...] per server, in order."""
+    kept = []
+    for i, srv in enumerate(servers):
         srv.engine.flush()
-        d = os.path.join(snap, str(srv.pidx))
+        d = os.path.join(snap, str(i))
         os.makedirs(d)
-        kept[srv.pidx] = []
+        kept.append([])
         for f in engine_files(srv.engine.path):
             os.link(f, os.path.join(d, os.path.basename(f)))
-            kept[srv.pidx].append(os.path.join(d, os.path.basename(f)))
+            kept[-1].append(os.path.join(d, os.path.basename(f)))
     return kept
 
 
-def check_compaction(servers, kept: dict) -> float:
-    """Hold every partition's manual-compaction output to the cpu
-    backend's compaction of its kept pre-compaction runs with the
-    engine's own options. -> seconds."""
+def check_compaction(servers, kept: list) -> float:
+    """Hold every engine's manual-compaction output to the cpu backend's
+    compaction of its kept pre-compaction runs with the engine's own
+    options. -> seconds."""
     from pegasus_tpu_torch.engine.sstable import read_sst
     from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
 
-    def one(srv):
+    def one(i):
+        srv = servers[i]
         o = srv.engine.opts
-        runs = [read_sst(f)[0] for f in kept[srv.pidx]]
+        runs = [read_sst(f)[0] for f in kept[i]]
         want = block_digest([compact_blocks(runs, CompactOptions(
             backend="cpu", prefix_u32=o.prefix_u32, pidx=o.pidx,
             partition_mask=o.partition_mask, bottommost=True,
@@ -1659,11 +1683,11 @@ def check_compaction(servers, kept: dict) -> float:
             user_ops=tuple(o.user_ops))).block])
         got = block_digest(engine_blocks(srv.engine.path))
         if got != want:
-            raise AssertionError(f"partition {srv.pidx}: manual compaction "
-                                 f"{got} != cpu backend {want}")
+            raise AssertionError(f"{srv.server} partition {srv.pidx}: manual"
+                                 f" compaction {got} != cpu backend {want}")
 
     t0 = time.perf_counter()
-    _parallel(one, servers)
+    _parallel(one, range(len(servers)))
     return time.perf_counter() - t0
 
 
@@ -1926,14 +1950,25 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
         out["run"]["server_gc_pauses"] = gcp.summary()
 
         def read_back(what):
+            batch_size = counters.percentile("read.batch.size")
+            batch_size.reset()
             with COMPACT_TRACER.session() as sess, _GcPauses() as gcp:
                 rb = pool.apply(_client_read_back, (what,))
             lk = sess.summary().get("read.lookup", {})
-            return dict(rb, batch_size=counters.percentile(
-                "read.batch.size").percentiles(),
-                device_lookup_calls=lk.get("calls", 0),
-                device_lookup_keys=lk.get("records", 0),
-                server_gc_pauses=gcp.summary())
+            rb = dict(rb, batch_size=batch_size.percentiles(),
+                      device_lookup_calls=lk.get("calls", 0),
+                      device_lookup_keys=lk.get("records", 0),
+                      server_gc_pauses=gcp.summary())
+            # batch dispatch: a client wave reaches the coalescer whole,
+            # and its batches probe the resident runs on the device
+            if rb["updated_keys"] + rb["sampled_keys"] and (
+                    rb["batch_size"]["p50"] <= 1
+                    or not rb["device_lookup_calls"]):
+                raise AssertionError(f"read-back {what}: batch size "
+                                     f"{rb['batch_size']}, "
+                                     f"{rb['device_lookup_calls']} device "
+                                     f"lookups")
+            return rb
 
         out["read_back_after_run"] = read_back("after the run")
 
@@ -1982,6 +2017,411 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
             r.stop()
         for srv in servers:
             srv.close()
+    return out
+
+
+# ---------------------------------------------------------- replicate
+
+REPLICATE_GROUPS = 4        # partitions 0..3 of the serve table
+REPLICATE_OPS = 40_000
+REPLICATE_THREADS = 8
+REPLICATE_WAVE = 8          # ops per client wave; its gets, one batch per group
+REPLICATE_SAMPLE = 20_000   # untouched loaded keys read back from every replica
+REPLICATE_KILL_AT = 15_000
+REPLICATE_RESTART_AT = 25_000
+REPLICATE_APP_ID = 4
+
+
+def partition_ranks(n_records: int, n_parts: int, parts) -> dict:
+    """{pidx: the ranks whose records the serve table routes to pidx}."""
+    out = {p: [] for p in parts}
+    chunk = 1 << 21
+    for lo in range(0, n_records, chunk):
+        ranks = np.arange(lo, min(n_records, lo + chunk), dtype=np.int64)
+        part = _partition_of(*ycsb_hash_keys(ranks), n_parts)
+        for p in parts:
+            out[p].append(ranks[part == p])
+    return {p: np.concatenate(v) for p, v in out.items()}
+
+
+def _replicas(groups) -> list:
+    return [r for g in groups for _, r in sorted(g.alive.items())]
+
+
+def run_replicate(device, work: str, provider: str,
+                  n_records: int = SERVE_RECORDS,
+                  n_parts: int = SERVE_PARTITIONS,
+                  n_groups: int = REPLICATE_GROUPS,
+                  n_ops: int = REPLICATE_OPS,
+                  n_threads: int = REPLICATE_THREADS,
+                  n_sample: int = REPLICATE_SAMPLE,
+                  kill_at: int = REPLICATE_KILL_AT,
+                  restart_at: int = REPLICATE_RESTART_AT) -> dict:
+    """PacificA at full width: partitions 0..n_groups-1 of the serve table
+    (`provider`, written by run_serve), each a ReplicaGroup of 3 replicas
+    with cuda engines and quorum 2. Loaded through PacificA itself: one
+    RPC_BULK_LOAD_INGEST write per group, so every replica ingests the
+    same raw sets through the merge kernel. Then YCSB-A from n_threads
+    threads against the primaries (zipfian over the groups' records,
+    sets through ReplicaGroup.write, gets through
+    primary.server.on_get_batch in waves of REPLICATE_WAVE ops); at op
+    kill_at group 0's primary is hard-killed (a write that fails in the
+    failover is retried and counted), at op restart_at it restarts and
+    rejoins as a learner (the streamed learn of a checkpoint plus the log
+    tail) while writes go on. Then every acknowledged update and an
+    n_sample sample of loaded keys read back from every replica through
+    on_get_batch; state_digest equal across each group's replicas; a
+    manual compaction of every replica under torch.profiler, each output
+    held to the cpu backend's compaction of its runs from just before.
+    Merge-kernel launches are counted from 0 around the load and around
+    the compaction."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.base.utils import epoch_now
+    from pegasus_tpu_torch.engine.db import EngineOptions
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.replication import ReplicaError, ReplicaGroup
+    from pegasus_tpu_torch.rpc import messages as msg
+    from pegasus_tpu_torch.rpc.messages import Status
+    from pegasus_tpu_torch.rpc.task_codes import (RPC_BULK_LOAD_INGEST,
+                                                  RPC_PUT)
+    from pegasus_tpu_torch.runtime.perf_counters import counters
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if on_card else [])
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def mem():
+        return torch.cuda.memory_allocated(device) if on_card else 0
+
+    def device_busy(prof, wall):
+        busy = sum(e[1] for e in _device_events(prof)) / 1e3
+        return {"device_busy_s": busy,
+                "idle_share": max(0.0, 1 - busy / wall) if wall else None}
+
+    out = {"config": "BASELINE #3 per-partition scale, 3 replicas, quorum 2 "
+           "(YCSB workload-A)",
+           "groups": n_groups, "replicas": 3, "quorum": 2, "ops": n_ops,
+           "threads": n_threads, "zipf_theta": SERVE_THETA,
+           "guarantee": "PacificA: a write is acknowledged once a quorum "
+                        "(2 of 3) holds it in its log; every acknowledged "
+                        "write is read back from all three replicas",
+           "reduced": {"partitions": f"{n_parts} -> {n_groups} (the "
+                       "script's clock); replicas stay 3",
+                       "fields": "YCSB core fieldcount 10 -> 1 (field0, "
+                       "fieldlength 100), as tools/ycsb_bench.py"}}
+    parts = list(range(n_groups))
+    t0 = time.perf_counter()
+    ranks = partition_ranks(n_records, n_parts, parts)
+    all_ranks = np.concatenate([ranks[p] for p in parts])
+    group_of = np.concatenate([np.full(len(ranks[p]), p, np.int64)
+                               for p in parts])
+    out["records"] = {p: int(len(ranks[p])) for p in parts}
+    out["key_setup_s"] = time.perf_counter() - t0
+
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    groups = []
+    try:
+        for p in parts:
+            groups.append(ReplicaGroup(
+                os.path.join(work, f"g{p}"), n=3, app_id=REPLICATE_APP_ID,
+                pidx=p, quorum=2,
+                options_factory=lambda: EngineOptions(device=device)))
+
+        # ---- load: one bulk-load ingest write per group, through PacificA
+        req = msg.BulkLoadIngestRequest(provider, "usertable", n_parts)
+
+        def load(g):
+            resp = g.write(RPC_BULK_LOAD_INGEST, req)
+            # the commit point reaches the secondaries, which ingest now
+            g.primary_replica().broadcast_commit_point()
+            return resp
+
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(n_groups) as ex:
+                resps = list(ex.map(load, groups))
+            sync()
+            load_s = time.perf_counter() - t0
+        out["load"] = {"seconds": load_s,
+                       "merge_launches": LAUNCHES["merge_path"],
+                       **device_busy(prof, load_s)}
+        for p, r in zip(parts, resps):
+            if r.error or r.ingested_records != len(ranks[p]):
+                raise AssertionError(f"group {p} ingested "
+                                     f"{r.ingested_records} of "
+                                     f"{len(ranks[p])} (error {r.error})")
+        for rep in _replicas(groups):
+            if rep.last_committed != 1:
+                raise AssertionError(f"{rep.name} of group {rep.pidx} did "
+                                     f"not apply the ingest")
+
+        # ---- YCSB-A against the primaries, a kill and a rejoin under load
+        zipf = ZipfRanks(len(all_ranks))
+        lock = threading.Lock()
+        done = [0]
+        issued, acked = {}, {}
+        lat = {"get": [], "set": []}
+        g0_acks = []          # (write start, ack) of group 0's writes
+        retries = [0]
+        errors = []
+        ctl = {}
+        per_thread = n_ops // n_threads
+
+        def key_of(i):
+            r = int(all_ranks[i])
+            return r, generate_key(hash_key(r), SERVE_FIELD)
+
+        def write(g, key, val):
+            t_start = time.perf_counter()
+            while True:
+                try:
+                    resp = groups[g].write(RPC_PUT,
+                                           msg.UpdateRequest(key, val, 0))
+                    break
+                except (ReplicaError, KeyError):  # failover: retried
+                    with lock:
+                        retries[0] += 1
+                    if time.perf_counter() - t_start > 60:
+                        raise
+                    time.sleep(0.001)
+            t_ack = time.perf_counter()
+            if resp.error != Status.OK:
+                raise AssertionError(f"set answered {resp.error}")
+            if g == 0:
+                with lock:
+                    g0_acks.append((t_start, t_ack))
+            return t_ack - t_start
+
+        def read_wave(gets):
+            by_group = {}
+            for i in gets:
+                by_group.setdefault(int(group_of[i]), []).append(i)
+            for g, idx in by_group.items():
+                keys = [key_of(i)[1] for i in idx]
+                t = time.perf_counter()
+                while True:
+                    try:
+                        resps = groups[g].primary_replica().server \
+                            .on_get_batch(keys)
+                        break
+                    except KeyError:   # mid-failover: no primary yet
+                        time.sleep(0.001)
+                dt = time.perf_counter() - t
+                for i, resp in zip(idx, resps):
+                    r = int(all_ranks[i])
+                    lat["get"].append(dt)
+                    if resp.value != loaded_value(r) and \
+                            resp.value not in issued.get(r, ()):
+                        raise AssertionError(f"read of rank {r}: "
+                                             f"{resp.error} {resp.value!r}")
+
+        def worker(tid):
+            rng = np.random.default_rng(2000 + tid)
+            seq = 0
+            try:
+                left = per_thread
+                while left:
+                    wave = min(REPLICATE_WAVE, left)
+                    left -= wave
+                    gets = []
+                    for _ in range(wave):
+                        if rng.random() < 0.5:
+                            gets.append(zipf.pick(rng))
+                            continue
+                        i = zipf.pick(rng)
+                        while int(all_ranks[i]) % n_threads != tid:
+                            i = zipf.pick(rng)
+                        r, key = key_of(i)
+                        val = update_value(tid, seq)
+                        seq += 1
+                        issued.setdefault(r, set()).add(val)
+                        lat["set"].append(write(int(group_of[i]), key, val))
+                        acked[r] = (int(group_of[i]), val)
+                    if gets:
+                        read_wave(gets)
+                    with lock:
+                        done[0] += wave
+            except Exception as e:  # raised below
+                errors.append(e)
+
+        def controller():
+            try:
+                while done[0] < kill_at and not errors:
+                    time.sleep(0.005)
+                g0 = groups[0]
+                victim = g0.primary
+                ctl["victim"] = victim
+                sync()
+                ctl["mem_before_kill"] = mem()
+                ctl["t_kill"] = time.perf_counter()
+                g0.kill(victim)
+                ctl["t_killed"] = time.perf_counter()
+                ctl["new_primary"] = g0.primary
+                while done[0] < restart_at and not errors:
+                    time.sleep(0.005)
+                b0 = {k: counters.rate("learn." + k).total() for k in
+                      ("ship.bytes", "ship.blocks", "replay.mutations",
+                       "ship.delta_skipped_blocks")}
+                ctl["t_restart"] = time.perf_counter()
+                learner = g0.restart(victim)
+                ctl["t_learned"] = time.perf_counter()
+                sync()
+                ctl["mem_after_learn"] = mem()
+                ctl["learner_resident"] = \
+                    learner.server.engine.device_resident_bytes()
+                ctl["learn"] = {k.replace(".", "_"): counters.rate(
+                    "learn." + k).total() - v for k, v in b0.items()}
+            except Exception as e:  # raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(n_threads)]
+        threads.append(threading.Thread(target=controller))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=3600)
+        run_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"replicate run failed: {errors[:3]}")
+        after_kill = [a for s, a in g0_acks if s >= ctl["t_kill"]]
+        in_learn = [a for _, a in g0_acks
+                    if ctl["t_restart"] <= a <= ctl["t_learned"]]
+        in_down = [a for _, a in g0_acks
+                   if ctl["t_killed"] <= a <= ctl["t_restart"]]
+        if not after_kill or not in_learn or not in_down:
+            raise AssertionError(
+                f"group 0 stopped committing: {len(in_down)} writes acked "
+                f"between the kill and the restart, {len(in_learn)} during "
+                f"the learn")
+        n_done = len(lat["get"]) + len(lat["set"])
+        out["run"] = {
+            "seconds": run_s, "ops_done": n_done,
+            "ops_per_s": n_done / run_s,
+            "get": _percentiles(lat["get"]), "set": _percentiles(lat["set"]),
+            "keys_updated": len(acked), "write_retries": retries[0],
+            "killed": f"group 0 primary {ctl['victim']} at op {kill_at}; "
+                      f"new primary {ctl['new_primary']}",
+            "failover_s": min(after_kill) - ctl["t_kill"],
+            "group0_acks_while_down": len(in_down),
+            "group0_acks_during_learn": len(in_learn),
+            "learn": dict(ctl["learn"],
+                          seconds=ctl["t_learned"] - ctl["t_restart"]),
+            "device_bytes_before_kill": ctl["mem_before_kill"],
+            "device_bytes_after_learn": ctl["mem_after_learn"],
+            "learner_resident_bytes": ctl["learner_resident"]}
+        if ctl["mem_after_learn"] - ctl["mem_before_kill"] > \
+                ctl["learner_resident"]:
+            raise AssertionError(
+                f"device memory after the learn {ctl['mem_after_learn']} "
+                f"exceeds the memory before the kill "
+                f"{ctl['mem_before_kill']} by more than the learner's own "
+                f"resident runs {ctl['learner_resident']}")
+
+        # ---- read-back from every replica, the relearned one included
+        for g in groups:
+            g.primary_replica().broadcast_commit_point()
+        rng = np.random.default_rng(78)
+        by_group = {p: ([], []) for p in parts}
+        for r, (g, val) in acked.items():
+            by_group[g][0].append(generate_key(hash_key(r), SERVE_FIELD))
+            by_group[g][1].append(val)
+        touched = set(acked)
+        pick = rng.choice(len(all_ranks), min(len(all_ranks),
+                                              n_sample + len(acked)),
+                          replace=False)
+        sample = [i for i in pick.tolist()
+                  if int(all_ranks[i]) not in touched][:n_sample]
+        for i in sample:
+            r = int(all_ranks[i])
+            by_group[int(group_of[i])][0].append(
+                generate_key(hash_key(r), SERVE_FIELD))
+            by_group[int(group_of[i])][1].append(loaded_value(r))
+        n_keys = 0
+        batch_size = counters.percentile("read.batch.size")
+        batch_size.reset()
+        with COMPACT_TRACER.session() as sess:
+            t0 = time.perf_counter()
+            for g in groups:
+                keys, want = by_group[g.pidx]
+                for rep in g.alive.values():
+                    for lo in range(0, len(keys), 4000):
+                        got = rep.server.on_get_batch(keys[lo: lo + 4000])
+                        for k, resp, w in zip(keys[lo: lo + 4000], got,
+                                              want[lo: lo + 4000]):
+                            if resp.value != w:
+                                raise AssertionError(
+                                    f"{rep.name} of group {g.pidx}: key "
+                                    f"{k!r} read {resp.error} "
+                                    f"{resp.value!r}, want {w!r}")
+                    n_keys += len(keys)
+            rb_s = time.perf_counter() - t0
+        lk = sess.summary().get("read.lookup", {})
+        out["read_back"] = {
+            "keys": n_keys, "seconds": rb_s, "keys_per_s": n_keys / rb_s,
+            "updated_keys": len(acked), "sampled_keys": len(sample),
+            "batch_size": batch_size.percentiles(),
+            "device_lookup_calls": lk.get("calls", 0),
+            "device_lookup_keys": lk.get("records", 0)}
+        if not lk.get("calls"):
+            raise AssertionError("the read-back made no device lookup")
+
+        # ---- every group's replicas hold the same state
+        now = epoch_now()
+        t0 = time.perf_counter()
+        digests = {}
+        for g in groups:
+            ds = {n: r.server.engine.state_digest(now=now)
+                  for n, r in sorted(g.alive.items())}
+            if len({d["digest"] for d in ds.values()}) != 1 or \
+                    len(ds) != 3:
+                raise AssertionError(f"group {g.pidx} replicas diverged: "
+                                     f"{ds}")
+            digests[g.pidx] = next(iter(ds.values()))
+        out["digests"] = {"seconds": time.perf_counter() - t0,
+                          "records": {p: d["records"]
+                                      for p, d in digests.items()}}
+
+        # ---- a manual compaction of every replica, held to the cpu backend
+        reps = _replicas(groups)
+        servers = [r.server for r in reps]
+        kept = keep_runs(servers, os.path.join(work, "pre_compaction"))
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for srv in servers:
+                srv.manual_compact()
+            sync()
+            compact_s = time.perf_counter() - t0
+        out["compaction"] = {
+            "seconds": compact_s, "merge_launches": LAUNCHES["merge_path"],
+            "expected_launches": sum(len(k) - 1 for k in kept),
+            "runs": {f"{r.pidx}.{r.name}": len(k)
+                     for r, k in zip(reps, kept)},
+            **device_busy(prof, compact_s),
+            "check_s": check_compaction(servers, kept)}
+        shutil.rmtree(os.path.join(work, "pre_compaction"))
+        if on_card:
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+    finally:
+        for g in groups:
+            g.close()
     return out
 
 
@@ -2036,6 +2476,8 @@ def main() -> int:
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
 
     started = time.perf_counter()
+    if os.path.exists(PHASE_LOG):
+        os.unlink(PHASE_LOG)
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
@@ -2150,6 +2592,22 @@ def main() -> int:
                 f"merge-kernel launches below {SERVE_PARTITIONS}: ingest "
                 f"{serve['ingest_merge_launches']}, compaction "
                 f"{serve['compaction']['merge_launches']}")
+        torch.cuda.empty_cache()
+        replicate = run_replicate(device, os.path.join(work, "replicate"),
+                                  os.path.join(work, "serve", "provider"))
+        emit("replicate", **replicate)
+        # every replica ingests 4 raw sets (3 merges) and compacts each of
+        # its runs but the first into one (a merge per extra run)
+        want_load = 3 * (SERVE_FILES - 1) * REPLICATE_GROUPS
+        comp = replicate["compaction"]
+        if replicate["load"]["merge_launches"] != want_load or \
+                comp["merge_launches"] != comp["expected_launches"] or \
+                comp["merge_launches"] < 3 * REPLICATE_GROUPS:
+            raise AssertionError(
+                f"replicate merge-kernel launches: load "
+                f"{replicate['load']['merge_launches']} (want {want_load}),"
+                f" compaction {comp['merge_launches']} (want "
+                f"{comp['expected_launches']})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2185,6 +2643,9 @@ def main() -> int:
         "serve_launches": {
             "ingest": serve["ingest_merge_launches"],
             "compaction": serve["compaction"]["merge_launches"]},
+        "replicate_launches": {
+            "load": replicate["load"]["merge_launches"],
+            "compaction": replicate["compaction"]["merge_launches"]},
         "ptxas": ptxas,
     }, {
         "name": "merge_path_batched",

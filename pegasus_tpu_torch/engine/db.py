@@ -32,12 +32,20 @@ offloads.
 Durability: the manifest's last_flushed_decree only advances to decrees
 whose data is fully covered by on-disk SSTs (memtables flush oldest-first
 and each records the last decree it contains).
+
+Replication's side of the engine: hard-link checkpoints
+(checkpoint.{decree} dirs, pinned by TTL leases while a learner streams
+them, with a cached decree-anchored digest), apply_checkpoint (a learned
+engine is a new LsmEngine; the one it replaces releases its resident runs
+in close()), the corruption_hook callout, and scrub (every SST's section
+checksums re-verified off the serving path).
 """
 
 import bisect
 import heapq
 import json
 import os
+import shutil
 import struct
 import threading
 import time
@@ -45,7 +53,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..base.crc64 import crc64
+from ..base.crc64 import crc64_batch
 from ..base.key_schema import key_hash
 from ..base.utils import epoch_now
 from ..base.value_schema import check_if_ts_expired
@@ -56,9 +64,10 @@ from ..runtime.perf_counters import counters
 from ..runtime.tracing import COMPACT_TRACER
 from .block import KVBlock
 from .memtable import Memtable
-from .sstable import SSTable, write_sst
+from .sstable import CorruptionError, SSTable, verify_sst, write_sst
 
 MANIFEST = "MANIFEST"
+CHECKPOINT_PREFIX = "checkpoint."
 
 # meta-store keys
 META_DATA_VERSION = "pegasus_data_version"
@@ -94,6 +103,8 @@ class EngineOptions:
     device_values: bool = False
     user_ops: tuple = ()            # parsed user-specified compaction rules
     compression: str = "none"       # SST section compression: none | zlib
+    checkpoint_reserve_min_count: int = 2
+    checkpoint_reserve_time_seconds: int = 0  # 0 = no time-based retention
 
 
 @dataclass
@@ -161,6 +172,20 @@ class LsmEngine:
         # hard L0 debt ceiling the admission throttle measures against:
         # 3x the L0 trigger, the reference's default
         self._sched_ceiling = max(1, self.opts.l0_compaction_trigger * 3)
+        # serializes checkpoint create/rename/GC (the shared checkpoint.tmp
+        # dir would race otherwise); an RLock so callers can hold it across
+        # create + consume
+        self.checkpoint_lock = threading.RLock()
+        # learn pins: decree -> {lease token: expiry}. A pinned decree's
+        # checkpoint dir is held out of gc_checkpoints while a learner
+        # streams it; leases expire, so a dead learner never wedges GC
+        self._ckpt_pins = {}          #: guarded_by self.checkpoint_lock
+        self._pin_token = 0           #: guarded_by self.checkpoint_lock
+        # decree -> cached decree-anchored digest of that checkpoint
+        self._ckpt_digests = {}       #: guarded_by self.checkpoint_lock
+        # corruption callout: the hosting replica installs callable(exc)
+        # here; a read hitting a CorruptionError notifies it and re-raises
+        self.corruption_hook = None
         os.makedirs(path, exist_ok=True)
         self._load_manifest()
 
@@ -414,11 +439,33 @@ class LsmEngine:
             pend = [i for i in pend if i not in res]
         return res
 
+    def _notify_corruption(self, exc) -> None:
+        """Callout on a typed CorruptionError: counted, evented and
+        forwarded to corruption_hook. Callers always re-raise: the client
+        gets the typed error, never garbage."""
+        counters.rate("engine.corruption_count").increment()
+        events.emit("engine.corruption", "error",
+                    path=str(getattr(exc, "path", "")),
+                    detail=str(getattr(exc, "detail", exc)))
+        hook = self.corruption_hook
+        if hook is not None:
+            try:
+                hook(exc)
+            except Exception as e:  # the hook must never mask the error
+                print(f"[engine] corruption hook failed: {e!r}", flush=True)
+
     def _probe_sst(self, sst, cand, keys, nows, res, use_device) -> None:
         """Resolve one SST's candidates into `res` (hits only; a found
         tombstone/expired record resolves to None exactly like get)."""
         if not cand:
             return
+        try:
+            self._probe_sst_impl(sst, cand, keys, nows, res, use_device)
+        except CorruptionError as e:
+            self._notify_corruption(e)
+            raise
+
+    def _probe_sst_impl(self, sst, cand, keys, nows, res, use_device) -> None:
         dr = sst.device_index if use_device else None
         if dr is not None and len(cand) >= DEVICE_READ_MIN_BATCH:
             from ..ops.device_lookup import lookup_batch
@@ -486,7 +533,7 @@ class LsmEngine:
                 lohi = sst_bounds.get(id(sst))
                 if lohi is None or lohi[0] >= lohi[1]:
                     return  # pruned or empty interval
-                b = sst.block()
+                b = self._sst_block(sst)
                 lo, hi = lohi
             else:
                 if sst.n == 0:
@@ -498,7 +545,7 @@ class LsmEngine:
                     return
                 if hash32 is not None and not sst.maybe_contains_hash(hash32):
                     return
-                b = sst.block()
+                b = self._sst_block(sst)
                 lo = sst.lower_bound(start_key) if start_key else 0
                 hi = sst.lower_bound(stop_key) if stop_key is not None \
                     else b.n
@@ -538,6 +585,13 @@ class LsmEngine:
                     continue
             yield k, v, e
 
+    def _sst_block(self, sst):
+        try:
+            return sst.block()
+        except CorruptionError as e:
+            self._notify_corruption(e)
+            raise
+
     def scan_range_batch(self, ranges, now=None, reverse=False,
                          hash32s=None) -> list:
         """Batched bounded scans over ONE consistent snapshot: for each
@@ -569,6 +623,13 @@ class LsmEngine:
         snapshot. -> one {id(sst): (lo, hi)} dict per query; an SST absent
         from a query's dict was pruned by exactly the host iterator's
         metadata/bloom conditions."""
+        try:
+            return self._resolve_sst_bounds_impl(ssts, ranges, h32s)
+        except CorruptionError as e:
+            self._notify_corruption(e)
+            raise
+
+    def _resolve_sst_bounds_impl(self, ssts, ranges, h32s) -> list:
         bounds = [dict() for _ in ranges]
         for sst in ssts:
             if sst.n == 0:
@@ -616,16 +677,90 @@ class LsmEngine:
         partition no longer owns are excluded."""
         now = epoch_now() if now is None else now
         pmask = self.opts.partition_mask if pmask is None else pmask
-        xor = add = n = 0
-        for k, v, e in self.scan(now=now):
-            if pmask and key_hash(k) % (pmask + 1) != self.opts.pidx:
-                continue
-            c = crc64(struct.pack("<I", len(k)) + k
-                      + struct.pack("<q", int(e)) + v)
-            xor ^= c
-            add = (add + c) & 0xFFFFFFFFFFFFFFFF
-            n += 1
-        return {"digest": f"{xor:016x}{add:016x}", "records": n, "now": now}
+        rows = [struct.pack("<I", len(k)) + k + struct.pack("<q", int(e)) + v
+                for k, v, e in self.scan(now=now)
+                if not pmask or key_hash(k) % (pmask + 1) == self.opts.pidx]
+        xor = add = 0
+        # the per-record crc64s, vectorized over chunks of records
+        for lo in range(0, len(rows), 1 << 16):
+            chunk = rows[lo: lo + (1 << 16)]
+            lens = np.fromiter(map(len, chunk), np.int64, len(chunk))
+            offs = np.zeros(len(chunk), np.int64)
+            np.cumsum(lens[:-1], out=offs[1:])
+            c = crc64_batch(np.frombuffer(b"".join(chunk), np.uint8), offs,
+                            lens)
+            xor ^= int(np.bitwise_xor.reduce(c))
+            add = (add + int(c.sum(dtype=np.uint64))) & 0xFFFFFFFFFFFFFFFF
+        return {"digest": f"{xor:016x}{add:016x}", "records": len(rows),
+                "now": now}
+
+    def scrub(self, rate_bytes_per_s: float = None) -> dict:
+        """Background integrity pass: re-verify every landed SST's section
+        checksums off the serving path (raw file reads, no block
+        materialization, no device work) and check the manifest's file
+        set against the directory, at most `rate_bytes_per_s` when set.
+        -> {"files", "bytes", "findings": [{"path", "detail"}], "errors"}.
+        Findings are returned, not acted on; an injected `scrub.verify`
+        fault is an error (the file was not verified), never a finding.
+        Files compacted away mid-scan are skipped."""
+        from ..runtime.fail_points import FailPointError, inject
+
+        with self._lock:
+            paths = [s.path for s in self._all_ssts_locked()]
+        findings, errors = [], []
+        scanned_files = scanned_bytes = 0
+        t0 = time.monotonic()
+        for p in paths:
+            try:
+                inject("scrub.verify")
+                scanned_bytes += verify_sst(p)
+                scanned_files += 1
+            except FileNotFoundError:
+                continue  # compacted away mid-scan
+            except FailPointError as e:
+                errors.append({"path": p, "detail": str(e)})
+            except CorruptionError as e:
+                findings.append({"path": p, "detail": e.detail})
+            if rate_bytes_per_s and rate_bytes_per_s > 0:
+                lag = scanned_bytes / rate_bytes_per_s - (time.monotonic()
+                                                          - t0)
+                if lag > 0:
+                    time.sleep(min(lag, 1.0))
+        findings.extend(self._scrub_manifest())
+        counters.rate("scrub.files_count").increment(scanned_files)
+        counters.rate("scrub.bytes").increment(scanned_bytes)
+        if findings:
+            counters.rate("scrub.corruption_count").increment(len(findings))
+        return {"files": scanned_files, "bytes": scanned_bytes,
+                "findings": findings, "errors": errors}
+
+    def _scrub_manifest(self) -> list:
+        """Every file the on-disk MANIFEST references must exist, unless
+        the live version no longer claims it (a compaction landed between
+        the read and the check)."""
+        mpath = os.path.join(self.path, MANIFEST)
+        try:
+            with open(mpath) as f:
+                m = json.load(f)
+            referenced = list(m.get("l0", []))
+            for fs in m.get("levels", {}).values():
+                referenced.extend(fs)
+        except FileNotFoundError:
+            return []
+        except (ValueError, KeyError, TypeError) as e:
+            return [{"path": mpath, "detail": f"unparseable manifest: {e}"}]
+        gone = [n for n in referenced
+                if not os.path.exists(os.path.join(self.path, n))]
+        if not gone:
+            return []
+        with self._lock:
+            live = self._manifest_dict_locked()
+            still = set(live["l0"])
+            for fs in live["levels"].values():
+                still.update(fs)
+        return [{"path": os.path.join(self.path, n),
+                 "detail": "manifest references missing file"}
+                for n in gone if n in still]
 
     # ----------------------------------------------------------- flush/compact
 
@@ -911,10 +1046,195 @@ class LsmEngine:
         write_sst(path, block, {"level": 0, "ingested": True,
                                 "last_flushed_decree": self._durable_decree},
                   compression=self.opts.compression)
+        sst = SSTable(path)
+        sst._block = block  # already in memory: skip the disk re-read
+        # primed like a flush output: the ingested run's reads and its
+        # first merge find it on the device
+        self._device_run_budgeted(sst)
         with self._lock:
-            self._l0.insert(0, SSTable(path))
+            self._l0.insert(0, sst)
             self._write_manifest_locked()
         self._maybe_trigger_l0()
+
+    # ------------------------------------------------------------ checkpoint
+
+    def checkpoint(self, dest_dir: str, flush: bool = True) -> int:
+        """Hard-link consistent snapshot into dest_dir (reference
+        sync_checkpoint / copy_checkpoint_to_dir_unsafe,
+        src/server/pegasus_server_impl.cpp:1666,1863). -> its decree.
+        flush=False snapshots only the durable state."""
+        if flush:
+            self.flush()
+        with self._lock:
+            os.makedirs(dest_dir, exist_ok=True)
+            for sst in self._all_ssts_locked():
+                dst = os.path.join(dest_dir, os.path.basename(sst.path))
+                if os.path.exists(dst):
+                    continue
+                try:
+                    os.link(sst.path, dst)
+                except OSError:
+                    shutil.copy2(sst.path, dst)
+            with open(os.path.join(dest_dir, MANIFEST), "w") as f:
+                json.dump(self._manifest_dict_locked(), f)
+            return self.last_durable_decree()
+
+    def sync_checkpoint(self, flush: bool = True) -> int:
+        """Create <path>/checkpoint.{decree}; GC old ones. -> the decree."""
+        with self.checkpoint_lock:
+            tmp = os.path.join(self.path, f"{CHECKPOINT_PREFIX}tmp")
+            decree = self.checkpoint(tmp, flush=flush)
+            final = os.path.join(self.path, f"{CHECKPOINT_PREFIX}{decree}")
+            if os.path.exists(final):
+                shutil.rmtree(tmp)
+            else:
+                os.replace(tmp, final)
+            self.gc_checkpoints()
+            return decree
+
+    def async_checkpoint(self):
+        """Background no-flush checkpoint (snapshot the durable state
+        only). -> the Thread, or None when the latest checkpoint already
+        covers the durable decree or one is running."""
+        existing = self.list_checkpoints()
+        if existing and existing[-1] >= self.last_durable_decree():
+            return None
+        if not self.checkpoint_lock.acquire(blocking=False):
+            return None  # a checkpoint is already in flight
+        self.checkpoint_lock.release()
+        t = threading.Thread(target=self.sync_checkpoint,
+                             kwargs={"flush": False}, daemon=True,
+                             name="engine-checkpoint")
+        t.start()
+        return t
+
+    def list_checkpoints(self) -> list:
+        """Sorted decrees of the checkpoint.{decree} dirs."""
+        out = []
+        for name in os.listdir(self.path):
+            if name.startswith(CHECKPOINT_PREFIX):
+                suffix = name[len(CHECKPOINT_PREFIX):]
+                if suffix.isdigit():
+                    out.append(int(suffix))
+        return sorted(out)
+
+    def gc_checkpoints(self) -> int:
+        """Drop checkpoints beyond the count/time reserves, never a pinned
+        one (reference gc_checkpoints, pegasus_server_impl.cpp:120-253)."""
+        with self.checkpoint_lock:
+            decrees = self.list_checkpoints()
+            keep_min = max(1, self.opts.checkpoint_reserve_min_count)
+            dropped = 0
+            now = time.time()
+            pinned = self._pinned_decrees_locked()
+            for d in decrees[:-keep_min] if len(decrees) > keep_min else []:
+                if d in pinned:
+                    continue  # a learn streams this checkpoint's blocks
+                cdir = os.path.join(self.path, f"{CHECKPOINT_PREFIX}{d}")
+                if self.opts.checkpoint_reserve_time_seconds > 0:
+                    age = now - os.path.getmtime(cdir)
+                    if age < self.opts.checkpoint_reserve_time_seconds:
+                        continue
+                shutil.rmtree(cdir, ignore_errors=True)
+                dropped += 1
+            return dropped
+
+    def pin_checkpoint(self, decree: int, ttl_s: float = 600.0) -> int:
+        """Hold checkpoint.{decree} out of gc_checkpoints for one learn.
+        Each pin is an independent TTL lease named by the returned token;
+        fetch activity renews it, expiry releases it."""
+        with self.checkpoint_lock:
+            self._pin_token += 1
+            token = self._pin_token
+            self._ckpt_pins.setdefault(decree, {})[token] = \
+                time.monotonic() + ttl_s
+            return token
+
+    def renew_checkpoint_pin(self, decree: int, token: int,
+                             ttl_s: float) -> None:
+        with self.checkpoint_lock:
+            pins = self._ckpt_pins.get(decree)
+            if pins and token in pins:
+                pins[token] = time.monotonic() + ttl_s
+
+    def unpin_checkpoint(self, decree: int, token: int) -> None:
+        with self.checkpoint_lock:
+            pins = self._ckpt_pins.get(decree)
+            if pins:
+                pins.pop(token, None)
+            if not pins:
+                self._ckpt_pins.pop(decree, None)
+                self._ckpt_digests.pop(decree, None)
+
+    def _pinned_decrees_locked(self) -> set:  #: requires self.checkpoint_lock
+        now = time.monotonic()
+        for d in list(self._ckpt_pins):
+            live = {t: e for t, e in self._ckpt_pins[d].items() if e > now}
+            if live:
+                self._ckpt_pins[d] = live
+            else:
+                self._ckpt_pins.pop(d)
+                self._ckpt_digests.pop(d, None)
+        return set(self._ckpt_pins)
+
+    def pinned_checkpoints(self) -> dict:
+        """{decree: active pin count}."""
+        with self.checkpoint_lock:
+            self._pinned_decrees_locked()
+            return {d: len(p) for d, p in self._ckpt_pins.items()}
+
+    def checkpoint_digest(self, decree: int) -> dict:
+        """Decree-anchored digest of checkpoint.{decree} (state_digest
+        over a cpu engine opened on the dir): what a shipped replica must
+        reproduce before it swaps its staged blocks in. Cached per decree
+        with the `now` anchor and ownership mask of its first
+        computation. The caller holds a pin."""
+        with self.checkpoint_lock:
+            hit = self._ckpt_digests.get(decree)
+            if hit is not None:
+                return dict(hit)
+            cdir = self.get_checkpoint_dir(decree)
+        # the scan runs outside the checkpoint lock; racing computers
+        # differ only in the `now` anchor, setdefault keeps the first
+        ver = LsmEngine(cdir, EngineOptions(
+            backend="cpu", pidx=self.opts.pidx,
+            prefix_u32=self.opts.prefix_u32))
+        try:
+            d = ver.state_digest(now=epoch_now(),
+                                 pmask=self.opts.partition_mask)
+        finally:
+            ver.close()
+        entry = {"digest": d["digest"], "records": d["records"],
+                 "now": d["now"], "pmask": self.opts.partition_mask}
+        with self.checkpoint_lock:
+            return dict(self._ckpt_digests.setdefault(decree, entry))
+
+    def get_checkpoint_dir(self, decree: int = None) -> str:
+        """The latest (or a given) checkpoint dir (reference
+        get_checkpoint, pegasus_server_impl.cpp:1941)."""
+        decrees = self.list_checkpoints()
+        if not decrees:
+            raise FileNotFoundError("no checkpoints")
+        d = decree if decree is not None else decrees[-1]
+        return os.path.join(self.path, f"{CHECKPOINT_PREFIX}{d}")
+
+    @classmethod
+    def apply_checkpoint(cls, checkpoint_dir: str, dest_path: str,
+                         options: EngineOptions = None) -> "LsmEngine":
+        """Replace dest_path's data with the checkpoint and open it
+        (reference storage_apply_checkpoint,
+        pegasus_server_impl.cpp:1970)."""
+        if os.path.exists(dest_path):
+            shutil.rmtree(dest_path)
+        os.makedirs(dest_path)
+        for name in os.listdir(checkpoint_dir):
+            src = os.path.join(checkpoint_dir, name)
+            if os.path.isfile(src):
+                try:
+                    os.link(src, os.path.join(dest_path, name))
+                except OSError:
+                    shutil.copy2(src, os.path.join(dest_path, name))
+        return cls(dest_path, options)
 
     # -------------------------------------------------------------- manifest
 
@@ -989,6 +1309,11 @@ class LsmEngine:
         self._durable_decree = int(self._meta.get(META_LAST_FLUSHED_DECREE, 0))
         self._last_committed_decree = self._durable_decree
         self._mem.last_decree = self._last_committed_decree
+
+    def device_resident_bytes(self) -> int:
+        """Device bytes pinned by this engine's resident runs (a racy
+        read, for gauges)."""
+        return self._device_cache_used
 
     def close(self):
         """Release every device-resident run (the files stay on disk)."""

@@ -15,7 +15,9 @@ replication layer takes the writes over (PacificA is not ported yet).
 Read and write throttles answer ERR_BUSY; on-disk corruption
 ERR_INVALID_DATA; a device, build or launch failure reaches the caller as
 ERR_INVALID_DATA with its repr (the transport's handler-error mapping).
-Only per-frame handlers are registered (no batch handlers).
+Batch handlers (rpc_batch_handlers) serve the hot read codes the
+transport bins per wave: a wave of gets is one PegasusServer.on_get_batch
+per replica, so concurrent point reads reach the device lookup.
 """
 
 import threading
@@ -49,6 +51,11 @@ WRITE_CODES = {
     server_impl.RPC_TRIGGER_AUDIT: (msg.TriggerAuditRequest,
                                     msg.TriggerAuditResponse),
 }
+
+
+def _corruption_error(srv, e: CorruptionError) -> RpcError:
+    return RpcError(ERR_INVALID_DATA, f"on-disk corruption: {e.detail} "
+                                      f"(replica {srv.app_id}.{srv.pidx})")
 
 
 class ReplicaService:
@@ -101,6 +108,32 @@ class ReplicaService:
             h[code] = self._on_write
         return h
 
+    def rpc_batch_handlers(self) -> dict:
+        """Hot read codes the transport coalesces per wave. Each
+        fn(headers, bodies) returns one result per frame: bytes on
+        success, or the RpcError/Exception the per-frame handler would
+        have raised, so the transport writes byte-identical responses
+        either way."""
+        return {
+            RPC_GET: self._on_get_batch,
+            RPC_MULTI_GET: self._batch_loop(self._on_multi_get),
+            RPC_SCAN: self._batch_loop(self._on_scan),
+        }
+
+    @staticmethod
+    def _batch_loop(fn):
+        """Per-frame handler -> batch handler: the storage call stays per
+        frame, the wave pays one dispatch and one reply write."""
+        def run(headers, bodies):
+            out = []
+            for header, body in zip(headers, bodies):
+                try:
+                    out.append(fn(header, body))
+                except Exception as e:  # noqa: BLE001 - per-frame verdict
+                    out.append(e)
+            return out
+        return run
+
     def _replica_read(self, header) -> PegasusServer:
         """Resolve + charge the read throttle (reference
         replica.read_throttling env; qps units)."""
@@ -120,13 +153,39 @@ class ReplicaService:
         try:
             return getattr(srv, method)(*args)
         except CorruptionError as e:
-            raise RpcError(ERR_INVALID_DATA,
-                           f"on-disk corruption: {e.detail} (replica "
-                           f"{srv.app_id}.{srv.pidx})")
+            raise _corruption_error(srv, e)
 
     def _on_get(self, header, body) -> bytes:
         req = codec.decode(msg.KeyRequest, body)
         return codec.encode(self._read(header, "on_get", req.key))
+
+    def _on_get_batch(self, headers, bodies) -> list:
+        """RPC_GET over a coalesced wave: per-frame admission (decode,
+        partition resolve, read throttle: each request charged on its
+        own), then ONE PegasusServer.on_get_batch per distinct replica.
+        A per-frame failure is that frame's result, a replica's failure
+        every member's: the errors _on_get would have raised."""
+        results = [None] * len(headers)
+        groups = {}  # id(srv) -> (srv, [(frame index, key), ...])
+        for i, (header, body) in enumerate(zip(headers, bodies)):
+            try:
+                req = codec.decode(msg.KeyRequest, body)
+                srv = self._replica_read(header)
+            except Exception as e:  # noqa: BLE001 - per-frame verdict
+                results[i] = e
+                continue
+            groups.setdefault(id(srv), (srv, []))[1].append((i, req.key))
+        for srv, members in groups.values():
+            try:
+                resps = srv.on_get_batch([k for _, k in members])
+                for (i, _), resp in zip(members, resps):
+                    results[i] = codec.encode(resp)
+            except Exception as e:  # noqa: BLE001 - per-frame verdict
+                if isinstance(e, CorruptionError):
+                    e = _corruption_error(srv, e)
+                for i, _ in members:
+                    results[i] = e
+        return results
 
     def _on_multi_get(self, header, body) -> bytes:
         req = codec.decode(msg.MultiGetRequest, body)

@@ -125,6 +125,24 @@ class _ReadCoalescer:
             raise slot.err
         return slot.value
 
+    def get_many(self, keys, now: int):
+        """Point reads of one caller thread (a dispatch batch): the whole
+        wave joins the coalescer as a slot group, merging with concurrent
+        readers' slots into shared device batches, and parks one thread
+        instead of one per key. Raises the first slot error."""
+        if not keys:
+            return []
+        if not self.engine._device_reads_on():
+            return self.engine.get_batch(keys, now=[now] * len(keys))
+        slots = [_ReadSlot(k, now) for k in keys]
+        self._join_many(slots)
+        out = []
+        for s in slots:
+            if s.err is not None:
+                raise s.err
+            out.append(s.value)
+        return out
+
     def _join_many(self, slots) -> None:
         """Queue every slot and drive the leader/follower drain until ALL
         are served: the group-commit loop shared with the range twin
@@ -551,9 +569,36 @@ class PegasusServer:
         """src/server/pegasus_server_impl.cpp:265."""
         t0 = time.perf_counter()
         now = epoch_now() if now is None else now
+        resp, hk = self._get_response(key, self._read_coalescer.get(key, now))
+        elapsed_us = int((time.perf_counter() - t0) * 1e6)
+        self._c_get_latency.set(elapsed_us)
+        self._check_slow_query("get", hk, elapsed_us)
+        return resp
+
+    def on_get_batch(self, keys, now: int = None) -> list:
+        """on_get over a dispatch batch: ONE coalescer slot-group join
+        serves the whole wave, then each key's bookkeeping runs as on_get
+        runs it (the same counters, CU charges and abnormal-size /
+        slow-query tracing, byte-identical ReadResponses). Latency
+        samples share the batch's elapsed time."""
+        t0 = time.perf_counter()
+        now = epoch_now() if now is None else now
+        raws = self._read_coalescer.get_many(keys, now)
+        elapsed_us = int((time.perf_counter() - t0) * 1e6)
+        out = []
+        for key, raw in zip(keys, raws):
+            resp, hk = self._get_response(key, raw)
+            self._c_get_latency.set(elapsed_us)
+            self._check_slow_query("get", hk, elapsed_us)
+            out.append(resp)
+        return out
+
+    def _get_response(self, key: bytes, raw):
+        """One get's ReadResponse from its stored value (None = missing),
+        with its CU charge, size tracing and qps tick. -> (resp,
+        hash_key)."""
         resp = msg.ReadResponse(app_id=self.app_id, partition_index=self.pidx,
                                 server=self.server)
-        raw = self._read_coalescer.get(key, now)
         if raw is None:
             resp.error = Status.NOT_FOUND
         else:
@@ -566,10 +611,7 @@ class PegasusServer:
         size = len(key) + len(resp.value)
         self._check_abnormal_size("get", hk, size, self._abnormal_get_size)
         self._c_get_qps.increment()
-        elapsed_us = int((time.perf_counter() - t0) * 1e6)
-        self._c_get_latency.set(elapsed_us)
-        self._check_slow_query("get", hk, elapsed_us)
-        return resp
+        return resp, hk
 
     def _check_abnormal_size(self, op: str, hash_key: bytes, size: int,
                              size_thr: int, rows: int = 0,

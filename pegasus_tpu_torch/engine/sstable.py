@@ -192,6 +192,25 @@ def read_sst(path: str) -> tuple:
     return KVBlock(**cols), header
 
 
+def verify_sst(path: str) -> int:
+    """Full-file integrity pass (scrub): magic, header parse, and every
+    section's length + crc32, without materializing a KVBlock. -> the
+    bytes read; raises CorruptionError on any finding."""
+    with open(path, "rb") as f:
+        header = _read_header_open(f, path)
+        base = f.tell()
+        scanned = base
+        sections = header.get("sections")
+        if not isinstance(sections, dict):
+            raise CorruptionError(path, "header missing sections")
+        for name, _ in _COLUMNS:
+            sec = sections.get(name)
+            if not isinstance(sec, dict):
+                raise CorruptionError(path, f"header missing section {name}")
+            scanned += len(_read_section(f, path, base, name, sec))
+    return scanned
+
+
 class SSTable:
     """An open SST: header always resident, block lazily loaded.
 

@@ -1,1 +1,13 @@
-"""Replica-node planes: the compaction-offload service and its client."""
+"""Replica-node planes: PacificA replication (mutation log, replica,
+streamed learn, the in-process replica group) and the compaction-offload
+service with its client."""
+
+from .group import ReplicaGroup
+from .mutation_log import LogMutation, MutationLog
+from .replica import (GroupView, LEARNER, PRIMARY, PrepareRejected, Replica,
+                      ReplicaError, SECONDARY)
+
+__all__ = [
+    "ReplicaGroup", "LogMutation", "MutationLog", "GroupView", "Replica",
+    "ReplicaError", "PrepareRejected", "PRIMARY", "SECONDARY", "LEARNER",
+]

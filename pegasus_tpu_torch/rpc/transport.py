@@ -6,9 +6,19 @@ other on one socket. Serverlets register their per-frame handlers
 (register_serverlet); calls carry the partition routing fields
 (app_id, partition_index, partition_hash) and, on a sharded connection,
 the `sharded` flag. Pure Python: the JAX package's native frame reader
-and vectored writer send the same bytes and are not ported, nor are its
-batch handlers, middlewares, priority-code threads, fail points and
-request tracing.
+and vectored writer send the same bytes and are not ported (their
+pure-Python twins are), nor are its priority-code threads and request
+tracing.
+
+Batch dispatch: a serverlet may also register batch handlers for hot
+read codes (register_batch). The frame reader bins each pipelined wave
+by task code (_FrameReader.wave_batched), and a binned batch of one code
+is ONE pool task, ONE handler call and ONE coalesced reply write. Its
+responses are byte-identical to the per-frame path's, and it ticks the
+same counters per frame. A batch goes back to per-frame dispatch where
+the JAX package's does: when the `serve.native` fail point triggers, and
+when a frame carries a trace context (the port has no middlewares, the
+JAX package's third reason).
 
 Frame: u32 LE payload length | payload. Payload = u32 LE header length |
 codec-encoded RpcHeader | body bytes. Requests and responses share the
@@ -26,6 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from . import codec
+from ..runtime.fail_points import FailPointError, fail_point
 from ..runtime.perf_counters import counters
 
 # RPC-layer error codes (a handler's own status rides in its response
@@ -82,16 +93,34 @@ def _send_frame(sock, header: RpcHeader, body: bytes, lock=None) -> None:
         sock.sendall(frame)
 
 
+def _send_frames(sock, pairs, lock=None) -> None:
+    """[(RpcHeader, body), ...] as one coalesced write: the same bytes in
+    the same order as one _send_frame per pair."""
+    buf = bytearray()
+    for header, body in pairs:
+        h = codec.encode(header)
+        buf += struct.pack("<II", 4 + len(h) + len(body), len(h))
+        buf += h
+        buf += body
+    if lock:
+        with lock:
+            sock.sendall(buf)
+    else:
+        sock.sendall(buf)
+
+
 class _FrameReader:
     """Buffered framing for a socket with a single reader thread: one recv
-    may yield several pipelined frames."""
+    may yield several pipelined frames. `hot` is the task codes that
+    wave_batched coalesces into per-code batches."""
 
-    __slots__ = ("sock", "buf", "pos")
+    __slots__ = ("sock", "buf", "pos", "hot")
 
-    def __init__(self, sock):
+    def __init__(self, sock, initial: bytes = b"", hot=()):
         self.sock = sock
-        self.buf = bytearray()
+        self.buf = bytearray(initial)
         self.pos = 0
+        self.hot = frozenset(hot)
 
     def _fill(self, need: int) -> None:
         buf = self.buf
@@ -138,6 +167,24 @@ class _FrameReader:
             out.append(self.frame())
         return out
 
+    def wave_batched(self):
+        """wave() binned by hot task code: frames whose code is in `hot`
+        join ONE (code, frames) entry opened at their first frame's
+        arrival position; every other frame gets a singleton entry, in
+        arrival order."""
+        out, bins = [], {}
+        for header, body in self.wave():
+            code = header.code
+            lst = bins.get(code)
+            if lst is not None:
+                lst.append((header, body))
+                continue
+            lst = [(header, body)]
+            if code in self.hot:
+                bins[code] = lst
+            out.append((code, lst))
+        return out
+
 
 class RpcServer:
     """Threaded TCP server. Handlers: code -> fn(header, body) -> body.
@@ -150,6 +197,9 @@ class RpcServer:
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self._handlers = {}
+        # hot read codes with a batch handler: fn(headers, bodies) -> one
+        # result per frame (bytes | RpcError | Exception)
+        self._batch_handlers = {}
         self._pool = ThreadPoolExecutor(self.POOL_WORKERS,
                                         thread_name_prefix="rpc-serve")
         # live accepted connections: stop() shuts them down so a stopped
@@ -159,6 +209,7 @@ class RpcServer:
         self._conns = set()  #: guarded_by self._conn_lock
         self._c_qps = counters.rate("rpc.server.qps")
         self._c_err = counters.rate("rpc.server.error_count")
+        self._c_lat = counters.percentile("rpc.server.latency_us")
         outer = self
 
         class _Handler(socketserver.BaseRequestHandler):
@@ -178,8 +229,9 @@ class RpcServer:
             name="rpc-accept", daemon=True)
 
     def serve_connection(self, sock) -> None:
-        """Serve one connection to exhaustion: read pipelined frames and
-        dispatch each request to the pool."""
+        """Serve one connection to exhaustion: read pipelined frame waves,
+        binned by hot task code, and dispatch each singleton frame and
+        each batch to the pool."""
         try:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError:
@@ -188,16 +240,16 @@ class RpcServer:
         with self._conn_lock:
             self._conns.add(sock)
         try:
-            reader = _FrameReader(sock)
+            reader = _FrameReader(sock, hot=tuple(self._batch_handlers))
             while True:
-                for header, body in reader.wave():
-                    try:
-                        self._pool.submit(self._serve_one, sock, wlock,
-                                          header, body)
-                    except RuntimeError:  # stopping: the pool is shut down
-                        return
-        except (ConnectionError, OSError, codec.CodecError):
-            pass
+                for code, frames in reader.wave_batched():
+                    if len(frames) == 1:
+                        header, body = frames[0]
+                        self._dispatch(sock, wlock, header, body)
+                    else:
+                        self._dispatch_batch(sock, wlock, code, frames)
+        except (ConnectionError, OSError, codec.CodecError, RuntimeError):
+            pass  # RuntimeError: stopping, the pool is shut down
         finally:
             with self._conn_lock:
                 self._conns.discard(sock)
@@ -205,10 +257,22 @@ class RpcServer:
     def register(self, code: str, handler) -> None:
         self._handlers[code] = handler
 
+    def register_batch(self, code: str, handler) -> None:
+        """Register a batch handler: fn(headers, bodies) -> one result per
+        frame, each bytes (success), RpcError, or any Exception (encoded
+        exactly as the per-frame path encodes them). The code must also
+        have a per-frame handler: singleton frames, traced frames and the
+        serve.native fail point route per frame."""
+        self._batch_handlers[code] = handler
+
     def register_serverlet(self, obj) -> None:
-        """Register every (code, fn) pair of obj.rpc_handlers()."""
+        """Register every (code, fn) pair of obj.rpc_handlers(), plus
+        obj.rpc_batch_handlers() when the serverlet provides them."""
         for code, fn in obj.rpc_handlers().items():
             self.register(code, fn)
+        for code, fn in getattr(obj, "rpc_batch_handlers",
+                                dict)().items():
+            self.register_batch(code, fn)
 
     def start(self) -> "RpcServer":
         self._thread.start()
@@ -229,9 +293,27 @@ class RpcServer:
                 pass
         self._pool.shutdown(wait=False)
 
+    def _dispatch(self, sock, wlock, header: RpcHeader, body: bytes) -> None:
+        """One frame to the pool. serve.dispatch is the chaos seam of a
+        wedged dispatcher: sleep(ms) stalls this connection's loop,
+        raise(msg) answers ERR_BUSY instead of serving."""
+        try:
+            fail_point("serve.dispatch")
+        except FailPointError as e:
+            self._c_err.increment()
+            try:
+                _send_frame(sock, RpcHeader(
+                    seq=header.seq, code=header.code, is_response=True,
+                    error=ERR_BUSY, error_text=str(e)), b"", lock=wlock)
+            except (ConnectionError, OSError):
+                pass
+            return
+        self._pool.submit(self._serve_one, sock, wlock, header, body)
+
     def _serve_one(self, sock, wlock, header: RpcHeader, body: bytes) -> None:
         resp = RpcHeader(seq=header.seq, code=header.code, is_response=True)
         out = b""
+        t0 = time.perf_counter()
         try:
             fn = self._handlers.get(header.code)
             if fn is None:
@@ -244,10 +326,77 @@ class RpcServer:
         except Exception as e:  # handler failure -> error, not a dead connection
             resp.error, resp.error_text = ERR_INVALID_DATA, repr(e)
         self._c_qps.increment()
+        self._c_lat.set(int((time.perf_counter() - t0) * 1e6))
         if resp.error:
             self._c_err.increment()
         try:
             _send_frame(sock, resp, out, lock=wlock)
+        except (ConnectionError, OSError):
+            pass
+
+    def _dispatch_batch(self, sock, wlock, code: str, frames) -> None:
+        """Dispatch a hot-code batch the reader coalesced: ONE pool task,
+        ONE handler call, ONE coalesced reply write. Per-frame dispatch
+        instead when the serve.native fail point triggers or when any
+        frame carries a trace context; the per-frame twin writes
+        byte-identical responses."""
+        batch_ok = True
+        try:
+            if fail_point("serve.native") is not None:
+                batch_ok = False
+        except FailPointError:
+            batch_ok = False
+        if not batch_ok or any(h.trace_id for h, _ in frames):
+            for header, body in frames:
+                self._dispatch(sock, wlock, header, body)
+            return
+        # serve.dispatch fires once per batch: the batch IS one dispatch
+        try:
+            fail_point("serve.dispatch")
+        except FailPointError as e:
+            self._c_err.increment(len(frames))
+            try:
+                _send_frames(sock, [(RpcHeader(
+                    seq=h.seq, code=h.code, is_response=True,
+                    error=ERR_BUSY, error_text=str(e)), b"")
+                    for h, _ in frames], lock=wlock)
+            except (ConnectionError, OSError):
+                pass
+            return
+        self._pool.submit(self._serve_batch, sock, wlock, code, frames)
+
+    def _serve_batch(self, sock, wlock, code: str, frames) -> None:
+        t0 = time.perf_counter()
+        headers = [h for h, _ in frames]
+        bodies = [b for _, b in frames]
+        try:
+            results = self._batch_handlers[code](headers, bodies)
+        except Exception as e:  # handler failure -> errors, not a dead conn
+            results = [e] * len(frames)
+        pairs, n_err = [], 0
+        for header, res in zip(headers, results):
+            resp = RpcHeader(seq=header.seq, code=header.code,
+                             is_response=True)
+            out = b""
+            if isinstance(res, RpcError):
+                resp.error, resp.error_text = res.err, res.text
+            elif isinstance(res, BaseException):
+                resp.error, resp.error_text = ERR_INVALID_DATA, repr(res)
+            else:
+                out = res
+            if resp.error:
+                n_err += 1
+            pairs.append((resp, out))
+        # the per-frame path's counter cardinality: one qps tick and one
+        # latency sample per frame (the batch shares its elapsed time)
+        elapsed = int((time.perf_counter() - t0) * 1e6)
+        self._c_qps.increment(len(frames))
+        for _ in frames:
+            self._c_lat.set(elapsed)
+        if n_err:
+            self._c_err.increment(n_err)
+        try:
+            _send_frames(sock, pairs, lock=wlock)
         except (ConnectionError, OSError):
             pass
 

@@ -122,6 +122,12 @@ class PercentileCounter(Counter):
     add = set
     increment = set
 
+    def reset(self):
+        """Drop every sample: the window restarts empty."""
+        with self._lock:
+            self._samples = []
+            self._idx = 0
+
     PCTS = (("p50", 0.50), ("p90", 0.90), ("p95", 0.95),
             ("p99", 0.99), ("p999", 0.999))
 

@@ -281,3 +281,33 @@ def test_ycsb_key_names():
     picks = [z.pick(rng) for _ in range(2000)]
     assert min(picks) == 0 and max(picks) < 1000
     assert picks.count(0) > picks.count(500)
+
+
+def test_replicate_phase_at_tiny_size(tmp_path):
+    """PacificA on device="cpu": two 3-replica groups bulk-loaded through
+    PacificA from the serve table's raw sets, a zipfian 50/50 run from 4
+    threads with group 0's primary killed and restarted as a learner
+    under load (writes commit throughout), every acknowledged update and
+    a sample of loaded keys read back from every replica, digests equal
+    within each group, and every replica's manual compaction held to the
+    cpu backend (run_replicate raises on any mismatch)."""
+    provider = str(tmp_path / "provider")
+    chip_smoke.write_provider(provider, "usertable", 8000, 4,
+                              chip_smoke.SERVE_FILES)
+    rep = chip_smoke.run_replicate("cpu", str(tmp_path / "rep"), provider,
+                                   n_records=8000, n_parts=4, n_groups=2,
+                                   n_ops=1200, n_threads=4, n_sample=300,
+                                   kill_at=300, restart_at=600)
+    assert rep["run"]["ops_done"] == 1200
+    assert rep["run"]["group0_acks_while_down"] > 0
+    assert rep["run"]["group0_acks_during_learn"] > 0
+    assert rep["run"]["learn"]["replay_mutations"] > 0
+    rb = rep["read_back"]
+    assert rb["keys"] == 3 * (rb["updated_keys"] + rb["sampled_keys"])
+    assert rb["sampled_keys"] == 300 and rb["device_lookup_calls"] > 0
+    assert rb["batch_size"]["p50"] > 1
+    assert set(rep["digests"]["records"]) == {0, 1}
+    assert len(rep["compaction"]["runs"]) == 6
+    # the learner replays the ingest decree from the log tail (the
+    # checkpoint's durable decree does not cover it): one run more
+    assert rep["compaction"]["expected_launches"] == 7
