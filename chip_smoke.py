@@ -7,9 +7,10 @@ Needs one CUDA device and the CUDA toolkit (nvcc); without a device it
 exits non-zero before printing any result. Phases, one JSON line each:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
-  2. build    compiles pegasus_tpu_torch/csrc/merge_path.cu
-              (ops/_build.py); ptxas's registers, shared memory and
-              spills per kernel (a spill fails the run);
+  2. build    compiles pegasus_tpu_torch/csrc/merge_path.cu and
+              csrc/fence_lookup.cu at once (ops/_build.py, one nvcc
+              each); ptxas's registers, shared memory and spills per
+              kernel (a spill fails the run);
   3. kernel   the merge-path kernels against the plain PyTorch versions on
               the card: every merge byte-equal over every column, the
               partition pass equal to merge_path_splits_plain
@@ -22,6 +23,11 @@ exits non-zero before printing any result. Phases, one JSON line each:
               batched_kernel_cases() against the plain batched merge
               and splits, and a (32, 131072+131072, nk=8) merge on the
               bench keys' heads timed beside 32 sequential 2-D calls;
+              then the fence-lookup kernel byte-equal to its plain
+              version (device_lookup.fence_lookup_plain) on
+              lookup_probe_cases(), points and ranges, and timed with the
+              plain version on a serve partition's run (312 500 rows) at
+              64 and 4096 queries;
      device_stage  the compaction's device stage alone on the bench runs
               (below), under torch.profiler: wall time, device busy time,
               device time by kernel; the three merges' own operands are
@@ -39,7 +45,9 @@ exits non-zero before printing any result. Phases, one JSON line each:
               device, the same digest;
   5. reads    200k write_batch puts + flush, get_batch of 100k keys (half
               hits, half misses) and 1000 scan_range_batch ranges, each
-              equal to the host walk (get / scan);
+              equal to the host walk (get / scan), through the
+              fence-lookup kernel (its launches counted); the kernel then
+              checked and timed on the 10M-record compaction output;
   6. blockwise  the 10M runs through compact_blocks(backend="cuda",
               max_device_records=2^22): at least 3 key ranges, at
               PEGASUS_COMPACT_PIPELINE_DEPTH 1 and 2, each digest equal to
@@ -84,8 +92,9 @@ exits non-zero before printing any result. Phases, one JSON line each:
               backend's compaction of the same raw sets; 200k closed-loop ops from 8 PegasusClient threads, 50 % get,
               50 % set on zipfian ranks (theta 0.99), every read the loaded
               or an issued value; read-back of every updated key and a
-              20k sample of untouched keys through batch dispatch (its
-              batches above 1 and device lookups made); a manual
+              100k sample of untouched keys through batch dispatch (its
+              batches above 1, device lookups made, each through the
+              fence-lookup kernel); a manual
               compaction of every partition through update_app_envs
               (>= 32 launches) under torch.profiler, each output
               digest-equal to the cpu backend's compaction of the
@@ -97,16 +106,39 @@ exits non-zero before printing any result. Phases, one JSON line each:
               YCSB-A, 40k ops from 8 threads (gets through
               primary.server.on_get_batch), group 0's primary killed at
               op 15k and restarted as a learner at op 25k (writes commit
-              throughout); every acknowledged update and a 20k sample
-              read back from every replica; state digests equal per
+              throughout); every acknowledged update and a 100k sample
+              read back from every replica (fence-lookup launches
+              counted); state digests equal per
               group; a manual compaction of all 12 replicas, each output
               digest-equal to the cpu backend's compaction of its runs.
+ 12. cluster  BASELINE #3 with its three replicas as processes: an ini
+              derived from onebox.ini (cluster_ini: one meta, replica1..3
+              on fixed ports, compaction_backend = cuda, onebox's failure
+              detector), each app a `python -m pegasus_tpu_torch.server`
+              subprocess on the card; `usertable` of 32 partitions,
+              replica_count 3; one RPC_BULK_LOAD_INGEST per partition to
+              its primary through MetaResolver (every replica ingests: 288
+              merge launches), every replica's run digest-equal to the
+              cpu backend's; 40k YCSB-A ops from 8 threads in a client
+              process, the node leading the most partitions SIGKILLed at
+              op 15k and restarted at op 25k once failed over (the meta
+              re-adds it, it relearns over RPC_LEARN_*), no op failing for
+              good; every acknowledged update and a 100k sample read back
+              (fence-lookup launches scraped from the processes); a manual
+              compaction of every replica through RPC_CM_SET_APP_ENVS,
+              each primary's output digest-equal to the cpu backend's;
+              trigger-audit on every primary, query-audit on every
+              replica: equal digests at an equal decree for all 32
+              partitions; every process stopped with SIGTERM, exit 0.
 
 The main paths (compact, blockwise, batched, offload, serve's ingest
-and compaction, replicate's load and compaction) each run with the
-launch counts set to 0 just before and read just after. Then, before the last
-line, the kernel table (times, launches, bounds; merge_path and
-merge_path_batched) and the nvidia-smi line; the last line is
+and compaction, replicate's load and compaction; the reads of reads,
+serve and replicate) each run with the launch counts set to 0 just
+before and read just after; the cluster phase reads each process's
+counts (perf counters kernel.*) before and after its load, read-back
+and compaction. Then, before the last line, the kernel table (times,
+launches, bounds; merge_path, merge_path_batched and fence_lookup) and
+the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises and exits non-zero. Engine and offload-service
 files go to .scratch/chip_smoke/ under the repository and are removed at
@@ -711,6 +743,239 @@ def check_batched_kernel(device) -> dict:
             "timed": timed}
 
 
+# ------------------------------------------------------- fence lookup
+
+def _key_run(keys, device):
+    """A resident run (DeviceRun with its fence) of distinct stored keys,
+    and the sorted key list."""
+    from pegasus_tpu_torch.engine.block import KVBlock
+    from pegasus_tpu_torch.ops.compact import pack_run_device
+    from pegasus_tpu_torch.ops.device_lookup import build_fence_index
+
+    keys = sorted(set(keys))
+    n = len(keys)
+    lens = np.fromiter(map(len, keys), np.int32, n)
+    offs = np.zeros(n, np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    # raw byte strings, not all of them stored keys: no partition hash
+    dr = pack_run_device(KVBlock(
+        np.frombuffer(b"".join(keys), np.uint8).copy(), offs, lens,
+        np.full(n, ord("v"), np.uint8), np.arange(n, dtype=np.int64),
+        np.ones(n, np.int32), np.zeros(n, np.uint32),
+        np.zeros(n, np.uint32), np.zeros(n, np.bool_)), device=device)
+    if dr.fence is None:
+        build_fence_index(dr)
+    return dr, keys
+
+
+def lookup_edge_runs(device, seed: int = 4) -> list:
+    """The fence lookup's edge cases as (name, DeviceRun, sorted keys):
+    runs of 1 and 5 rows (a fence longer than the run, hi clamped to
+    n - 1), keys with high-bit bytes (lanes above 0x7FFFFFFF, beside the
+    0xFFFFFFFF pads), one-lane runs, one crowded hash key and random
+    hash keys."""
+    from pegasus_tpu_torch.base.key_schema import generate_key
+
+    rng = np.random.default_rng(seed)
+    out = [("n1", [generate_key(b"h", b"s")]),
+           ("n5", [generate_key(b"h%d" % i, b"s") for i in range(5)]),
+           ("one_lane", [bytes([b]) for b in rng.integers(0, 256, 40)]),
+           ("high_bit", [rng.integers(0, 256, int(rng.integers(1, 31)),
+                                      dtype=np.uint8).tobytes()
+                         for _ in range(3000)]),
+           ("dense", [generate_key(b"onehash", b"%06d" % i)
+                      for i in range(0, 18000, 3)]),
+           ("random", [generate_key(b"hk%04d" % rng.integers(0, 3000),
+                                    b"s%d" % rng.integers(0, 9))
+                       for _ in range(2500)])]
+    return [(name,) + _key_run(keys, device) for name, keys in out]
+
+
+def lookup_queries(keys, rng, n: int = 300) -> list:
+    """Point queries against a run's sorted keys: hits, a byte above a
+    key, strict prefixes, keys past the lane window (the klen
+    tie-break), high-bit bytes, the ends and empty."""
+    pick = [keys[int(i)] for i in rng.integers(0, len(keys), n // 2)]
+    q = list(pick)
+    q += [k + b"\x00" for k in pick[:20]]
+    q += [k[:-1] for k in pick[:20]]
+    q += [k + b"X" * 40 for k in pick[:20]]
+    q += [rng.integers(0, 256, int(rng.integers(1, 12)),
+                       dtype=np.uint8).tobytes() for _ in range(n // 4)]
+    q += [b"", b"\x00", b"\xff" * 50, keys[0], keys[-1]]
+    return (q * (n // len(q) + 1))[:n]
+
+
+def lookup_probe_cases(device, seed: int = 5) -> list:
+    """(name, DeviceRun, packed point queries, packed range queries,
+    point keys, ranges) over lookup_edge_runs at 1, 127, 129 and 300
+    queries (q not a multiple of the kernel's 128-thread block)."""
+    from pegasus_tpu_torch.ops.device_lookup import pack_queries
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, dr, keys in lookup_edge_runs(device):
+        q = lookup_queries(keys, rng)
+        for nq in (1, 127, 129, 300):
+            pts = q[:nq]
+            ranges = [(pts[i], pts[(i + 1) % nq]) for i in range(nq)]
+            out.append((f"{name}/q{nq}", dr,
+                        pack_queries([pts], dr.w, device),
+                        pack_queries([[a for a, _ in ranges],
+                                      [b for _, b in ranges]], dr.w, device),
+                        pts, ranges))
+    return out
+
+
+def _check_fence(dr, packed, name: str) -> int:
+    """The kernel against the plain version on one probe: byte-equal,
+    one launch counted. -> 0 (the max abs difference)."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fence_lookup as fl
+    from pegasus_tpu_torch.ops.device_lookup import (fence_lookup,
+                                                     fence_lookup_plain)
+
+    before = fl.LAUNCHES["fence_lookup"]
+    got = fence_lookup(dr, packed)
+    if fl.LAUNCHES["fence_lookup"] != before + 1:
+        raise AssertionError(f"fence lookup {name}: no kernel launch")
+    torch.cuda.synchronize()
+    want = fence_lookup_plain(dr, packed)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].tolist()
+        raise AssertionError(f"fence lookup {name}: kernel != plain at "
+                             f"{bad}")
+    return 0
+
+
+def fence_rounds(dr, packed):
+    """The binary search's rounds per query on this data (the rounds in
+    which its window is not empty), summed over the probe's sets: the
+    plain version's loop with a count. -> int64 [q]."""
+    import torch
+
+    from pegasus_tpu_torch.ops.device_sort import lex_less
+
+    w, n, step = dr.w, dr.n, dr.fence_step
+    total = None
+    for s in range(packed.shape[0]):
+        qcols, qklen = packed[s, :w], packed[s, w]
+        a = torch.searchsorted(dr.fence, qcols[0].contiguous(), side="left")
+        b = torch.searchsorted(dr.fence, qcols[0].contiguous(), side="right")
+        lo = torch.where(a > 0, ((a - 1) * step).clamp(max=n - 1), 0)
+        hi = torch.where(b < dr.fence_len, (b * step).clamp(max=n - 1), n)
+        length = (hi - lo).clamp(min=0)
+        rounds = torch.zeros_like(length)
+        while bool((length > 0).any()):
+            half = length >> 1
+            mid = lo + half
+            midc = mid.clamp(max=dr.padded_len - 1)
+            less = lex_less([dr.cols[j][midc] for j in range(w)]
+                            + [dr.klen[midc]], list(qcols) + [qklen])
+            active = length > 0
+            rounds += active.to(rounds.dtype)
+            lo = torch.where(active & less, mid + 1, lo)
+            length = torch.where(active, torch.where(
+                less, length - half - 1, half), 0)
+        total = rounds if total is None else total + rounds
+    return total
+
+
+def fence_bound(dr, packed) -> dict:
+    """The least time for one probe on this data: the bytes it must move
+    (the packed queries and the fence read once, the w lanes and klen of
+    every row its search probes, 8 B each, and the int32 answers written
+    once) over the card's memory rate, against its operations (per round
+    w + 1 64-bit compares, two 32-bit operations each, and the two fence
+    searches) over the peak; and its chain: the most dependent
+    device-memory loads one query waits on in turn (one per round, plus
+    the point lookup's equality load)."""
+    n_sets, rows, nq = packed.shape
+    rounds = fence_rounds(dr, packed)
+    probes = int(rounds.sum())
+    out_bytes = 4 * nq * (2 if n_sets == 2 else 1)
+    nbytes = (packed.numel() * 8 + dr.fence_len * 8
+              + probes * (dr.w + 1) * 8 + out_bytes
+              + (nq * (dr.w + 1) * 8 if n_sets == 1 else 0))
+    ops = probes * (dr.w + 1) * 2 + n_sets * nq * 2 * max(
+        1, dr.fence_len.bit_length())
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "probes": probes,
+            "chain_loads": int(rounds.max()) + (1 if n_sets == 1 else 0)}
+
+
+def time_fence(dr, keys, nq: int, seed: int = 9) -> dict:
+    """The kernel and the plain version on one probe of nq point queries
+    (half hits) and one of nq ranges against `dr`, checked then timed
+    with CUDA events. -> per kind: ms, plain_ms and the bound."""
+    from pegasus_tpu_torch.ops.device_lookup import (fence_lookup,
+                                                     fence_lookup_plain,
+                                                     pack_queries)
+
+    rng = np.random.default_rng(seed)
+    hits = [keys[int(i)] for i in rng.integers(0, len(keys), nq // 2)]
+    pts = hits + [k + b"\x01" for k in hits][: nq - len(hits)]
+    starts = sorted(pts)
+    out = {"rows": dr.n, "queries": nq, "w": dr.w,
+           "fence_len": dr.fence_len}
+    dev = dr.cols.device
+    for kind, packed in (
+            ("point", pack_queries([pts], dr.w, dev)),
+            ("range", pack_queries([starts, starts[1:] + starts[:1]], dr.w,
+                                   dev))):
+        _check_fence(dr, packed, f"{dr.n} rows/{nq} {kind}")
+        out[kind] = {"ms": _time_ms(lambda: fence_lookup(dr, packed), 50),
+                     "plain_ms": _time_ms(
+                         lambda: fence_lookup_plain(dr, packed), 3),
+                     **fence_bound(dr, packed)}
+    return out
+
+
+def serve_partition_run(device, n: int = None):
+    """A resident run shaped like one serve partition's (~312 K YCSB keys
+    under sort key field0) and its sorted keys."""
+    from pegasus_tpu_torch.base.key_schema import generate_key
+
+    n = n or SERVE_RECORDS // SERVE_PARTITIONS
+    rows, lens = ycsb_hash_keys(np.arange(n, dtype=np.int64))
+    return _key_run([generate_key(rows[i, :lens[i]].tobytes(), SERVE_FIELD)
+                     for i in range(n)], device)
+
+
+def check_fence_kernel(device) -> dict:
+    """Every edge case, point and range, kernel byte-equal to the plain
+    version on the card; then the kernel and the plain version timed on a
+    serve partition's run at 64 and 4096 queries."""
+    cases = lookup_probe_cases(device)
+    for name, dr, points, ranges, _, _ in cases:
+        _check_fence(dr, points, name + "/point")
+        _check_fence(dr, ranges, name + "/range")
+    dr, keys = serve_partition_run(device)
+    return {"cases": 2 * len(cases), "max_abs_err": 0,
+            "serve_partition": {str(nq): time_fence(dr, keys, nq)
+                                for nq in (64, 4096)}}
+
+
+def fence_on_engine(eng, queries=(64, 4096)) -> dict:
+    """The kernel on an engine's largest resident run (the reads phase's
+    10 M-record compaction output), checked against the plain version
+    and timed at each query count."""
+    with eng._lock:
+        ssts = list(eng._l0) + [f for fs in eng._levels.values() for f in fs]
+    sst = max(ssts, key=lambda f: f.n)
+    dr = eng._device_run_budgeted(sst)
+    if dr is None or dr.fence is None:
+        raise AssertionError("the engine's largest run is not resident")
+    blk = sst.block()
+    rng = np.random.default_rng(8)
+    keys = sorted(blk.key(int(i)) for i in rng.integers(0, blk.n, 8192))
+    return {str(nq): time_fence(dr, keys, nq) for nq in queries}
+
+
 def _device_events(prof) -> list:
     """(name, device ms, calls) of a profile's device-side events
     (kernels, copies, sets), longest first. The operator-level events
@@ -849,6 +1114,7 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
     from pegasus_tpu_torch.base.key_schema import generate_key, \
         generate_next_bytes
     from pegasus_tpu_torch.engine.db import WriteBatch
+    from pegasus_tpu_torch.ops.fence_lookup import LAUNCHES as FENCE
     from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
 
     rng = np.random.default_rng(seed)
@@ -875,6 +1141,7 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
               for i in range(n_gets - len(existing))]
     keys = existing + misses
     rng.shuffle(keys)
+    FENCE["fence_lookup"] = 0
     with COMPACT_TRACER.session() as sess:
         t0 = time.perf_counter()
         got = eng.get_batch(keys, now=NOW)
@@ -892,6 +1159,7 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
         scan_s = time.perf_counter() - t0
         open_head = list(itertools.islice(
             eng.scan_range_batch(ranges[-1:], now=NOW)[0], 50))
+    fence_launches = FENCE["fence_lookup"]
     stages = sess.summary()
     if stages.get("read.lookup", {}).get("calls", 0) == 0:
         raise AssertionError("get_batch ran no device lookup")
@@ -913,6 +1181,7 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
             "gets_per_s": len(keys) / get_s,
             "ranges": len(scanned), "range_rows": sum(map(len, scanned)),
             "scan_batch_s": scan_s, "ranges_per_s": len(scanned) / scan_s,
+            "fence_launches": fence_launches,
             "device_stages": {k: stages[k] for k in ("read.lookup",
                                                      "read.range")}}
 
@@ -1369,7 +1638,8 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
     return out
 
 
-def _remote_command(addr: str, command: str) -> str:
+def _remote_command(addr: str, command: str, args=(),
+                    timeout: float = 30) -> str:
     from pegasus_tpu_torch.rpc import codec
     from pegasus_tpu_torch.rpc.transport import RpcConnection
     from pegasus_tpu_torch.runtime.remote_command import (
@@ -1378,9 +1648,8 @@ def _remote_command(addr: str, command: str) -> str:
     host, _, port = addr.rpartition(":")
     conn = RpcConnection((host, int(port)))
     try:
-        _, body = conn.call("RPC_CLI_CLI_CALL",
-                            codec.encode(RemoteCommandRequest(command)),
-                            timeout=30)
+        _, body = conn.call("RPC_CLI_CLI_CALL", codec.encode(
+            RemoteCommandRequest(command, list(args))), timeout=timeout)
     finally:
         conn.close()
     return codec.decode(RemoteCommandResponse, body).output
@@ -1456,8 +1725,7 @@ SERVE_RECORDS = 10_000_000
 SERVE_FILES = 4            # raw-set files per partition
 SERVE_OPS = 200_000
 SERVE_THREADS = 8
-SERVE_SAMPLE = 20_000      # untouched keys read back (device-served
-                           # read-backs run at ~500 keys/s: the clock)
+SERVE_SAMPLE = 100_000     # untouched keys read back
 SERVE_THETA = 0.99
 SERVE_APP_ID = 3
 SERVE_FIELD = b"field0"
@@ -1620,25 +1888,39 @@ def _parallel(fn, items) -> list:
         return list(ex.map(fn, items))
 
 
-def check_ingest(servers, provider: str, app: str, n_parts: int) -> float:
-    """Hold every partition's installed ingest run to the cpu backend's
-    compaction of the same raw sets with the same filter (rows that do
-    not hash to the partition dropped, partition_mask n_parts - 1, now 0).
-    -> seconds."""
+_INGEST_WANT = {}   # (provider, app, n_parts, pidx, prefix, version) -> digest
+
+
+def ingest_want(provider: str, app: str, n_parts: int, pidx: int,
+                prefix_u32: int, data_version: int) -> dict:
+    """The cpu backend's compaction of partition pidx's raw sets with the
+    ingest's filter (rows that do not hash to the partition dropped,
+    partition_mask n_parts - 1, now 0), as a digest; computed once per
+    partition and kept for every phase that ingests the same provider."""
     from pegasus_tpu_torch.base.value_schema import SCHEMAS
     from pegasus_tpu_torch.engine.bulk_load import load_ingest_file
     from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
 
-    def one(srv):
-        eng = srv.engine
-        pdir = os.path.join(provider, app, str(n_parts), str(srv.pidx))
-        schema = SCHEMAS[eng.data_version()]
+    key = (provider, app, n_parts, pidx, prefix_u32, data_version)
+    if key not in _INGEST_WANT:
+        pdir = os.path.join(provider, app, str(n_parts), str(pidx))
+        schema = SCHEMAS[data_version]
         raw = [load_ingest_file(os.path.join(pdir, n), schema)
                for n in sorted(os.listdir(pdir))]
-        want = block_digest([compact_blocks(raw, CompactOptions(
-            backend="cpu", prefix_u32=eng.opts.prefix_u32, filter=True,
-            pidx=srv.pidx, partition_mask=n_parts - 1, bottommost=False,
-            runs_sorted=False, now=0)).block])
+        _INGEST_WANT[key] = block_digest([compact_blocks(raw, CompactOptions(
+            backend="cpu", prefix_u32=prefix_u32, filter=True, pidx=pidx,
+            partition_mask=n_parts - 1, bottommost=False, runs_sorted=False,
+            now=0)).block])
+    return _INGEST_WANT[key]
+
+
+def check_ingest(servers, provider: str, app: str, n_parts: int) -> float:
+    """Hold every partition's installed ingest run to the cpu backend's
+    compaction of the same raw sets (ingest_want). -> seconds."""
+    def one(srv):
+        eng = srv.engine
+        want = ingest_want(provider, app, n_parts, srv.pidx,
+                           eng.opts.prefix_u32, eng.data_version())
         got = block_digest(engine_blocks(eng.path))
         if got != want:
             raise AssertionError(f"partition {srv.pidx}: ingested run {got}"
@@ -1735,38 +2017,65 @@ def _percentiles(lat) -> dict:
 # clients' Python does not contend with the servers' for one lock.
 # _CLIENT holds that process's state between its two calls.
 _CLIENT = {}
+_PROGRESS = None   # the cluster client's op count, shared with the parent
 
 
 def _client_run(addresses, n_records: int, n_ops: int, n_threads: int,
-                n_sample: int) -> dict:
+                n_sample: int, meta_app: tuple = None) -> dict:
     """In the client process: n_ops closed-loop operations from n_threads
     PegasusClient threads, 50 % get and 50 % set on zipfian ranks, each
     key's updates from one thread (rank mod n_threads), every read the
     loaded value or one issued for its key; then picks the keys to read
-    back (every updated key, a seeded sample of untouched keys)."""
+    back (every updated key, a seeded sample of untouched keys). The
+    partitions are `addresses` (a StaticResolver), or with meta_app =
+    (meta address, app) resolved through the meta: then every op is
+    retried until it succeeds (CLUSTER_OP_DEADLINE_S each; retries
+    counted), each set's (rank, issue, ack) wall times are kept for the
+    failover time, and the ops done count into the shared _PROGRESS."""
     import threading
 
-    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
+    from pegasus_tpu_torch.client import (MetaResolver, PegasusClient,
+                                          StaticResolver)
 
-    resolver = StaticResolver(SERVE_APP_ID, addresses)
+    resolver = (MetaResolver([meta_app[0]], meta_app[1]) if meta_app
+                else StaticResolver(SERVE_APP_ID, addresses))
     zipf = ZipfRanks(n_records)
     issued = {}       # rank -> every value issued for it (owner only)
     acked = {}        # rank -> last acknowledged value
     lat = {"get": [], "set": []}
-    errors = []
+    sets = []
+    errors, retries = [], [0]
     per_thread = n_ops // n_threads
+    lock = threading.Lock()
+
+    def op(fn):
+        if not meta_app:
+            return fn()
+        end = time.monotonic() + CLUSTER_OP_DEADLINE_S
+        while True:
+            try:
+                return fn()
+            except AssertionError:
+                raise
+            except Exception:  # noqa: BLE001 - a failover: retried
+                if time.monotonic() > end:
+                    raise
+                with lock:
+                    retries[0] += 1
+                time.sleep(0.05)
 
     def worker(tid):
         rng = np.random.default_rng(1000 + tid)
         c = PegasusClient(resolver)
         seq = 0
         my_lat = {"get": [], "set": []}
+        my_sets = []
         try:
             for _ in range(per_thread):
                 if rng.random() < 0.5:
                     r = zipf.pick(rng)
                     t = time.perf_counter()
-                    v = c.get(hash_key(r), SERVE_FIELD)
+                    v = op(lambda: c.get(hash_key(r), SERVE_FIELD))
                     my_lat["get"].append(time.perf_counter() - t)
                     if v != loaded_value(r) and v not in issued.get(r, ()):
                         raise AssertionError(f"read of rank {r}: {v!r}")
@@ -1777,16 +2086,22 @@ def _client_run(addresses, n_records: int, n_ops: int, n_threads: int,
                     val = update_value(tid, seq)
                     seq += 1
                     issued.setdefault(r, set()).add(val)
-                    t = time.perf_counter()
-                    c.set(hash_key(r), SERVE_FIELD, val)
+                    t, w0 = time.perf_counter(), time.time()
+                    op(lambda: c.set(hash_key(r), SERVE_FIELD, val))
                     my_lat["set"].append(time.perf_counter() - t)
+                    my_sets.append((r, w0, time.time()))
                     acked[r] = val
+                if _PROGRESS is not None:
+                    with _PROGRESS.get_lock():
+                        _PROGRESS.value += 1
         except Exception as e:  # raised below
             errors.append(e)
         finally:
             c.close()
-            for k in lat:
-                lat[k].extend(my_lat[k])
+            with lock:
+                for k in lat:
+                    lat[k].extend(my_lat[k])
+                sets.extend(my_sets)
 
     threads = [threading.Thread(target=worker, args=(t,))
                for t in range(n_threads)]
@@ -1812,9 +2127,12 @@ def _client_run(addresses, n_records: int, n_ops: int, n_threads: int,
                   for i in range(len(sample))],
                  [loaded_value(r) for r in sample]))
     done = len(lat["get"]) + len(lat["set"])
-    return {"seconds": run_s, "ops_done": done, "ops_per_s": done / run_s,
-            "get": _percentiles(lat["get"]), "set": _percentiles(lat["set"]),
-            "keys_updated": len(acked)}
+    out = {"seconds": run_s, "ops_done": done, "ops_per_s": done / run_s,
+           "get": _percentiles(lat["get"]), "set": _percentiles(lat["set"]),
+           "keys_updated": len(acked)}
+    if meta_app:
+        out.update(retries=retries[0], sets=sets)
+    return out
 
 
 def _client_read_back(what: str, chunk: int = 4000) -> dict:
@@ -1873,6 +2191,7 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
     from pegasus_tpu_torch.engine.db import EngineOptions
     from pegasus_tpu_torch.engine.replica_service import ReplicaService
     from pegasus_tpu_torch.engine.server_impl import PegasusServer
+    from pegasus_tpu_torch.ops.fence_lookup import LAUNCHES as FENCE
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
     from pegasus_tpu_torch.rpc import codec
     from pegasus_tpu_torch.rpc import messages as msg
@@ -1891,7 +2210,8 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
                         "mutation log, one replica per partition)",
            "reduced": {"fields": "YCSB core fieldcount 10 -> 1 "
                        "(field0, fieldlength 100), as tools/ycsb_bench.py",
-                       "replicas": "3 -> 1 (PacificA not ported yet)"}}
+                       "replicas": "3 -> 1 (the cluster phase runs "
+                                   "this table with its 3)"}}
     t0 = time.perf_counter()
     provider = os.path.join(work, "provider")
     counts = write_provider(provider, "usertable", n_records, n_parts,
@@ -1940,6 +2260,7 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
                                      f"{r.ingested_records} of {counts[p]} "
                                      f"(error {r.error})")
         out["ingested_records"] = sum(r.ingested_records for r in resps)
+        out["partition_records"] = counts
         out["ingest_check_s"] = check_ingest(servers, provider, "usertable",
                                              n_parts)
 
@@ -1952,13 +2273,20 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
         def read_back(what):
             batch_size = counters.percentile("read.batch.size")
             batch_size.reset()
+            FENCE["fence_lookup"] = 0
             with COMPACT_TRACER.session() as sess, _GcPauses() as gcp:
                 rb = pool.apply(_client_read_back, (what,))
             lk = sess.summary().get("read.lookup", {})
             rb = dict(rb, batch_size=batch_size.percentiles(),
                       device_lookup_calls=lk.get("calls", 0),
                       device_lookup_keys=lk.get("records", 0),
+                      fence_launches=FENCE["fence_lookup"],
                       server_gc_pauses=gcp.summary())
+            if on_card and rb["device_lookup_calls"] and \
+                    not rb["fence_launches"]:
+                raise AssertionError(f"read-back {what}: device lookups "
+                                     f"served without a fence-lookup "
+                                     f"kernel launch")
             # batch dispatch: a client wave reaches the coalescer whole,
             # and its batches probe the resident runs on the device
             if rb["updated_keys"] + rb["sampled_keys"] and (
@@ -2026,7 +2354,7 @@ REPLICATE_GROUPS = 4        # partitions 0..3 of the serve table
 REPLICATE_OPS = 40_000
 REPLICATE_THREADS = 8
 REPLICATE_WAVE = 8          # ops per client wave; its gets, one batch per group
-REPLICATE_SAMPLE = 20_000   # untouched loaded keys read back from every replica
+REPLICATE_SAMPLE = 100_000  # untouched loaded keys read back from every replica
 REPLICATE_KILL_AT = 15_000
 REPLICATE_RESTART_AT = 25_000
 REPLICATE_APP_ID = 4
@@ -2084,6 +2412,7 @@ def run_replicate(device, work: str, provider: str,
     from pegasus_tpu_torch.base.key_schema import generate_key
     from pegasus_tpu_torch.base.utils import epoch_now
     from pegasus_tpu_torch.engine.db import EngineOptions
+    from pegasus_tpu_torch.ops.fence_lookup import LAUNCHES as FENCE
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
     from pegasus_tpu_torch.replication import ReplicaError, ReplicaGroup
     from pegasus_tpu_torch.rpc import messages as msg
@@ -2355,6 +2684,7 @@ def run_replicate(device, work: str, provider: str,
         n_keys = 0
         batch_size = counters.percentile("read.batch.size")
         batch_size.reset()
+        FENCE["fence_lookup"] = 0
         with COMPACT_TRACER.session() as sess:
             t0 = time.perf_counter()
             for g in groups:
@@ -2377,9 +2707,13 @@ def run_replicate(device, work: str, provider: str,
             "updated_keys": len(acked), "sampled_keys": len(sample),
             "batch_size": batch_size.percentiles(),
             "device_lookup_calls": lk.get("calls", 0),
-            "device_lookup_keys": lk.get("records", 0)}
+            "device_lookup_keys": lk.get("records", 0),
+            "fence_launches": FENCE["fence_lookup"]}
         if not lk.get("calls"):
             raise AssertionError("the read-back made no device lookup")
+        if on_card and not FENCE["fence_lookup"]:
+            raise AssertionError("the read-back served device lookups "
+                                 "without a fence-lookup kernel launch")
 
         # ---- every group's replicas hold the same state
         now = epoch_now()
@@ -2427,15 +2761,580 @@ def run_replicate(device, work: str, provider: str,
 
 # ------------------------------------------------------------------ main
 
-def ptxas_usage(report: str) -> dict:
+# ------------------------------------------------------------- cluster
+
+CLUSTER_OPS = 40_000
+CLUSTER_THREADS = 8
+CLUSTER_SAMPLE = 100_000      # untouched loaded keys read back
+CLUSTER_KILL_AT = 15_000
+CLUSTER_RESTART_AT = 25_000
+CLUSTER_APP = "usertable"
+CLUSTER_OP_DEADLINE_S = 180.0  # one op's retries, a failover included
+CLUSTER_AUDIT_ID = 7007
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def cluster_ini(work: str, device, fd: dict = None) -> tuple:
+    """onebox.ini cut to one meta and replica1..3 on fixed free ports,
+    data under `work`, compaction_backend = cuda (`device = cpu` when the
+    phase rehearses on the CPU), [failure_detector] as onebox.ini's unless
+    `fd` overrides it; the planes the port does not serve yet (toollets,
+    http_port, collector, offload) left out. -> (ini path, meta address,
+    {replica name: address})."""
+    import configparser
+
+    import torch
+
+    cp = configparser.ConfigParser()
+    cp.read(os.path.join(ROOT, "onebox.ini"))
+    for sec in ("core", "apps.collector", "apps.compact_offload",
+                "apps.meta2", "apps.meta3"):
+        cp.remove_section(sec)
+    ports = _free_ports(4)
+    cp["apps.meta1"]["port"] = str(ports[0])
+    cp["apps.meta1"]["state_dir"] = os.path.join(work, "meta")
+    meta = f"127.0.0.1:{ports[0]}"
+    nodes = {}
+    for i in (1, 2, 3):
+        sec = cp[f"apps.replica{i}"]
+        sec["port"] = str(ports[i])
+        sec["data_dir"] = os.path.join(work, f"replica{i}")
+        sec.pop("http_port", None)
+        nodes[f"replica{i}"] = f"127.0.0.1:{ports[i]}"
+    cp["pegasus.server"]["meta_servers"] = meta
+    cp["pegasus.server"]["compaction_backend"] = "cuda"
+    if torch.device(device).type != "cuda":
+        cp["pegasus.server"]["device"] = "cpu"
+    for k, v in (fd or {}).items():
+        cp["failure_detector"][k] = str(v)
+    path = os.path.join(work, "cluster.ini")
+    with open(path, "w") as f:
+        cp.write(f)
+    return path, meta, nodes
+
+
+class _App:
+    """One `python -m pegasus_tpu_torch.server --app <name>` process, its
+    output in <work>/<name>.<n>.log."""
+
+    def __init__(self, ini: str, name: str, work: str):
+        self.ini, self.name, self.work = ini, name, work
+        self.starts = 0
+        self.proc = None
+        self.start()
+
+    def start(self):
+        self.starts += 1
+        self.log = os.path.join(self.work, f"{self.name}.{self.starts}.log")
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "pegasus_tpu_torch.server", "--config",
+                 self.ini, "--app", self.name], stdout=out,
+                stderr=subprocess.STDOUT, cwd=self.work,
+                env=dict(os.environ, PYTHONPATH=ROOT))
+
+    def wait_started(self, deadline: float) -> str:
+        marker = f"[pegasus-tpu] app {self.name} started "
+        while True:
+            with open(self.log) as f:
+                for line in f:
+                    if line.startswith(marker):
+                        return line.split()[-1]
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.name} exited "
+                                     f"{self.proc.returncode}: {self.tail()}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name} did not start")
+            time.sleep(0.1)
+
+    def tail(self) -> str:
+        with open(self.log) as f:
+            return f.read()[-3000:]
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+
+def _meta_call(meta: str, code: str, req, resp_cls, timeout: float = 60):
+    from pegasus_tpu_torch.rpc import codec
+    from pegasus_tpu_torch.rpc.transport import RpcConnection
+
+    host, _, port = meta.rpartition(":")
+    conn = RpcConnection((host, int(port)))
+    try:
+        _, body = conn.call(code, codec.encode(req), timeout=timeout)
+        return codec.decode(resp_cls, body)
+    finally:
+        conn.close()
+
+
+def _config(meta: str, app: str):
+    from pegasus_tpu_torch.meta import messages as mm
+    from pegasus_tpu_torch.meta.meta_server import RPC_CM_QUERY_CONFIG
+
+    return _meta_call(meta, RPC_CM_QUERY_CONFIG, mm.QueryConfigRequest(app),
+                      mm.QueryConfigResponse)
+
+
+def _kernel_counts(addrs) -> dict:
+    """{addr: {counter: launches}} scraped with perf-counters-by-prefix."""
+    return {a: json.loads(_remote_command(a, "perf-counters-by-prefix",
+                                          ["kernel."]))
+            for a in addrs}
+
+
+def _delta(after: dict, before: dict, name: str) -> dict:
+    return {a: after[a].get(name, 0) - before.get(a, {}).get(name, 0)
+            for a in after}
+
+
+def _compute_apps() -> list:
+    """[(pid, used device MiB)] of every process on the card, from
+    nvidia-smi --query-compute-apps (its pids are the host's, which a
+    container's need not match)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [(int(pid), float(mib)) for pid, mib in
+            (map(str.strip, line.split(","))
+             for line in out.strip().splitlines())]
+
+
+def _cluster_client_init(progress) -> None:
+    global _PROGRESS
+    _PROGRESS = progress
+
+
+def run_cluster(device, work: str, provider: str, counts: list,
+                n_records: int = SERVE_RECORDS,
+                n_parts: int = SERVE_PARTITIONS, n_ops: int = CLUSTER_OPS,
+                n_threads: int = CLUSTER_THREADS,
+                n_sample: int = CLUSTER_SAMPLE,
+                kill_at: int = CLUSTER_KILL_AT,
+                restart_at: int = CLUSTER_RESTART_AT,
+                fd: dict = None) -> dict:
+    """BASELINE config #3 with its three replicas, as a cluster of
+    processes: one meta and replica1..3 (cluster_ini), each `python -m
+    pegasus_tpu_torch.server` on the card; table `usertable` of n_parts
+    partitions, replica_count 3; one RPC_BULK_LOAD_INGEST per partition to
+    its primary (resolved through MetaResolver, PacificA makes every
+    replica ingest: 3 merge launches each), every replica's run held to
+    the cpu backend (ingest_want); the YCSB-A run from a client process,
+    the node that leads the most partitions SIGKILLed at op kill_at and
+    restarted after the meta failed it over and at op restart_at (the
+    meta re-adds it; it relearns); every acknowledged update and a
+    sample of untouched keys read back with batch_get; a manual
+    compaction of every replica through RPC_CM_SET_APP_ENVS, each
+    primary's output held to the cpu backend's compaction of its runs;
+    trigger-audit on every primary and query-audit on every replica:
+    equal digests at an equal decree. Kernel launches are scraped from
+    each process (perf-counters-by-prefix kernel.)."""
+    import multiprocessing
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pegasus_tpu_torch.base import consts
+    from pegasus_tpu_torch.client import MetaResolver, PegasusClient
+    from pegasus_tpu_torch.engine.sstable import read_sst
+    from pegasus_tpu_torch.meta import messages as mm
+    from pegasus_tpu_torch.meta.meta_server import (RPC_CM_CREATE_APP,
+                                                    RPC_CM_LIST_NODES,
+                                                    RPC_CM_SET_APP_ENVS)
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+    from pegasus_tpu_torch.rpc import codec
+    from pegasus_tpu_torch.rpc import messages as msg
+    from pegasus_tpu_torch.rpc.task_codes import RPC_BULK_LOAD_INGEST
+
+    on_card = torch.device(device).type == "cuda"
+    os.makedirs(work, exist_ok=True)
+    ini, meta, node_addr = cluster_ini(work, device, fd)
+    names = {a: n for n, a in node_addr.items()}
+    out = {"config": "BASELINE #3: YCSB workload-A (50/50 read/update), "
+           f"{n_parts} hash partitions, 3 replicas",
+           "processes": "meta1 + replica1..3, one python -m "
+                        "pegasus_tpu_torch.server each",
+           "partitions": n_parts, "records": n_records, "ops": n_ops,
+           "threads": n_threads, "zipf_theta": SERVE_THETA,
+           "guarantee": "every acknowledged write on a quorum (2 of 3) "
+                        "and, after the relearn, on all 3 replicas",
+           "reduced": {"fields": "YCSB core fieldcount 10 -> 1 "
+                       "(field0, fieldlength 100), as tools/ycsb_bench.py"}}
+    apps, pool, loader = {}, None, None
+    t0 = time.perf_counter()
+    started = time.perf_counter()
+
+    def step(what):
+        print(f"[cluster] {time.perf_counter() - started:.1f} s: {what}",
+              flush=True)
+
+    try:
+        deadline = time.monotonic() + 300
+        for name in ["meta1"] + list(node_addr):
+            apps[name] = _App(ini, name, work)
+        for name, app in apps.items():
+            app.wait_started(deadline)
+        while True:
+            r = _meta_call(meta, RPC_CM_LIST_NODES, mm.ListNodesRequest(),
+                           mm.ListNodesResponse)
+            if sum(n.alive for n in r.nodes) == 3:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"nodes never beaconed: {r.nodes}")
+            time.sleep(0.2)
+        out["boot_s"] = time.perf_counter() - t0
+        step("booted")
+
+        t0 = time.perf_counter()
+        cr = _meta_call(meta, RPC_CM_CREATE_APP, mm.CreateAppRequest(
+            CLUSTER_APP, n_parts, 3), mm.CreateAppResponse, timeout=300)
+        if cr.error:
+            raise AssertionError(f"create {CLUSTER_APP}: {cr.error_text}")
+        app_id = cr.app_id
+        cfg = _config(meta, CLUSTER_APP)
+        if cfg.app.partition_count != n_parts or any(
+                not pc.primary or len(pc.secondaries) != 2
+                for pc in cfg.partitions):
+            raise AssertionError(f"partitions without 3 members: {cfg}")
+        out["create_s"] = time.perf_counter() - t0
+        gpids = [f"{app_id}.{p}" for p in range(n_parts)]
+
+        # ---- load: one ingest per partition, to its primary
+        before = _kernel_counts(node_addr.values())
+        resolver = MetaResolver([meta], CLUSTER_APP)
+        # a marker's prepare waits on its secondaries' ingests
+        loader = PegasusClient(resolver, timeout=120)
+
+        def ingest(p):
+            conn = loader.pool.get(resolver.resolve(p), shard=p)
+            _, body = conn.call(RPC_BULK_LOAD_INGEST, codec.encode(
+                msg.BulkLoadIngestRequest(provider, CLUSTER_APP, n_parts)),
+                app_id=app_id, partition_index=p, timeout=SERVE_TIMEOUT_S)
+            return codec.decode(msg.BulkLoadIngestResponse, body)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n_parts) as ex:
+            resps = list(ex.map(ingest, range(n_parts)))
+        for p, r in enumerate(resps):
+            if r.error or r.ingested_records != counts[p]:
+                raise AssertionError(f"partition {p} ingested "
+                                     f"{r.ingested_records} of {counts[p]} "
+                                     f"(error {r.error})")
+        primaries_s = time.perf_counter() - t0
+        step("primaries ingested")
+        # one set per partition carries the ingest's commit point to the
+        # secondaries, which ingest inside that prepare; a few at a time,
+        # so each process ingests a few partitions at once and answers
+        # within the prepare's 10 s timeout
+        markers, i = {}, 0
+        while len(markers) < n_parts:
+            hk = b"cluster-marker-%d" % i
+            i += 1
+            markers.setdefault(int(_partition_of(
+                np.frombuffer(hk, np.uint8)[None], np.array([len(hk)]),
+                n_parts)[0]), hk)
+
+        def mark(hk):
+            end = time.monotonic() + 300
+            while True:
+                try:
+                    return loader.set(hk, b"m", b"1")
+                except Exception:  # noqa: BLE001 - a slow secondary
+                    if time.monotonic() > end:
+                        raise
+                    time.sleep(0.5)
+
+        with ThreadPoolExecutor(4) as ex:
+            list(ex.map(mark, markers.values()))
+        markers_s = time.perf_counter() - t0 - primaries_s
+        step("markers acknowledged")
+        while True:
+            applied = {}
+            for a in node_addr.values():
+                for g, ent in json.loads(
+                        _remote_command(a, "query-audit", timeout=300)).items():
+                    applied[(a, g)] = ent["applied"]
+            if len(applied) == 3 * n_parts and min(applied.values()) >= 1:
+                break
+            if time.monotonic() > deadline + 600:
+                raise AssertionError(f"secondaries never ingested: "
+                                     f"{applied}")
+            time.sleep(0.2)
+        after = _kernel_counts(node_addr.values())
+        load_launches = _delta(after, before, "kernel.merge_path.launches")
+        out["load"] = {"seconds": time.perf_counter() - t0,
+                       "primaries_s": primaries_s, "markers_s": markers_s,
+                       "merge_launches": load_launches,
+                       "ingested_records": sum(counts)}
+        if on_card and sum(load_launches.values()) != \
+                3 * n_parts * (SERVE_FILES - 1):
+            raise AssertionError(f"load merge launches {load_launches}, "
+                                 f"want {3 * n_parts * (SERVE_FILES - 1)}")
+        t0 = time.perf_counter()
+
+        def check_one(item):
+            name, p = item
+            path = os.path.join(work, name, f"{app_id}.{p}", "data")
+            want = ingest_want(provider, CLUSTER_APP, n_parts, p, 8, 2)
+            got = block_digest(engine_blocks(path))
+            if got != want:
+                raise AssertionError(f"{name} partition {p}: ingested run "
+                                     f"{got} != cpu backend {want}")
+
+        _parallel(check_one, [(n, p) for n in node_addr
+                              for p in range(n_parts)])
+        out["load"]["check_s"] = time.perf_counter() - t0
+        step("ingest checked")
+
+        # ---- the run, a kill and a restart inside it
+        ctx = multiprocessing.get_context("spawn")
+        progress = ctx.Value("q", 0)
+        pool = ctx.Pool(1, initializer=_cluster_client_init,
+                        initargs=(progress,))
+        res = pool.apply_async(_client_run, (
+            None, n_records, n_ops, n_threads, n_sample,
+            (meta, CLUSTER_APP)))
+        victim = t_kill = t_restart = t_full = None
+        led = []
+        mem_before_kill = None
+        while not res.ready():
+            for name, app in apps.items():
+                if not app.alive() and not (name == victim
+                                            and t_restart is None):
+                    raise AssertionError(f"{name} exited "
+                                         f"{app.proc.returncode}: "
+                                         f"{app.tail()}")
+            n_done = progress.value
+            if victim is None and n_done >= kill_at:
+                cfg = _config(meta, CLUSTER_APP)
+                lead = {}
+                for pc in cfg.partitions:
+                    lead.setdefault(pc.primary, []).append(pc.pidx)
+                vaddr = max(lead, key=lambda a: len(lead[a]))
+                victim, led = names[vaddr], lead[vaddr]
+                if on_card:
+                    mem_before_kill = _compute_apps()
+                apps[victim].proc.send_signal(signal.SIGKILL)
+                apps[victim].proc.wait()
+                t_kill = time.time()
+            elif t_kill is not None and t_restart is None and \
+                    n_done >= restart_at:
+                cfg = _config(meta, CLUSTER_APP)
+                if all(node_addr[victim] not in [pc.primary] + pc.secondaries
+                       for pc in cfg.partitions):
+                    t_failed_over = time.time()
+                    apps[victim].start()
+                    apps[victim].wait_started(time.monotonic() + 300)
+                    t_restart = time.time()
+            elif t_restart is not None and t_full is None:
+                cfg = _config(meta, CLUSTER_APP)
+                if all(len(pc.secondaries) == 2 for pc in cfg.partitions):
+                    t_full = time.time()
+            time.sleep(0.05)
+        run = res.get()
+        step("run done")
+        if victim is None or t_restart is None:
+            raise AssertionError(f"the run ended at op {progress.value} "
+                                 f"before the kill and the restart")
+        while t_full is None:
+            cfg = _config(meta, CLUSTER_APP)
+            if all(len(pc.secondaries) == 2 for pc in cfg.partitions):
+                t_full = time.time()
+            elif time.time() - t_restart > 600:
+                raise AssertionError(f"3 replicas never restored: {cfg}")
+            time.sleep(0.2)
+        sets = run.pop("sets")
+        ranks = np.array([r for r, _, _ in sets], np.int64)
+        part = _partition_of(*ycsb_hash_keys(ranks), n_parts)
+        after_kill = [ack - t_kill for (r, iss, ack), p in zip(sets, part)
+                      if iss >= t_kill and int(p) in set(led)]
+        learn = json.loads(_remote_command(node_addr[victim],
+                                           "learn-status"))
+        run.update(
+            victim=victim, victim_led_partitions=len(led),
+            failover_s=min(after_kill) if after_kill else None,
+            failed_over_after_s=t_failed_over - t_kill,
+            restart_s_after_kill=t_restart - t_kill,
+            back_to_3_replicas_s=t_full - t_restart,
+            learn={"ship_bytes": learn["ship.bytes"],
+                   "ship_blocks": learn["ship.blocks"],
+                   "delta_skipped_blocks": learn[
+                       "ship.delta_skipped_blocks"],
+                   "tail_mutations_replayed": learn[
+                       "ship.replay_mutations"]})
+        out["run"] = run
+
+        # ---- read-back through batch dispatch and the kernel
+        before = _kernel_counts(node_addr.values())
+        rb = pool.apply(_client_read_back, ("cluster",))
+        after = _kernel_counts(node_addr.values())
+        rb["fence_launches"] = _delta(after, before,
+                                      "kernel.fence_lookup.launches")
+        if on_card and not sum(rb["fence_launches"].values()):
+            raise AssertionError("the cluster read-back launched no "
+                                 "fence-lookup kernel")
+        out["read_back"] = rb
+        step("read back")
+
+        # ---- manual compaction of every replica, through the meta
+        cfg = _config(meta, CLUSTER_APP)
+        snap = os.path.join(work, "pre_compaction")
+        kept = {}
+        for a in node_addr.values():
+            _remote_command(a, "flush-memtable", timeout=300)
+        for pc in cfg.partitions:
+            path = os.path.join(work, names[pc.primary], f"{app_id}.{pc.pidx}",
+                                "data")
+            d = os.path.join(snap, str(pc.pidx))
+            os.makedirs(d)
+            kept[pc.pidx] = []
+            for f in engine_files(path):
+                os.link(f, os.path.join(d, os.path.basename(f)))
+                kept[pc.pidx].append(os.path.join(d, os.path.basename(f)))
+        before = _kernel_counts(node_addr.values())
+        t0 = time.perf_counter()
+        r = _meta_call(meta, RPC_CM_SET_APP_ENVS, mm.SetAppEnvsRequest(
+            CLUSTER_APP, json.dumps({
+                consts.MANUAL_COMPACT_ONCE_TRIGGER_TIME_KEY:
+                str(int(time.time()) - 1)})), mm.SetAppEnvsResponse,
+            timeout=1800)
+        if r.error:
+            raise AssertionError(f"set app envs: {r.error_text}")
+        while True:
+            states = [line for a in node_addr.values()
+                      for line in _remote_command(
+                          a, "query-compact-state").splitlines()]
+            if len(states) == 3 * n_parts and all(
+                    "idle; last finish" in st for st in states):
+                break
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError(f"compactions did not finish: {states}")
+            time.sleep(0.2)
+        compact_s = time.perf_counter() - t0
+        step("compacted")
+        after = _kernel_counts(node_addr.values())
+        t0 = time.perf_counter()
+
+        def check_primary(pc):
+            runs = [read_sst(f)[0] for f in kept[pc.pidx]]
+            want = block_digest([compact_blocks(runs, CompactOptions(
+                backend="cpu", prefix_u32=8, pidx=pc.pidx, partition_mask=0,
+                bottommost=True, default_ttl=0,
+                runs_sorted=True)).block])
+            got = block_digest(engine_blocks(os.path.join(
+                work, names[pc.primary], f"{app_id}.{pc.pidx}", "data")))
+            if got != want:
+                raise AssertionError(f"partition {pc.pidx} primary "
+                                     f"{pc.primary}: compaction {got} != "
+                                     f"cpu backend {want}")
+
+        _parallel(check_primary, cfg.partitions)
+        shutil.rmtree(snap)
+        out["compaction"] = {
+            "seconds": compact_s,
+            "merge_launches": _delta(after, before,
+                                     "kernel.merge_path.launches"),
+            "check_s": time.perf_counter() - t0}
+
+        # ---- the audit: every replica's digest at one decree
+        t0 = time.perf_counter()
+        primary = {pc.pidx: pc.primary for pc in cfg.partitions}
+
+        def trigger(p):
+            return json.loads(_remote_command(
+                primary[p], "trigger-audit",
+                [gpids[p], str(CLUSTER_AUDIT_ID)], timeout=900))
+
+        with ThreadPoolExecutor(n_parts) as ex:
+            trig = list(ex.map(trigger, range(n_parts)))
+        trigger_s = time.perf_counter() - t0
+        step("audits triggered")
+        bad = [t for t in trig if "error" in t]
+        if bad:
+            raise AssertionError(f"trigger-audit failed: {bad[:3]}")
+        while True:
+            audits = {}
+            for a in node_addr.values():
+                for g, ent in json.loads(
+                        _remote_command(a, "query-audit", timeout=300)).items():
+                    au = ent.get("audit") or {}
+                    if au.get("audit_id") == CLUSTER_AUDIT_ID:
+                        audits.setdefault(g, []).append(
+                            (au["decree"], au["digest"], au.get("records")))
+            if len(audits) == n_parts and all(
+                    len(v) == 3 for v in audits.values()):
+                break
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError(f"audits incomplete: {audits}")
+            time.sleep(0.5)
+        diverged = {g: v for g, v in audits.items() if len(set(v)) != 1}
+        if diverged:
+            raise AssertionError(f"replicas diverged: {diverged}")
+        out["audit"] = {"seconds": time.perf_counter() - t0,
+                        "trigger_s": trigger_s,
+                        "digest_us": {names[a]: json.loads(_remote_command(
+                            a, "perf-counters-by-prefix", ["audit."]))
+                            for a in node_addr.values()},
+                        "partitions": len(audits), "replicas": 3 * len(audits),
+                        "records": sum(v[0][2] for v in audits.values())}
+        out["launches_per_process"] = {
+            names[a]: c for a, c in _kernel_counts(node_addr.values()).items()}
+        if on_card:
+            # this script's own process holds a context on the card too
+            out["device_mib"] = {
+                "before_kill": mem_before_kill, "end": _compute_apps(),
+                "pids": {n: a.proc.pid for n, a in apps.items()},
+                "this_pid": os.getpid()}
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        if loader is not None:
+            loader.close()
+        rcs = {}
+        for name in [n for n in apps if n != "meta1"] + ["meta1"]:
+            app = apps.get(name)
+            if app is None:
+                continue
+            if app.alive():
+                app.proc.send_signal(signal.SIGTERM)
+                try:
+                    app.proc.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    app.proc.kill()
+                    app.proc.wait()
+            rcs[name] = app.proc.returncode
+    bad = {n: rc for n, rc in rcs.items() if rc != 0}
+    if bad:
+        raise AssertionError(f"cluster processes exited non-zero: {bad}; "
+                             + "; ".join(f"{n}: {apps[n].tail()[-600:]}"
+                                         for n in bad))
+    out["stop_rcs"] = rcs
+    return out
+
+
+def ptxas_usage(report: str,
+                kernel_re: str = r"merge_path_(splits|tile)_kernel") -> dict:
     """nvcc's -Xptxas -v report -> {kernel: {registers, smem_bytes,
-    spill_stores, spill_loads}}."""
+    spill_stores, spill_loads}}, each kernel named by kernel_re's group."""
     import re
 
     usage, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*?merge_path_"
-                      r"(splits|tile)_kernel", line)
+        m = re.search(r"Compiling entry function '\w*?" + kernel_re, line)
         if m:
             name = m.group(1)
             usage[name] = {"registers": 0, "smem_bytes": 0,
@@ -2454,6 +3353,19 @@ def ptxas_usage(report: str) -> dict:
             sm = re.search(r"(\d+) bytes smem", line)
             usage[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
     return usage
+
+
+BUILT = ("merge_path", "fence_lookup")   # the sources under csrc/
+
+
+def _parallel_build(names) -> list:
+    """nvcc for every source at once (ops/_build.py). -> ptxas reports."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pegasus_tpu_torch.ops import _build
+
+    with ThreadPoolExecutor(len(names)) as ex:
+        return list(ex.map(_build.build, names))
 
 
 def _nvidia_smi() -> str:
@@ -2484,18 +3396,25 @@ def main() -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
+    # every source's nvcc at once
     t0 = time.perf_counter()
-    ptxas = ptxas_usage(_build.build("merge_path"))
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
-    spills = {k: v for k, v in ptxas.items()
-              if v["spill_stores"] or v["spill_loads"]}
-    if spills or not ptxas:
-        raise AssertionError(f"merge_path.cu spills registers or printed no "
-                             f"ptxas report: {ptxas}")
+    reports = dict(zip(BUILT, _parallel_build(BUILT)))
+    ptxas = ptxas_usage(reports["merge_path"])
+    ptxas_fence = ptxas_usage(reports["fence_lookup"],
+                              r"(fence_lookup)_kernel")
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         ptxas_fence_lookup=ptxas_fence)
+    for src, usage in (("merge_path", ptxas), ("fence_lookup", ptxas_fence)):
+        spills = {k: v for k, v in usage.items()
+                  if v["spill_stores"] or v["spill_loads"]}
+        if spills or not usage:
+            raise AssertionError(f"{src}.cu spills registers or printed no "
+                                 f"ptxas report: {usage}")
 
     kern = check_kernel(device)
     kern_b = check_batched_kernel(device)
-    emit("kernel", **kern, batched=kern_b)
+    fence = check_fence_kernel(device)
+    emit("kernel", **kern, batched=kern_b, fence_lookup=fence)
 
     t0 = time.perf_counter()
     runs = fill(N_RECORDS)
@@ -2520,6 +3439,12 @@ def main() -> int:
         emit("compact", **comp)
         reads = run_reads(eng, runs, n_puts=200_000, n_gets=100_000,
                           n_ranges=1000)
+        if reads["fence_launches"] == 0:
+            raise AssertionError("the reads phase launched no fence-lookup "
+                                 "kernel")
+        # the kernel on the phase's own resident runs: the 10 M-record
+        # compaction output, checked against the plain version and timed
+        reads["fence_lookup_own"] = fence_on_engine(eng)
         emit("reads", **reads)
         eng.close()
         del eng
@@ -2608,6 +3533,11 @@ def main() -> int:
                 f"{replicate['load']['merge_launches']} (want {want_load}),"
                 f" compaction {comp['merge_launches']} (want "
                 f"{comp['expected_launches']})")
+        torch.cuda.empty_cache()
+        cluster = run_cluster(device, os.path.join(work, "cluster"),
+                              os.path.join(work, "serve", "provider"),
+                              serve["partition_records"])
+        emit("cluster", **cluster)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2623,6 +3553,34 @@ def main() -> int:
     half = [m["ms"] for m in merges if m["la"] == kern["large"]["la"]]
     own_half = sum(half) / len(half) if half else None
 
+    # the fence lookup: per launch on a serve partition's run at the
+    # read-backs' probe size (64 queries); its launches over the main
+    # path's reads (engine reads, serve, replicate and cluster read-backs)
+    fence_launches = {
+        "reads": reads["fence_launches"],
+        "serve": sum(serve[k]["fence_launches"] for k in (
+            "read_back_after_run", "read_back_after_compaction")),
+        "replicate": replicate["read_back"]["fence_launches"],
+        "cluster": sum(cluster["read_back"]["fence_launches"].values())}
+    fence_64 = fence["serve_partition"]["64"]["point"]
+    fence_line = {
+        "name": "fence_lookup",
+        "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/fence_lookup.cu",
+        "replaces": "pegasus_tpu/ops/device_lookup.py:63",
+        "launches": sum(fence_launches.values()),
+        "max_abs_err": fence["max_abs_err"],
+        "ms": fence_64["ms"],
+        "plain_ms": fence_64["plain_ms"],
+        "bound_ms": fence_64["bound_ms"],
+        "bound_by": fence_64["bound_by"],
+        "library_ms": None,
+        "chain_loads": fence_64["chain_loads"],
+        "launches_by_phase": fence_launches,
+        "serve_partition": fence["serve_partition"],
+        "compaction_output": reads["fence_lookup_own"],
+        "ptxas": ptxas_fence,
+    }
     print(json.dumps({"kernels": [{
         "name": "merge_path",
         "route": "cuda",
@@ -2668,7 +3626,7 @@ def main() -> int:
         "synthetic_ms": kern_b["timed"]["ms"],
         "synthetic_sequential_ms": kern_b["timed"]["sequential_ms"],
         "ptxas": ptxas,
-    }]}), flush=True)
+    }, fence_line]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

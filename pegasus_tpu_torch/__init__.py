@@ -1,13 +1,17 @@
 """pegasus_tpu_torch: the PyTorch/CUDA port of pegasus_tpu's LSM engine
 device lane, for NVIDIA Hopper (H100, sm_90a).
 
-The package mirrors pegasus_tpu's layout (base/, engine/, ops/, runtime/)
-so each module has a counterpart of the same name. What it covers today:
-flush, manual and L0 compaction through the hand-written merge-path CUDA
-kernel (csrc/merge_path.cu, ops/merge_path.py), and device-served point
-and range reads (ops/device_lookup.py), driven through
-engine.LsmEngine. Its MANIFEST and SST files are those of pegasus_tpu, and
-its compaction output is byte-identical to pegasus_tpu's.
+The package mirrors pegasus_tpu's layout (base/, engine/, ops/, meta/,
+replication/, rpc/, client/, runtime/, server/) so each module has a
+counterpart of the same name. What it covers today: flush, manual and L0
+compaction through the hand-written merge-path CUDA kernel
+(csrc/merge_path.cu, ops/merge_path.py), and device-served point and
+range reads through the fence-lookup CUDA kernel (csrc/fence_lookup.cu,
+ops/device_lookup.py), driven through engine.LsmEngine; the serving
+stack above it, PacificA replication and the cluster (meta server,
+replica nodes, meta-resolved client). Its MANIFEST and SST files are
+those of pegasus_tpu, its compaction output is byte-identical to
+pegasus_tpu's, and so is every message on its wire.
 
 Rules of the port:
   - It imports torch and numpy, never jax, and nothing of pegasus_tpu (not

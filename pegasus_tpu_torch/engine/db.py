@@ -62,7 +62,7 @@ from ..ops.compact import (CompactOptions, compact_blocks, resolve_device,
 from ..runtime import events
 from ..runtime.perf_counters import counters
 from ..runtime.tracing import COMPACT_TRACER
-from .block import KVBlock
+from .block import KVBlock, _batch_key_hashes
 from .memtable import Memtable
 from .sstable import CorruptionError, SSTable, verify_sst, write_sst
 
@@ -677,22 +677,87 @@ class LsmEngine:
         partition no longer owns are excluded."""
         now = epoch_now() if now is None else now
         pmask = self.opts.partition_mask if pmask is None else pmask
+        chunks = self._single_run_digest_rows(now, pmask)
+        if chunks is None:
+            chunks = self._merged_digest_rows(now, pmask)
+        xor = add = records = 0
+        # the per-record crc64s, vectorized over chunks of records
+        for arena, offs, lens in chunks:
+            c = crc64_batch(arena, offs, lens)
+            xor ^= int(np.bitwise_xor.reduce(c)) if len(c) else 0
+            add = (add + int(c.sum(dtype=np.uint64))) & 0xFFFFFFFFFFFFFFFF
+            records += len(c)
+        return {"digest": f"{xor:016x}{add:016x}", "records": records,
+                "now": now}
+
+    def _merged_digest_rows(self, now: int, pmask: int):
+        """state_digest's records over the merged scan, as chunks of
+        (arena, offsets, lengths): each record u32 LE key length, the
+        key, i64 LE expire_ts, the value."""
         rows = [struct.pack("<I", len(k)) + k + struct.pack("<q", int(e)) + v
                 for k, v, e in self.scan(now=now)
                 if not pmask or key_hash(k) % (pmask + 1) == self.opts.pidx]
-        xor = add = 0
-        # the per-record crc64s, vectorized over chunks of records
         for lo in range(0, len(rows), 1 << 16):
             chunk = rows[lo: lo + (1 << 16)]
             lens = np.fromiter(map(len, chunk), np.int64, len(chunk))
             offs = np.zeros(len(chunk), np.int64)
             np.cumsum(lens[:-1], out=offs[1:])
-            c = crc64_batch(np.frombuffer(b"".join(chunk), np.uint8), offs,
-                            lens)
-            xor ^= int(np.bitwise_xor.reduce(c))
-            add = (add + int(c.sum(dtype=np.uint64))) & 0xFFFFFFFFFFFFFFFF
-        return {"digest": f"{xor:016x}{add:016x}", "records": len(rows),
-                "now": now}
+            yield np.frombuffer(b"".join(chunk), np.uint8), offs, lens
+
+    def _single_run_digest_rows(self, now: int, pmask: int):
+        """The same records as _merged_digest_rows, built with array ops,
+        when the SSTs are one sorted level (a fully compacted replica, its
+        output split into files of disjoint key ranges) or one L0 file (a
+        checkpoint of a freshly loaded replica) and the memtables
+        are small beside it (a secondary applies the last committed
+        writes with the next prepare): each key lives in one file once,
+        so the merge's rows are the files' live rows whose keys no
+        memtable holds, plus the memtables' newest live rows (the digest
+        ignores order). None otherwise."""
+        with self._lock:
+            levels = [fs for fs in self._levels.values() if fs]
+            if len(self._l0) + len(levels) != 1 or len(self._l0) > 1:
+                return None
+            ssts = list(self._l0) + [f for fs in levels for f in fs]
+            newest = {}
+            for mem in [self._mem] + list(self._imm):  # newest first
+                for k, ved in mem.items():
+                    newest.setdefault(k, ved)
+        if len(newest) > 4096:
+            return None
+        mem_rows = [
+            struct.pack("<I", len(k)) + k + struct.pack("<q", int(e)) + v
+            for k, (v, e, d) in sorted(newest.items())
+            if not d and not check_if_ts_expired(now, e)
+            and (not pmask or key_hash(k) % (pmask + 1) == self.opts.pidx)]
+
+        def chunks():
+            for sst in ssts:
+                yield from self._live_digest_rows(sst, now, pmask, newest)
+            if mem_rows:
+                lens = np.fromiter(map(len, mem_rows), np.int64,
+                                   len(mem_rows))
+                yield (np.frombuffer(b"".join(mem_rows), np.uint8),
+                       np.cumsum(lens) - lens, lens)
+
+        return chunks()
+
+    def _live_digest_rows(self, sst, now: int, pmask: int, shadowed):
+        """One file's live rows as digest records, without the keys in
+        `shadowed` (newer versions in a memtable)."""
+        b = self._sst_block(sst)
+        exp = b.expire_ts.astype(np.int64)
+        keep = ~b.deleted & ~((exp > 0) & (exp <= now))
+        for k in shadowed:
+            i = b.lower_bound(k)
+            if i < b.n and b.key(i) == k:
+                keep[i] = False
+        if pmask:
+            hashes = _batch_key_hashes(b.key_arena, b.key_off, b.key_len)
+            keep &= hashes % np.uint64(pmask + 1) == np.uint64(self.opts.pidx)
+        idx = np.nonzero(keep)[0]
+        for lo in range(0, len(idx), 1 << 16):
+            yield _digest_rows(b, idx[lo: lo + (1 << 16)])
 
     def scrub(self, rate_bytes_per_s: float = None) -> dict:
         """Background integrity pass: re-verify every landed SST's section
@@ -1375,3 +1440,29 @@ def _split_block(block: KVBlock, target_bytes: int) -> list:
         start = cut
         base = int(cum[cut - 1])
     return [block.gather(np.arange(s, e, dtype=np.int64)) for s, e in bounds]
+
+
+def _segments(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Flat byte indices of the segments [starts[i], starts[i] + lens[i])."""
+    ends = np.cumsum(lens)
+    return (np.repeat(starts - (ends - lens), lens)
+            + np.arange(int(ends[-1]) if len(ends) else 0, dtype=np.int64))
+
+
+def _digest_rows(b: KVBlock, idx: np.ndarray) -> tuple:
+    """state_digest's records of block rows idx as (arena, offsets,
+    lengths): u32 LE key length, key, i64 LE expire_ts, value."""
+    kl = b.key_len[idx].astype(np.int64)
+    vl = b.val_len[idx].astype(np.int64)
+    lens = 12 + kl + vl
+    offs = np.cumsum(lens) - lens
+    arena = np.empty(int(lens.sum()), np.uint8)
+    arena[offs[:, None] + np.arange(4)] = \
+        kl.astype("<u4").view(np.uint8).reshape(-1, 4)
+    arena[_segments(offs + 4, kl)] = \
+        b.key_arena[_segments(b.key_off[idx].astype(np.int64), kl)]
+    arena[(offs + 4 + kl)[:, None] + np.arange(8)] = \
+        b.expire_ts[idx].astype("<i8").view(np.uint8).reshape(-1, 8)
+    arena[_segments(offs + 12 + kl, vl)] = \
+        b.val_arena[_segments(b.val_off[idx].astype(np.int64), vl)]
+    return arena, offs, lens

@@ -74,6 +74,11 @@ class ReplicaService:
             self._wlocks[(server.app_id, server.pidx)] = threading.Lock()
             self._partition_counts[server.app_id] = partition_count
 
+    def remove_replica(self, app_id: int, pidx: int) -> None:
+        with self._lock:
+            self._replicas.pop((app_id, pidx), None)
+            self._wlocks.pop((app_id, pidx), None)
+
     def set_write_router(self, fn) -> None:
         """fn(server, code, req) -> response; replaces local commit (PacificA)."""
         self._write_router = fn

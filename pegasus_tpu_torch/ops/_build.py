@@ -23,9 +23,16 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".torch_ext")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOADED = {}
-# one build or load at a time in this process: the first merges of a
-# cold service arrive on concurrent RPC threads
-_LOCK = threading.Lock()
+# one build or load of a library at a time in this process (the first
+# merges of a cold service arrive on concurrent RPC threads); different
+# sources build side by side
+_LOCKS_LOCK = threading.Lock()
+_LOCKS = {}
+
+
+def _lock(name: str) -> threading.Lock:
+    with _LOCKS_LOCK:
+        return _LOCKS.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -57,7 +64,7 @@ def build(name: str) -> str:
     """Compile csrc/<name>.cu unless it is built already. -> nvcc's ptxas
     report (registers, shared memory, spills), kept beside the library.
     Raises with the compiler output when the build fails."""
-    with _LOCK:
+    with _lock(name):
         return _build_locked(name)
 
 
@@ -82,7 +89,7 @@ def _build_locked(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, building it if needed."""
-    with _LOCK:
+    with _lock(name):
         lib = _LOADED.get(name)
         if lib is None:
             _build_locked(name)

@@ -1,7 +1,8 @@
 """Block-shipped learning: streaming, delta-aware SST transfer.
 
-Port of pegasus_tpu/replication/learn.py (its RPC learn source comes
-with the replica stub). A learner re-seeds from its primary in four
+Port of pegasus_tpu/replication/learn.py, with RemoteLearnSource, the
+learn protocol's client over RPC (RPC_LEARN_{PREPARE,FETCH,TAIL,FINISH},
+served by replication/replica_stub.py). A learner re-seeds from its primary in four
 steps:
 
   1. the learner sends its live SST set (filename + content digest);
@@ -29,6 +30,9 @@ import os
 import zlib
 
 from ..base.crc64 import crc64
+from ..rpc import codec
+from ..rpc import messages as rpc_msg
+from ..rpc.transport import RpcError
 from ..runtime.fail_points import inject
 from ..runtime.perf_counters import counters
 
@@ -298,3 +302,99 @@ def stage_blocks(source, st: dict, dest_dir: str, reuse: dict = None,
     c_bytes.increment(stats["bytes"])
     stats["fold"] = manifest_fold(verified)
     return stats
+
+
+class RemoteLearnSource:
+    """Learn-protocol client over the RPC transport, the learn surface of
+    the replica stub's remote peer. Chunk fetches pipeline through
+    ``call_many`` (one coalesced send per wave) on the partition's
+    sharded connection."""
+
+    def __init__(self, pool, addr: str, app_id: int, pidx: int,
+                 timeout: float = 30.0):
+        self.pool = pool
+        self.addr = addr
+        self.app_id = app_id
+        self.pidx = pidx
+        self.timeout = timeout
+
+    def _conn(self):
+        host, _, port = self.addr.rpartition(":")
+        return self.pool.get((host, int(port)),
+                             shard=("rep", self.app_id, self.pidx))
+
+    def _call(self, code: str, req, resp_cls):
+        try:
+            _, body = self._conn().call(
+                code, codec.encode(req), app_id=self.app_id,
+                partition_index=self.pidx, timeout=self.timeout)
+        except (RpcError, OSError) as e:
+            raise ConnectionError(str(e))
+        resp = codec.decode(resp_cls, body)
+        if resp.error:
+            raise LearnShipError(f"{code} failed: {resp.error_text}")
+        return resp
+
+    def prepare_learn_state(self, have=None, delta=None) -> dict:
+        from .replica_stub import RPC_LEARN_PREPARE
+
+        req = rpc_msg.LearnPrepareRequest(
+            app_id=self.app_id, pidx=self.pidx,
+            delta=delta_enabled() if delta is None else bool(delta),
+            have=[rpc_msg.LearnBlockEntry(e["name"], e["size"], e["digest"])
+                  for e in (have or [])])
+        resp = self._call(RPC_LEARN_PREPARE, req,
+                          rpc_msg.LearnPrepareResponse)
+        return {
+            "learn_id": resp.learn_id, "ckpt_decree": resp.ckpt_decree,
+            "ballot": resp.ballot, "last_committed": resp.last_committed,
+            "blocks": [{"name": e.name, "size": e.size, "digest": e.digest}
+                       for e in resp.blocks],
+            "missing": list(resp.missing), "digest": resp.digest,
+            "digest_now": resp.digest_now, "digest_pmask": resp.digest_pmask,
+        }
+
+    def fetch_learn_chunks(self, learn_id: int, reqs) -> list:
+        from .replica_stub import RPC_LEARN_FETCH
+
+        calls = [(RPC_LEARN_FETCH,
+                  codec.encode(rpc_msg.LearnFetchRequest(
+                      app_id=self.app_id, pidx=self.pidx, learn_id=learn_id,
+                      name=name, offset=off, length=ln)),
+                  self.app_id, self.pidx, 0) for (name, off, ln) in reqs]
+        try:
+            results = self._conn().call_many(calls, timeout=self.timeout)
+        except (RpcError, OSError) as e:
+            raise ConnectionError(str(e))
+        out = []
+        for _, body in results:
+            resp = codec.decode(rpc_msg.LearnFetchResponse, body)
+            if resp.error:
+                raise LearnShipError(f"learn fetch failed: {resp.error_text}")
+            out.append({"data": resp.data, "crc": resp.crc,
+                        "total": resp.total})
+        return out
+
+    def fetch_learn_tail(self, learn_id: int) -> dict:
+        from .mutation_log import LogMutation
+        from .replica_stub import RPC_LEARN_TAIL
+
+        resp = self._call(RPC_LEARN_TAIL,
+                          rpc_msg.LearnTailRequest(
+                              app_id=self.app_id, pidx=self.pidx,
+                              learn_id=learn_id),
+                          rpc_msg.LearnTailResponse)
+        return {"tail": [codec.decode(LogMutation, t) for t in resp.tail],
+                "last_committed": resp.last_committed, "ballot": resp.ballot}
+
+    def finish_learn(self, learn_id: int) -> None:
+        from .replica_stub import RPC_LEARN_FINISH
+
+        try:
+            self._call(RPC_LEARN_FINISH,
+                       rpc_msg.LearnFinishRequest(
+                           app_id=self.app_id, pidx=self.pidx,
+                           learn_id=learn_id),
+                       rpc_msg.LearnFetchResponse)
+        except (ConnectionError, LearnShipError):
+            pass  # the pin's TTL covers an unreachable primary

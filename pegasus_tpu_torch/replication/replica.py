@@ -110,6 +110,8 @@ class Replica:
         self.app_id = app_id
         self.pidx = pidx
         self.cluster_id = cluster_id
+        self.app_name = ""       # set by the replica stub at open
+        self.partition_count = 0
         self.quorum = quorum
         self.peers = peers or (lambda n: (_ for _ in ()).throw(
             ConnectionError(n)))
@@ -738,6 +740,11 @@ class Replica:
         for pin in dead:
             self.server.engine.unpin_checkpoint(pin["decree"], pin["token"])
         return floor
+
+    def learn_state(self) -> dict:
+        """Learner-side learn snapshot (the learn-status command)."""
+        with self._lock:
+            return {"learning": self._learning, "status": self.status}
 
     def learn_pins(self) -> list:
         """Active primary-side learn pins."""

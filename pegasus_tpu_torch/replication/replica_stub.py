@@ -1,0 +1,787 @@
+"""Replica node: hosts PacificA replicas, beacons to meta, serves clients.
+
+Port of the core of pegasus_tpu/replication/replica_stub.py (the rDSN
+replica_stub role): one process is one node address; the meta server
+opens and closes replicas here (RPC_CONFIG_PROPOSAL_*), client writes
+route through the local replica's PacificA 2PC (Replica.client_write,
+wired in through ReplicaService.set_write_router), prepares arrive from
+peer nodes over RPC (RPC_PREPARE), learners pull checkpoint and log-tail
+state over the block-shipped learn (RPC_LEARN_*), and a beacon thread
+keeps the meta lease. Every message is byte-identical to the
+reference's, so port and reference nodes replicate one partition
+together.
+
+The engines default to the cuda backend on the card (EngineOptions()):
+every replica's merges and device reads run there, and a failure raises.
+
+Not ported yet (ROADMAP Queue 1): partition groups (group_spec and the
+socket adoption loop), duplication, cold backup and restore,
+meta-driven RPC_BULK_LOAD, quarantine and scrub-replica, the scheduler
+commands, set-read-residency, detect_hotkey, the table-stats beacon
+fragment, the job tracer and the metric history. Split seeding (an open
+that learns from another partition) raises RpcError until split is
+ported.
+"""
+
+import json
+import os
+import threading
+import time
+
+from ..engine.db import EngineOptions
+from ..engine.replica_service import ReplicaService
+from ..meta import messages as mm
+from ..meta.meta_server import (RPC_CLOSE_REPLICA, RPC_FD_BEACON,
+                                RPC_OPEN_REPLICA, RPC_QUERY_REPLICA_INFO,
+                                RPC_REPLICA_STATE)
+from ..rpc import codec
+from ..rpc import messages as rpc_msg
+from ..rpc.transport import (ConnectionPool, ERR_INVALID_STATE,
+                             ERR_OBJECT_NOT_FOUND, RpcError, RpcServer)
+from ..runtime.perf_counters import counters
+from ..runtime.remote_command import RemoteCommandService
+from .mutation_log import LogMutation
+from .replica import GroupView, PRIMARY, PrepareRejected, Replica, ReplicaError
+
+RPC_PREPARE = "RPC_PREPARE"
+RPC_LEARN = "RPC_LEARN"
+# block-shipped learn plane: manifest-diff handshake, chunked pinned-block
+# fetch, log-tail pull, pin release
+RPC_LEARN_PREPARE = "RPC_LEARN_PREPARE"
+RPC_LEARN_FETCH = "RPC_LEARN_FETCH"
+RPC_LEARN_TAIL = "RPC_LEARN_TAIL"
+RPC_LEARN_FINISH = "RPC_LEARN_FINISH"
+RPC_REMOTE_COMMAND = "RPC_CLI_CLI_CALL"
+
+
+class _RemotePeer:
+    """Peer-node proxy with the Replica peer interface (on_prepare,
+    fetch_learn_state, the streamed learn) over the RPC transport."""
+
+    def __init__(self, stub: "ReplicaStub", addr: str, app_id: int, pidx: int):
+        self.stub = stub
+        self.addr = addr
+        self.app_id = app_id
+        self.pidx = pidx
+        self._learn_src = None
+
+    def _conn(self):
+        host, _, port = self.addr.rpartition(":")
+        # one sharded connection per (peer, partition), as the reference
+        return self.stub.pool.get((host, int(port)),
+                                  shard=("rep", self.app_id, self.pidx))
+
+    def _call(self, code, req):
+        try:
+            _, body = self._conn().call(code, codec.encode(req),
+                                        app_id=self.app_id,
+                                        partition_index=self.pidx,
+                                        timeout=10.0)
+            return body
+        except (RpcError, OSError) as e:
+            raise ConnectionError(str(e))
+
+    def on_prepare(self, ballot, m: LogMutation, committed_decree: int):
+        body = self._call(RPC_PREPARE, mm.PrepareRequest(
+            app_id=self.app_id, pidx=self.pidx, ballot=ballot,
+            committed_decree=committed_decree, mutation=codec.encode(m)))
+        resp = codec.decode(mm.PrepareResponse, body)
+        if resp.error:
+            raise PrepareRejected(resp.reason, resp.last_prepared)
+
+    def on_prepare_batch(self, ballot, ms, committed_decree: int) -> int:
+        """Windowed prepare: the whole decree window rides one RPC; the
+        peer acks its highest contiguous prepared decree."""
+        body = self._call(RPC_PREPARE, mm.PrepareRequest(
+            app_id=self.app_id, pidx=self.pidx, ballot=ballot,
+            committed_decree=committed_decree,
+            mutations=[codec.encode(m) for m in ms]))
+        resp = codec.decode(mm.PrepareResponse, body)
+        if resp.error:
+            raise PrepareRejected(resp.reason, resp.last_prepared)
+        return resp.last_prepared
+
+    def on_prepare_windows(self, ballot, windows, committed_decree: int) -> int:
+        """Catch-up path: every window of the backlog leaves in one
+        coalesced send (call_many), the responses are collected in order.
+        -> the peer's final acked decree."""
+        reqs = [(RPC_PREPARE, codec.encode(mm.PrepareRequest(
+            app_id=self.app_id, pidx=self.pidx, ballot=ballot,
+            committed_decree=committed_decree,
+            mutations=[codec.encode(m) for m in w])),
+            self.app_id, self.pidx, 0) for w in windows]
+        try:
+            results = self._conn().call_many(reqs, timeout=10.0)
+        except (RpcError, OSError) as e:
+            raise ConnectionError(str(e))
+        last = 0
+        for _, body in results:
+            resp = codec.decode(mm.PrepareResponse, body)
+            if resp.error:
+                raise PrepareRejected(resp.reason, resp.last_prepared)
+            last = resp.last_prepared
+        return last
+
+    def fetch_learn_state(self) -> dict:
+        body = self._call(RPC_LEARN, mm.LearnRequest(self.app_id, self.pidx))
+        resp = codec.decode(mm.LearnResponse, body)
+        if resp.error:
+            raise ConnectionError("learn failed")
+        return {
+            "files": [(f.name, f.data) for f in resp.files],
+            "tail": [codec.decode(LogMutation, t) for t in resp.tail],
+            "last_committed": resp.last_committed,
+            "ballot": resp.ballot,
+        }
+
+    # the streamed learn, through the one RPC client of the learn protocol
+    def _learn_source(self):
+        if self._learn_src is None:
+            from .learn import RemoteLearnSource
+
+            self._learn_src = RemoteLearnSource(
+                self.stub.pool, self.addr, self.app_id, self.pidx)
+        return self._learn_src
+
+    def prepare_learn_state(self, have=None, delta=None) -> dict:
+        return self._learn_source().prepare_learn_state(have, delta)
+
+    def fetch_learn_chunks(self, learn_id, reqs) -> list:
+        return self._learn_source().fetch_learn_chunks(learn_id, reqs)
+
+    def fetch_learn_tail(self, learn_id) -> dict:
+        return self._learn_source().fetch_learn_tail(learn_id)
+
+    def finish_learn(self, learn_id) -> None:
+        self._learn_source().finish_learn(learn_id)
+
+
+class ReplicaStub:
+    def __init__(self, root: str, meta_addrs, host: str = "127.0.0.1",
+                 port: int = 0, options_factory=None, cluster_id: int = 1):
+        self.root = root
+        self.meta_addrs = list(meta_addrs)
+        self.cluster_id = cluster_id
+        # the card unless the caller asks otherwise (the reference's stub
+        # defaults to the cpu backend)
+        self.options_factory = options_factory or EngineOptions
+        self.pool = ConnectionPool()
+        self._lock = threading.RLock()
+        self._replicas = {}      #: guarded_by self._lock
+        self._service = ReplicaService()
+        self._service.set_write_router(self._route_write)
+        self.rpc = RpcServer(host, port)
+        self.rpc.register_serverlet(self._service)
+        self.rpc.register(RPC_OPEN_REPLICA, self._on_open_replica)
+        self.rpc.register(RPC_CLOSE_REPLICA, self._on_close_replica)
+        self.rpc.register(RPC_REPLICA_STATE, self._on_replica_state)
+        self.rpc.register(RPC_QUERY_REPLICA_INFO, self._on_query_replica_info)
+        self.rpc.register(RPC_PREPARE, self._on_prepare)
+        self.rpc.register(RPC_LEARN, self._on_learn)
+        self.rpc.register(RPC_LEARN_PREPARE, self._on_learn_prepare)
+        self.rpc.register(RPC_LEARN_FETCH, self._on_learn_fetch)
+        self.rpc.register(RPC_LEARN_TAIL, self._on_learn_tail)
+        self.rpc.register(RPC_LEARN_FINISH, self._on_learn_finish)
+        self.commands = RemoteCommandService()
+        self.commands.register_defaults(node_kind="replica",
+                                        describe=self._describe)
+        self.commands.register("manual-compact", self._cmd_manual_compact)
+        self.commands.register("batched-manual-compact",
+                               self._cmd_batched_manual_compact)
+        self.commands.register("replica-disk", self._cmd_replica_disk)
+        self.commands.register("query-compact-state", self._cmd_compact_state)
+        self.commands.register("flush-log", self._cmd_flush_log)
+        self.commands.register("flush-memtable", self._cmd_flush_memtable)
+        self.commands.register("trigger-audit", self._cmd_trigger_audit)
+        self.commands.register("query-audit", self._cmd_query_audit)
+        self.commands.register("learn-status", self._cmd_learn_status)
+        self.rpc.register(RPC_REMOTE_COMMAND, self.commands.rpc_handler)
+        self.rpc.start()
+        self.address = f"{self.rpc.address[0]}:{self.rpc.address[1]}"
+        self._stop = threading.Event()
+        self._beacon_threads = {}  # meta addr -> in-flight ping thread
+        self._beacon_thread = threading.Thread(
+            target=self._beacon_loop, daemon=True,
+            name=f"beacon:{self.address}")
+        self._maint_thread = threading.Thread(
+            target=self._maintenance_loop, daemon=True,
+            name=f"maintenance:{self.address}")
+
+    def start(self, beacon_interval: float = 1.0,
+              maintenance_interval: float = 60.0) -> "ReplicaStub":
+        self._beacon_interval = beacon_interval
+        self._maint_interval = maintenance_interval
+        self.send_beacon()
+        self._beacon_thread.start()
+        self._maint_thread.start()
+        return self
+
+    # ------------------------------------------------------- maintenance
+
+    def _maintenance_loop(self):
+        """Per-replica timers (the reference's replica-level checkpoint
+        timer and manual-compact trigger checks): periodic async
+        checkpoint, plog GC behind the durable decree, and env-driven
+        periodic manual compaction."""
+        while not self._stop.wait(self._maint_interval):
+            with self._lock:
+                reps = list(self._replicas.values())
+            for rep in reps:
+                try:
+                    rep.server.engine.async_checkpoint()
+                    rep.gc_log()
+                    rep.server.manual_compact_service \
+                        .start_manual_compact_if_needed(rep.server.app_envs)
+                except Exception as e:  # keep the timer alive
+                    print(f"[maintenance] {rep.name}: {e!r}", flush=True)
+
+    # ------------------------------------------------------------- beacons
+
+    def _beacon_fragment_locked(self):  #: requires self._lock
+        """-> (alive gpids, per-replica state JSONs): the beacon fields
+        the meta reads."""
+        alive = [f"{a}.{p}" for (a, p) in self._replicas]
+        states = []
+        for (a, p), rep in self._replicas.items():
+            st = {"gpid": f"{a}.{p}", "status": rep.status,
+                  "ballot": rep.ballot,
+                  "committed": rep.last_committed,
+                  "applied": rep.server.engine.last_committed_decree(),
+                  "prepared": rep.last_prepared,
+                  "compact": rep.compact_debt()}
+            la = rep.server.last_audit
+            if la:
+                st["audit"] = {"audit_id": la.get("audit_id", 0),
+                               "decree": la.get("decree", 0),
+                               "digest": la.get("digest", "")}
+            states.append(json.dumps(st))
+        return alive, states
+
+    def _beacon_loop(self):
+        while not self._stop.wait(self._beacon_interval):
+            try:
+                self.send_beacon()
+            except Exception as e:  # a dead beacon thread gets this
+                # healthy node declared dead after the grace
+                print(f"[beacon] {self.address}: {e!r}", flush=True)
+
+    def send_beacon(self):
+        with self._lock:
+            alive, states = self._beacon_fragment_locked()
+        body = codec.encode(mm.BeaconRequest(
+            node=self.address, alive_replicas=alive, replica_states=states))
+
+        # every configured meta: followers absorb beacons too (a warm
+        # liveness map makes a takeover instant), concurrently so a
+        # black-holed meta cannot eat the grace of the others
+        def ping(meta):
+            host, _, port = meta.rpartition(":")
+            try:
+                conn = self.pool.get((host, int(port)))
+                conn.call(RPC_FD_BEACON, body, timeout=2.0)
+            except (RpcError, OSError):
+                pass
+
+        if len(self.meta_addrs) == 1:
+            ping(self.meta_addrs[0])
+            return
+        # at most one in-flight ping per meta
+        threads = []
+        for m in self.meta_addrs:
+            prev = self._beacon_threads.get(m)
+            if prev is not None and prev.is_alive():
+                continue
+            t = threading.Thread(target=ping, args=(m,), daemon=True,
+                                 name=f"beacon:{self.address}->{m}")
+            self._beacon_threads[m] = t
+            threads.append(t)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=2.5)
+
+    # ------------------------------------------------- meta-driven lifecycle
+
+    def _on_open_replica(self, header, body) -> bytes:
+        req = codec.decode(mm.OpenReplicaRequest, body)
+        if req.learn_from and 0 <= req.learn_pidx != req.pidx:
+            raise RpcError(ERR_INVALID_STATE,
+                           f"partition {req.app_id}.{req.pidx}: learning from"
+                           f" partition {req.learn_pidx} is split seeding, "
+                           f"which the port does not serve yet")
+        if req.restore_dir:
+            raise RpcError(ERR_INVALID_STATE,
+                           f"partition {req.app_id}.{req.pidx}: restore from "
+                           f"a backup is not ported yet")
+        key = (req.app_id, req.pidx)
+        with self._lock:
+            rep = self._replicas.get(key)
+            if rep is None:
+                path = os.path.join(self.root, f"{req.app_id}.{req.pidx}")
+                rep = Replica(self.address, path, req.app_id, req.pidx,
+                              self.options_factory(),
+                              peers=self._peer_factory(req.app_id, req.pidx),
+                              cluster_id=self.cluster_id)
+                self._replicas[key] = rep
+            self._service.add_replica(rep.server, req.partition_count)
+        if req.learn_from and req.learn_from != self.address:
+            # a repair or failover re-seed from the partition's primary
+            rep.learn_from(_RemotePeer(self, req.learn_from, req.app_id,
+                                       req.pidx))
+            with self._lock:
+                # the learn swapped in a new server: re-register it
+                self._service.remove_replica(req.app_id, req.pidx)
+                self._service.add_replica(rep.server, req.partition_count)
+        rep.app_name = req.app_name or rep.app_name
+        if rep.app_name:
+            rep.server.set_table_name(rep.app_name)
+        rep.partition_count = req.partition_count or rep.partition_count
+        rep.assume_view(GroupView(req.ballot, req.primary, req.secondaries))
+        envs = json.loads(req.envs_json or "{}")
+        if envs:
+            rep.server.update_app_envs(envs)
+        return codec.encode(mm.OpenReplicaResponse(
+            last_committed=rep.last_committed, last_prepared=rep.last_prepared))
+
+    def _on_close_replica(self, header, body) -> bytes:
+        req = codec.decode(mm.CloseReplicaRequest, body)
+        with self._lock:
+            rep = self._replicas.pop((req.app_id, req.pidx), None)
+            self._service.remove_replica(req.app_id, req.pidx)
+        if rep:
+            rep.close()
+        return b""
+
+    def _on_replica_state(self, header, body) -> bytes:
+        req = codec.decode(mm.ReplicaStateRequest, body)
+        with self._lock:
+            rep = self._replicas.get((req.app_id, req.pidx))
+        if rep is None:
+            return codec.encode(mm.ReplicaStateResponse(error=1))
+        return codec.encode(mm.ReplicaStateResponse(
+            status=rep.status, ballot=rep.ballot,
+            last_committed=rep.last_committed, last_prepared=rep.last_prepared,
+            last_durable=rep.server.engine.last_durable_decree(),
+            last_applied=rep.server.engine.last_committed_decree()))
+
+    def _on_query_replica_info(self, header, body) -> bytes:
+        """Everything this node holds (reference query_replica_info)."""
+        with self._lock:
+            reps = list(self._replicas.values())
+        out = [mm.ReplicaInfo(
+            app_name=rep.app_name, app_id=rep.app_id, pidx=rep.pidx,
+            partition_count=rep.partition_count,
+            ballot=rep.ballot, last_committed=rep.last_committed,
+            last_prepared=rep.last_prepared,
+            last_durable=rep.server.engine.last_durable_decree(),
+            envs_json=json.dumps(rep.server.app_envs),
+            last_applied=rep.server.engine.last_committed_decree())
+            for rep in reps]
+        return codec.encode(mm.QueryReplicaInfoResponse(replicas=out))
+
+    # ------------------------------------------------------- replication RPC
+
+    def _peer_factory(self, app_id, pidx):
+        def peers(addr: str):
+            if addr == self.address:
+                raise ConnectionError("self")
+            return _RemotePeer(self, addr, app_id, pidx)
+
+        return peers
+
+    def _on_prepare(self, header, body) -> bytes:
+        req = codec.decode(mm.PrepareRequest, body)
+        with self._lock:
+            rep = self._replicas.get((req.app_id, req.pidx))
+        if rep is None:
+            return codec.encode(mm.PrepareResponse(error=1, reason="no_replica"))
+        if req.mutations:  # decree-pipelined window
+            ms = [codec.decode(LogMutation, b) for b in req.mutations]
+        elif req.mutation:  # single-mutation frame
+            ms = [codec.decode(LogMutation, req.mutation)]
+        else:              # empty window: pure commit-point broadcast
+            ms = []
+        try:
+            lp = rep.on_prepare_batch(req.ballot, ms, req.committed_decree)
+            return codec.encode(mm.PrepareResponse(last_prepared=lp))
+        except PrepareRejected as rej:
+            return codec.encode(mm.PrepareResponse(
+                error=1, reason=rej.reason, last_prepared=rej.last_prepared))
+
+    def _on_learn(self, header, body) -> bytes:
+        req = codec.decode(mm.LearnRequest, body)
+        with self._lock:
+            rep = self._replicas.get((req.app_id, req.pidx))
+        if rep is None:
+            return codec.encode(mm.LearnResponse(error=1))
+        state = rep.fetch_learn_state()
+        return codec.encode(mm.LearnResponse(
+            files=[mm.FileBlob(n, d) for n, d in state["files"]],
+            tail=[codec.encode(m) for m in state["tail"]],
+            last_committed=state["last_committed"], ballot=state["ballot"]))
+
+    # -------------------------------------------- block-shipped learn RPCs
+
+    def _learn_replica(self, req):
+        with self._lock:
+            return self._replicas.get((req.app_id, req.pidx))
+
+    def _on_learn_prepare(self, header, body) -> bytes:
+        req = codec.decode(rpc_msg.LearnPrepareRequest, body)
+        rep = self._learn_replica(req)
+        if rep is None:
+            return codec.encode(rpc_msg.LearnPrepareResponse(
+                error=1, error_text="no_replica"))
+        try:
+            st = rep.prepare_learn_state(
+                have=[{"name": e.name, "size": e.size, "digest": e.digest}
+                      for e in req.have],
+                delta=req.delta)
+        except Exception as e:  # noqa: BLE001 - the learner retries
+            return codec.encode(rpc_msg.LearnPrepareResponse(
+                error=1, error_text=repr(e)))
+        return codec.encode(rpc_msg.LearnPrepareResponse(
+            learn_id=st["learn_id"], ckpt_decree=st["ckpt_decree"],
+            ballot=st["ballot"], last_committed=st["last_committed"],
+            blocks=[rpc_msg.LearnBlockEntry(e["name"], e["size"],
+                                            e["digest"])
+                    for e in st["blocks"]],
+            missing=st["missing"], digest=st["digest"],
+            digest_now=st["digest_now"], digest_pmask=st["digest_pmask"]))
+
+    def _on_learn_fetch(self, header, body) -> bytes:
+        req = codec.decode(rpc_msg.LearnFetchRequest, body)
+        rep = self._learn_replica(req)
+        if rep is None:
+            return codec.encode(rpc_msg.LearnFetchResponse(
+                error=1, error_text="no_replica"))
+        try:
+            ch = rep.fetch_learn_block(req.learn_id, req.name, req.offset,
+                                       req.length)
+        except Exception as e:  # noqa: BLE001 - expired pins included
+            return codec.encode(rpc_msg.LearnFetchResponse(
+                error=1, error_text=repr(e)))
+        return codec.encode(rpc_msg.LearnFetchResponse(
+            data=ch["data"], crc=ch["crc"], total=ch["total"]))
+
+    def _on_learn_tail(self, header, body) -> bytes:
+        req = codec.decode(rpc_msg.LearnTailRequest, body)
+        rep = self._learn_replica(req)
+        if rep is None:
+            return codec.encode(rpc_msg.LearnTailResponse(
+                error=1, error_text="no_replica"))
+        try:
+            st = rep.fetch_learn_tail(req.learn_id)
+        except Exception as e:  # noqa: BLE001
+            return codec.encode(rpc_msg.LearnTailResponse(
+                error=1, error_text=repr(e)))
+        return codec.encode(rpc_msg.LearnTailResponse(
+            tail=[codec.encode(m) for m in st["tail"]],
+            last_committed=st["last_committed"], ballot=st["ballot"]))
+
+    def _on_learn_finish(self, header, body) -> bytes:
+        req = codec.decode(rpc_msg.LearnFinishRequest, body)
+        rep = self._learn_replica(req)
+        if rep is not None:
+            rep.finish_learn(req.learn_id)
+        return codec.encode(rpc_msg.LearnFetchResponse())
+
+    # ------------------------------------------------------ remote commands
+
+    def _describe(self) -> dict:
+        with self._lock:
+            return {
+                "address": self.address,
+                "replicas": {
+                    f"{a}.{p}": {
+                        "status": r.status, "ballot": r.ballot,
+                        "last_committed": r.last_committed,
+                        "last_prepared": r.last_prepared,
+                        "last_durable": r.server.engine.last_durable_decree(),
+                        "last_applied": r.server.engine.last_committed_decree(),
+                    }
+                    for (a, p), r in self._replicas.items()
+                },
+            }
+
+    def _cmd_manual_compact(self, args: list) -> str:
+        """manual-compact [app_id.pidx ...]: a full compaction now."""
+        done = []
+        with self._lock:
+            targets = list(self._replicas.items())
+        for (a, p), rep in targets:
+            if args and f"{a}.{p}" not in args:
+                continue
+            rep.server.manual_compact()
+            done.append(f"{a}.{p}")
+        return "compacted: " + ", ".join(done) if done else "no matching replica"
+
+    def batched_manual_compact(self, app_id: int = None,
+                               now: int = None) -> dict:
+        """Node-level manual compaction: every cuda-backend replica of this
+        node (optionally of one app) compacts through the batched merge
+        kernel (ops.batched_compact.compact_partition_batch), one dispatch
+        per group of replicas sharing an ownership mask; a cpu-backend
+        replica runs its own manual_compact. Every participating engine's
+        compaction lock is held from the file-set snapshot through the
+        output install (taken in stable key order), so flush-triggered
+        compactions cannot double-merge."""
+        from ..engine.block import KVBlock
+        from ..engine.db import META_LAST_MANUAL_COMPACT_FINISH_TIME
+        from ..ops.batched_compact import compact_partition_batch
+
+        def mark_done(eng):
+            with eng._lock:
+                eng._meta[META_LAST_MANUAL_COMPACT_FINISH_TIME] = \
+                    int(time.time())
+                eng._write_manifest_locked()  # the finish time persists
+
+        with self._lock:
+            reps = [(aid, rep)
+                    for (aid, p), rep in sorted(self._replicas.items())
+                    if app_id is None or aid == app_id]
+        groups, fallback = {}, []
+        held = set()  # engines whose compaction lock is held
+
+        def release(eng):
+            if eng in held:
+                held.discard(eng)
+                eng._compaction_lock.release()
+
+        stats = {"input_records": 0, "output_records": 0,
+                 "partitions": 0, "batched": 0, "fallback": 0}
+        try:
+            for aid, rep in reps:
+                eng = rep.server.engine
+                if eng.opts.backend != "cuda":
+                    fallback.append(rep)
+                    continue
+                eng.flush()
+                eng._compaction_lock.acquire()
+                held.add(eng)
+                with eng._lock:
+                    all_inputs = list(eng._l0)
+                    for lv in sorted(eng._levels):
+                        all_inputs.extend(eng._levels[lv])
+                inputs = [s for s in all_inputs if s.n]
+                if not inputs:
+                    # zero-record SSTs are swept as manual_compact would
+                    if all_inputs:
+                        eng._install_merge_output(all_inputs, [],
+                                                  KVBlock.empty(),
+                                                  eng.opts.max_levels)
+                    mark_done(eng)
+                    release(eng)
+                    stats["partitions"] += 1
+                    stats["batched"] += 1
+                    continue
+                device_runs = [eng._device_run_budgeted(s) for s in inputs]
+                if any(d is None for d in device_runs):
+                    release(eng)  # its own manual_compact locks later
+                    fallback.append(rep)
+                    continue
+                groups.setdefault((aid, eng.opts.partition_mask),
+                                  []).append((eng, all_inputs, inputs,
+                                              device_runs))
+            for (aid, pmask), group in groups.items():
+                eng0 = group[0][0]
+                opts = eng0._compact_options(
+                    now=now, bottommost=True, runs_sorted=True,
+                    partition_mask=pmask)
+                jobs, post_opts = [], []
+                for eng, all_inputs, inputs, drs in group:
+                    jobs.append(([s.block() for s in inputs], drs,
+                                 eng.opts.pidx))
+                    post_opts.append(eng._compact_options(
+                        now=now, bottommost=True, runs_sorted=True,
+                        pidx=eng.opts.pidx, partition_mask=pmask,
+                        default_ttl=eng.opts.default_ttl,
+                        user_ops=tuple(eng.opts.user_ops)))
+                outs = compact_partition_batch(jobs, opts,
+                                               post_opts=post_opts)
+                for (eng, all_inputs, inputs, _), out in zip(group, outs):
+                    n_in = sum(s.n for s in inputs)
+                    eng._install_merge_output(all_inputs, [], out,
+                                              eng.opts.max_levels)
+                    mark_done(eng)
+                    release(eng)
+                    stats["input_records"] += n_in
+                    stats["output_records"] += out.n
+                    stats["partitions"] += 1
+                    stats["batched"] += 1
+        finally:
+            for eng in list(held):
+                release(eng)
+        for rep in fallback:
+            fs = rep.server.engine.manual_compact(now=now)
+            stats["input_records"] += fs.get("input_records", 0)
+            stats["output_records"] += fs.get("output_records", 0)
+            stats["partitions"] += 1
+            stats["fallback"] += 1
+        return stats
+
+    def _cmd_batched_manual_compact(self, args) -> str:
+        app_id = int(args[0]) if args else None
+        return json.dumps(self.batched_manual_compact(app_id=app_id))
+
+    def _cmd_replica_disk(self, args) -> str:
+        """Per-replica on-disk footprint."""
+        with self._lock:
+            reps = list(self._replicas.items())
+        out = {}
+        for (aid, pidx), rep in reps:
+            eng = rep.server.engine
+            with eng._lock:
+                files = list(eng._l0) + [f for fs in eng._levels.values()
+                                         for f in fs]
+            out[f"{aid}.{pidx}"] = {
+                "sst_bytes": sum(f.data_bytes for f in files),
+                "sst_files": len(files),
+                "records": sum(f.n for f in files),
+                "primary": rep.status == PRIMARY,
+            }
+        return json.dumps(out)
+
+    def _cmd_compact_state(self, args: list) -> str:
+        with self._lock:
+            targets = list(self._replicas.items())
+        return "\n".join(
+            f"{a}.{p}: {rep.server.manual_compact_service.query_compact_state()}"
+            for (a, p), rep in targets)
+
+    def _cmd_trigger_audit(self, args: list) -> str:
+        """trigger-audit <app_id.pidx> [audit_id] [now=<epoch>]: ride a
+        no-op mutation through the partition's PacificA prepare path so
+        every replica computes a consistency digest anchored at the same
+        applied decree, then broadcast the commit point so idle
+        secondaries apply it now. Runs on the primary; returns its digest
+        as JSON, or "" when the partition is not served here."""
+        from ..base.utils import epoch_now
+        from ..engine.server_impl import RPC_TRIGGER_AUDIT
+
+        now_arg = next((int(x[4:]) for x in args if x.startswith("now=")),
+                       None)
+        pos = [x for x in args if not x.startswith("now=")]
+        if not pos:
+            return ("usage: trigger-audit <app_id.pidx> [audit_id] "
+                    "[now=<epoch>]")
+        a, _, p = pos[0].partition(".")
+        with self._lock:
+            rep = self._replicas.get((int(a), int(p)))
+        if rep is None:
+            return ""
+        if rep.status != PRIMARY:
+            return json.dumps({"error": f"not primary ({rep.status})",
+                               "gpid": pos[0], "node": self.address})
+        audit_id = int(pos[1]) if len(pos) > 1 else int(time.time() * 1000)
+        # partition_count - 1 is the ownership mask, carried in the
+        # mutation so every replica digests against the same mask
+        pmask = max(0, rep.partition_count - 1)
+        req = rpc_msg.TriggerAuditRequest(
+            audit_id=audit_id,
+            now=epoch_now() if now_arg is None else now_arg, pmask=pmask)
+        try:
+            resp = rep.client_write(RPC_TRIGGER_AUDIT, req)
+        except ReplicaError as e:
+            return json.dumps({"error": str(e), "gpid": pos[0],
+                               "node": self.address})
+        if resp.error or not resp.digest:
+            return json.dumps({"error": f"digest failed ({resp.server})",
+                               "gpid": pos[0], "node": self.address})
+        rep.broadcast_commit_point()
+        return json.dumps({"gpid": pos[0], "audit_id": audit_id,
+                           "decree": resp.decree, "digest": resp.digest,
+                           "records": resp.records, "node": self.address})
+
+    def _cmd_query_audit(self, args: list) -> str:
+        """query-audit [app_id.pidx]: each hosted (or the named) replica's
+        latest decree-anchored digest and its committed/applied decrees,
+        keyed by gpid."""
+        with self._lock:
+            targets = list(self._replicas.items())
+        out = {}
+        for (a, p), rep in targets:
+            gpid = f"{a}.{p}"
+            if args and args[0] != gpid:
+                continue
+            ent = {"status": rep.status,
+                   "committed": rep.last_committed,
+                   "applied": rep.server.engine.last_committed_decree(),
+                   "node": self.address}
+            la = rep.server.last_audit
+            if la:
+                ent["audit"] = dict(la)
+            out[gpid] = ent
+        return json.dumps(out)
+
+    def _cmd_learn_status(self, args: list) -> str:
+        """learn-status: this process's block-ship totals plus each hosted
+        replica's learning flag and primary-side learn pins."""
+        with self._lock:
+            targets = list(self._replicas.items())
+        out = {
+            "ship.blocks": counters.rate("learn.ship.blocks").total(),
+            "ship.bytes": counters.rate("learn.ship.bytes").total(),
+            "ship.delta_skipped_blocks": counters.rate(
+                "learn.ship.delta_skipped_blocks").total(),
+            "ship.replay_mutations": counters.rate(
+                "learn.replay.mutations").total(),
+        }
+        for (a, p), rep in targets:
+            ent = rep.learn_state()
+            ent["pins"] = rep.learn_pins()
+            ent["node"] = self.address
+            out[f"replica.{a}.{p}"] = ent
+        return json.dumps(out)
+
+    def _cmd_flush_log(self, args: list) -> str:
+        """flush-log: fsync every hosted replica's mutation log."""
+        with self._lock:
+            reps = list(self._replicas.values())
+        for rep in reps:
+            rep.plog.flush()
+        return f"flushed {len(reps)} logs"
+
+    def _cmd_flush_memtable(self, args: list) -> str:
+        """flush-memtable [app_id.pidx ...]: flush every hosted (or each
+        named) replica's memtable into an SST now. Port-only: a caller in
+        another process (chip_smoke.py's cluster phase) snapshots a
+        replica's runs just before a manual compaction with it."""
+        with self._lock:
+            targets = list(self._replicas.items())
+        done = []
+        for (a, p), rep in targets:
+            if args and f"{a}.{p}" not in args:
+                continue
+            rep.server.engine.flush()
+            done.append(f"{a}.{p}")
+        return f"flushed {len(done)} memtables"
+
+    # ------------------------------------------------------------ write path
+
+    def _route_write(self, server, code, req):
+        with self._lock:
+            rep = self._replicas.get((server.app_id, server.pidx))
+        if rep is None:
+            raise RpcError(ERR_OBJECT_NOT_FOUND, "replica closed")
+        if rep.status != PRIMARY:
+            raise RpcError(ERR_INVALID_STATE, f"not primary ({rep.status})")
+        try:
+            return rep.client_write(code, req)
+        except ReplicaError as e:
+            raise RpcError(ERR_INVALID_STATE, str(e))
+
+    # -------------------------------------------------------------- control
+
+    def stop(self):
+        self._stop.set()
+        self.rpc.stop()
+        for t in (self._beacon_thread, self._maint_thread):
+            if t.is_alive():
+                t.join(timeout=5.0)
+        with self._lock:
+            reps = list(self._replicas.values())
+            self._replicas.clear()
+        for r in reps:
+            r.close()
+        self.pool.close()

@@ -343,7 +343,7 @@ class TriggerAuditResponse:
     server: str = ""
 
 
-# ------------------------------------------------- compaction offload
+# ------------------------------------------------- block-shipped learn
 
 
 @dataclass
@@ -356,12 +356,84 @@ class LearnBlockEntry:
 
 
 @dataclass
+class LearnPrepareRequest:
+    """Manifest-diff handshake, learner -> primary: `have` is the
+    learner's live block set; the primary pins an immutable checkpoint
+    and answers with the full manifest plus which blocks are missing.
+    delta=False ships everything regardless of `have`."""
+
+    app_id: int = 0
+    pidx: int = 0
+    delta: bool = True
+    have: List[LearnBlockEntry] = field(default_factory=list)
+    job: str = ""              # the learner's job-trace id ("" untraced)
+
+
+@dataclass
+class LearnPrepareResponse:
+    error: int = 0
+    error_text: str = ""
+    learn_id: int = 0          # pin handle for fetch/tail/finish
+    ckpt_decree: int = 0       # the pinned checkpoint's manifest decree
+    ballot: int = 0
+    last_committed: int = 0
+    blocks: List[LearnBlockEntry] = field(default_factory=list)
+    missing: List[str] = field(default_factory=list)
+    # decree-anchored digest of the pinned checkpoint plus the TTL clock
+    # and ownership mask it was computed against: the learner proves the
+    # shipped state on arrival
+    digest: str = ""
+    digest_now: int = 0
+    digest_pmask: int = 0
+
+
+@dataclass
+class LearnFetchRequest:
+    """One bounded chunk of one pinned block."""
+
+    app_id: int = 0
+    pidx: int = 0
+    learn_id: int = 0
+    name: str = ""
+    offset: int = 0
+    length: int = 0
+
+
+@dataclass
 class LearnFetchResponse:
     error: int = 0
     error_text: str = ""
     data: bytes = b""
     crc: int = 0               # crc32 of `data` (per-chunk integrity)
     total: int = 0             # whole-block size
+
+
+@dataclass
+class LearnTailRequest:
+    app_id: int = 0
+    pidx: int = 0
+    learn_id: int = 0
+
+
+@dataclass
+class LearnTailResponse:
+    error: int = 0
+    error_text: str = ""
+    tail: List[bytes] = field(default_factory=list)  # encoded LogMutations
+    last_committed: int = 0
+    ballot: int = 0
+
+
+@dataclass
+class LearnFinishRequest:
+    """Release the learn pin (checkpoint and log GC resume)."""
+
+    app_id: int = 0
+    pidx: int = 0
+    learn_id: int = 0
+
+
+# ------------------------------------------------- compaction offload
 
 
 @dataclass

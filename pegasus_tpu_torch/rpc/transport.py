@@ -7,8 +7,13 @@ other on one socket. Serverlets register their per-frame handlers
 (app_id, partition_index, partition_hash) and, on a sharded connection,
 the `sharded` flag. Pure Python: the JAX package's native frame reader
 and vectored writer send the same bytes and are not ported (their
-pure-Python twins are), nor are its priority-code threads and request
-tracing.
+pure-Python twins are), nor is its request tracing.
+
+Priority codes: requests beyond the 16-worker pool queue, except the
+replication and lifecycle codes of RpcServer.PRIORITY_CODES, which get a
+thread of their own when every worker is busy. A pool whose workers all
+wait in client_write for prepare acks must still serve the prepares
+those acks need.
 
 Batch dispatch: a serverlet may also register batch handlers for hot
 read codes (register_batch). The frame reader bins each pipelined wave
@@ -191,9 +196,18 @@ class RpcServer:
 
     A handler may raise RpcError to return an rpc-level error; any other
     exception becomes an ERR_INVALID_DATA response carrying its repr.
-    Requests run on a bounded worker pool; requests beyond it queue."""
+    Requests run on a bounded worker pool; requests beyond it queue,
+    except PRIORITY_CODES, which escape to a thread of their own when all
+    POOL_WORKERS are busy (a full pool may be waiting on them)."""
 
     POOL_WORKERS = 16
+    PRIORITY_CODES = frozenset({
+        "RPC_PREPARE", "RPC_LEARN", "RPC_FD_FAILURE_DETECTOR_PING",
+        "RPC_LEARN_PREPARE", "RPC_LEARN_FETCH", "RPC_LEARN_TAIL",
+        "RPC_LEARN_FINISH",
+        "RPC_CONFIG_PROPOSAL_OPEN_REPLICA",
+        "RPC_CONFIG_PROPOSAL_CLOSE_REPLICA",
+    })
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self._handlers = {}
@@ -202,6 +216,10 @@ class RpcServer:
         self._batch_handlers = {}
         self._pool = ThreadPoolExecutor(self.POOL_WORKERS,
                                         thread_name_prefix="rpc-serve")
+        # pool tasks submitted and not yet finished: at POOL_WORKERS a
+        # priority frame takes its own thread instead of queueing
+        self._busy_lock = threading.Lock()
+        self._busy = 0  #: guarded_by self._busy_lock
         # live accepted connections: stop() shuts them down so a stopped
         # server looks like a killed one to its peers (in-flight calls
         # fail at once instead of waiting out the client timeout)
@@ -308,7 +326,33 @@ class RpcServer:
             except (ConnectionError, OSError):
                 pass
             return
-        self._pool.submit(self._serve_one, sock, wlock, header, body)
+        if header.code in self.PRIORITY_CODES:
+            with self._busy_lock:
+                overflow = self._busy >= self.POOL_WORKERS
+            if overflow:
+                threading.Thread(target=self._serve_one,
+                                 args=(sock, wlock, header, body),
+                                 name="rpc-priority", daemon=True).start()
+                return
+        self._submit(self._serve_one, sock, wlock, header, body)
+
+    def _submit(self, fn, *args) -> None:
+        """One task to the pool, counted busy until it finishes."""
+        with self._busy_lock:
+            self._busy += 1
+        try:
+            self._pool.submit(self._run_pooled, fn, *args)
+        except RuntimeError:   # stopping: the pool is shut down
+            with self._busy_lock:
+                self._busy -= 1
+            raise
+
+    def _run_pooled(self, fn, *args) -> None:
+        try:
+            fn(*args)
+        finally:
+            with self._busy_lock:
+                self._busy -= 1
 
     def _serve_one(self, sock, wlock, header: RpcHeader, body: bytes) -> None:
         resp = RpcHeader(seq=header.seq, code=header.code, is_response=True)
@@ -363,7 +407,7 @@ class RpcServer:
             except (ConnectionError, OSError):
                 pass
             return
-        self._pool.submit(self._serve_batch, sock, wlock, code, frames)
+        self._submit(self._serve_batch, sock, wlock, code, frames)
 
     def _serve_batch(self, sock, wlock, code: str, frames) -> None:
         t0 = time.perf_counter()

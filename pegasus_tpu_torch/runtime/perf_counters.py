@@ -153,6 +153,20 @@ class PercentileCounter(Counter):
         return self.percentile(0.99)
 
 
+class GaugeCounter(Counter):
+    """A level read from a function at scrape time (a module's own count,
+    such as a kernel's launches, exported without a second copy)."""
+
+    KIND = "gauge"
+
+    def __init__(self, name: str, fn=None):
+        super().__init__(name)
+        self._fn = fn or (lambda: 0)
+
+    def value(self):
+        return self._fn()
+
+
 _KINDS = {c.KIND: c for c in (Counter, VolatileCounter, RateCounter, PercentileCounter)}
 
 
@@ -184,6 +198,16 @@ class PerfCounters:
 
     def percentile(self, name):
         return self.get(name, "percentile")
+
+    def gauge(self, name, fn):
+        """Register (or re-point) a gauge that reads fn() when scraped."""
+        with self._lock:
+            c = self._counters.get(name)
+            if c is not None and c.KIND != GaugeCounter.KIND:
+                raise TypeError(f"counter {name!r} already registered as "
+                                f"{c.KIND}, requested gauge")
+            self._counters[name] = GaugeCounter(name, fn)
+            return self._counters[name]
 
     def snapshot(self, substr: str = None, prefix: str = None) -> dict:
         """perf-counters[-by-substr/-by-prefix] scrape. Percentile

@@ -1,14 +1,184 @@
 """Server roles the port's entry point (server/__main__.py) can start.
 
-Port of pegasus_tpu/runtime/service_app.py's CompactOffloadApp: the
-compaction-offload service as a server app. The meta, replica and
-collector roles come with the serving chain (ROADMAP Queue 1 item 6).
+Port of pegasus_tpu/runtime/service_app.py's MetaApp, ReplicaApp and
+CompactOffloadApp: each reads its [apps.<name>] section (and the shared
+[pegasus.server] and [failure_detector] sections) of an ini config.
+
+    [apps.meta1]
+    type = meta
+    port = 34601
+    state_dir = pegasus-data/meta     ; shared by every meta (election)
+
+    [apps.replica1]
+    type = replica
+    port = 34801                      ; fixed: the node's identity
+    data_dir = pegasus-data/replica1
+
+    [pegasus.server]
+    meta_servers = 127.0.0.1:34601
+    compaction_backend = cuda         ; cuda (default) | cpu
+
+Not ported yet (ROADMAP Queue 1): the toollets of [core], http_port
+reporters, the metric history, serve groups and the collector role. A
+config that asks for one of them raises, naming it.
 """
 
 import os
+import threading
 
-from ..replication.compact_offload import CompactOffloadService
 from .config import Config
+
+
+def _refuse_unported(config: Config, section: str) -> None:
+    """Raise when the config asks for a plane the port does not have."""
+    asked = []
+    if config.get_list("core", "toollets", ()):
+        asked.append("[core] toollets")
+    if config.get_int(section, "http_port", -1) >= 0:
+        asked.append(f"[{section}] http_port")
+    if config.get_int(section, "serve_groups", 1) > 1 or int(
+            os.environ.get("PEGASUS_SERVE_GROUPS") or 1) > 1:
+        asked.append(f"[{section}] serve_groups")
+    if config.get_bool("pegasus.server", "sharded_compaction", False):
+        asked.append("[pegasus.server] sharded_compaction")
+    if asked:
+        raise ValueError(f"{', '.join(asked)}: not ported to "
+                         f"pegasus_tpu_torch yet (ROADMAP Queue 1)")
+
+
+class MetaApp:
+    """The meta server on its own RpcServer. With more than one meta in
+    [pegasus.server] meta_servers, the metas elect a leader over the
+    shared state_dir (meta/election.py); followers redirect. A timer
+    every [failure_detector] check_interval_seconds expires dead nodes
+    (check_leases) and re-seeds partitions below their replica count
+    (repair_under_replication), so a restarted node is re-added."""
+
+    def __init__(self, name, config: Config, section: str):
+        from ..meta.meta_server import MetaServer
+        from ..rpc.transport import RpcServer
+
+        _refuse_unported(config, section)
+        state_dir = config.get_string(section, "state_dir",
+                                      os.path.join("pegasus-data", "meta"))
+        state_path = os.path.join(state_dir, "state.json")
+        self.rpc = RpcServer(config.get_string(section, "host", "127.0.0.1"),
+                             config.get_int(section, "port", 34601))
+        metas = config.get_list("pegasus.server", "meta_servers", ())
+        self.election = None
+        if len(metas) > 1:
+            from ..meta.election import MetaElection
+
+            self.election = MetaElection(
+                state_path + ".lock", self.address,
+                lease_seconds=config.get_float(section,
+                                               "election_lease_seconds", 6.0),
+                on_acquire=lambda: self.meta.reload_state(),
+                # claims exceed the durable state epoch even when the
+                # lease file's lineage was lost
+                claim_floor=lambda: self.meta._read_state_epoch())
+        self.meta = MetaServer(
+            state_path,
+            fd_grace_seconds=config.get_float("failure_detector",
+                                              "grace_seconds", 22.0),
+            election=self.election)
+        for code, fn in self.meta.rpc_handlers().items():
+            self.rpc.register(code, fn)
+        self._fd_timer = None
+        self._stopped = False
+        self._fd_interval = config.get_float("failure_detector",
+                                             "check_interval_seconds", 5.0)
+
+    @property
+    def address(self):
+        return f"{self.rpc.address[0]}:{self.rpc.address[1]}"
+
+    def start(self):
+        self._stopped = False
+        self.rpc.start()
+        if self.election is not None:
+            self.election.start()
+        self._arm_fd()
+        return self
+
+    def _is_leader(self) -> bool:
+        return self.election is None or self.election.is_leader()
+
+    def _arm_fd(self):
+        self._fd_timer = threading.Timer(self._fd_interval, self._fd_tick)
+        self._fd_timer.daemon = True
+        self._fd_timer.start()
+
+    def _fd_tick(self):
+        try:
+            if self._is_leader():  # followers watch, never act
+                self.meta.check_leases()
+                self.meta.repair_under_replication()
+        except Exception as e:  # a fenced persist (or any failure) must
+            # not kill the timer for the process lifetime
+            print(f"[meta] fd tick failed: {e!r}", flush=True)
+        if not self._stopped:
+            self._arm_fd()
+
+    def stop(self):
+        self._stopped = True
+        if self._fd_timer:
+            self._fd_timer.cancel()
+        if self.election is not None:
+            self.election.stop()
+        self.rpc.stop()
+
+
+class ReplicaApp:
+    """One replica node (replication/replica_stub.ReplicaStub). Its
+    engines take [pegasus.server] compaction_backend, cuda by default
+    (the reference defaults to cpu); `device` in the app's section or in
+    [pegasus.server] names the card, or `cpu` to run the cuda backend's
+    plain versions on the CPU."""
+
+    def __init__(self, name, config: Config, section: str):
+        from ..engine.db import EngineOptions
+        from ..replication.replica_stub import ReplicaStub
+
+        _refuse_unported(config, section)
+        metas = config.get_list("pegasus.server", "meta_servers",
+                                ["127.0.0.1:34601"])
+        backend = config.get_string("pegasus.server", "compaction_backend",
+                                    "cuda")
+        if backend not in ("cuda", "cpu"):
+            raise ValueError(f"compaction_backend = {backend}: the port's "
+                             f"engines are cuda or cpu")
+        compression = config.get_string("pegasus.server", "sst_compression",
+                                        "none")
+        device = config.get_string(
+            section, "device",
+            config.get_string("pegasus.server", "device", "")) or None
+        data_dir = config.get_string(section, "data_dir",
+                                     os.path.join("pegasus-data", name))
+
+        def options_factory():
+            return EngineOptions(backend=backend, compression=compression,
+                                 device=device)
+
+        self.stub = ReplicaStub(
+            data_dir, list(metas),
+            host=config.get_string(section, "host", "127.0.0.1"),
+            port=config.get_int(section, "port", 0),
+            options_factory=options_factory,
+            cluster_id=config.get_int("pegasus.server", "cluster_id", 1))
+        self._beacon = config.get_float("failure_detector",
+                                        "beacon_interval_seconds", 1.0)
+
+    @property
+    def address(self):
+        return self.stub.address
+
+    def start(self):
+        self.stub.start(self._beacon)
+        return self
+
+    def stop(self):
+        self.stub.stop()
 
 
 class CompactOffloadApp:
@@ -25,6 +195,8 @@ class CompactOffloadApp:
     """
 
     def __init__(self, name, config: Config, section: str):
+        from ..replication.compact_offload import CompactOffloadService
+
         backend = config.get_string(
             section, "backend",
             config.get_string("pegasus.server", "compaction_backend", "cuda"))
@@ -49,3 +221,7 @@ class CompactOffloadApp:
 
     def stop(self):
         self.svc.stop()
+
+
+APP_TYPES = {"meta": MetaApp, "replica": ReplicaApp,
+             "compact_offload": CompactOffloadApp}

@@ -4,11 +4,17 @@
 
 Starts every [apps.<name>] section that --app selects (comma-separated;
 default: every section whose `run` is true, as in pegasus_tpu). The port
-serves one role so far, `type = compact_offload` (runtime/service_app.py);
-any other role raises: meta, replica and collector come with the serving
-chain (ROADMAP Queue 1 item 6). Prints one `[pegasus-tpu] app <name>
-started <addr>` line per app, then serves until SIGINT or SIGTERM, and
-stops every app before it exits.
+serves `type = meta`, `replica` and `compact_offload`
+(runtime/service_app.py); `collector` raises (ROADMAP Queue 1 item 9).
+The onebox is
+
+    python -m pegasus_tpu_torch.server --config <ini> \\
+        --app meta1,meta2,meta3,replica1,replica2,replica3
+
+with the replicas on fixed ports (a node's address is its identity to
+the meta). Prints one `[pegasus-tpu] app <name> started <addr>` line per
+app, then serves until SIGINT or SIGTERM, and stops every app before it
+exits.
 """
 
 import argparse
@@ -34,7 +40,7 @@ def _selected(cfg, only):
 
 def main(argv=None) -> int:
     from ..runtime.config import Config
-    from ..runtime.service_app import CompactOffloadApp
+    from ..runtime.service_app import APP_TYPES
 
     ap = argparse.ArgumentParser(prog="pegasus-tpu-torch-server")
     ap.add_argument("--config", required=True, help="ini config path")
@@ -46,18 +52,19 @@ def main(argv=None) -> int:
     apps = _selected(cfg, only)
     for name, section in apps:
         type_name = cfg.get_string(section, "type", name)
-        if type_name != "compact_offload":
+        if type_name not in APP_TYPES:
             raise ValueError(
-                f"app {name!r} has type {type_name!r}: the port serves only "
-                f"type = compact_offload; meta, replica and collector come "
-                f"with the serving chain (ROADMAP Queue 1 item 6)")
+                f"app {name!r} has type {type_name!r}: the port serves "
+                f"{', '.join(sorted(APP_TYPES))}; the collector comes with "
+                f"ROADMAP Queue 1 item 9")
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     started = []
     try:
         for name, section in apps:
-            app = CompactOffloadApp(name, cfg, section).start()
+            app_type = APP_TYPES[cfg.get_string(section, "type", name)]
+            app = app_type(name, cfg, section).start()
             started.append(app)
             print(f"[pegasus-tpu] app {name} started {app.address}",
                   flush=True)

@@ -179,3 +179,76 @@ def test_value_residency_engine_matches_reference(tmp_path):
     finally:
         ref.close()
         port.close()
+
+
+@pytest.mark.parametrize("pmask,file_bytes,mem_writes", [
+    (0, None, False), (3, None, False), (31, None, False), (3, 4096, False),
+    (0, None, True), (3, 4096, True)])
+def test_single_run_digest_equals_the_merged_scan_and_reference(
+        engines, pmask, file_bytes, mem_writes):
+    """A fully compacted engine (one sorted level; its output in one
+    file, or split into many; the memtable empty, or holding updates,
+    deletes, new and expired keys over it) digests with array ops
+    (_single_run_digest_rows): the same digest as the merged scan, and
+    as the reference engine's after the same compaction and writes, with
+    expired rows, tombstones and an ownership mask."""
+    ref, port, _ = engines
+    if file_bytes:
+        port.opts.target_file_size_bytes = file_bytes
+    for eng in (ref, port):
+        eng.manual_compact(now=NOW)
+    files = [f for fs in port._levels.values() for f in fs]
+    assert (len(files) > 1) == bool(file_bytes)
+    if mem_writes:
+        keys = [port._levels[max(port._levels)][0].block().key(i)
+                for i in (0, 3, 5)]
+        for eng, batch_cls in ((ref, RefBatch), (port, WriteBatch)):
+            wb = batch_cls()
+            wb.put(keys[0], SCHEMAS[2].generate_value(0, 0, b"newer"), 0)
+            wb.delete(keys[1])
+            wb.put(keys[2], SCHEMAS[2].generate_value(NOW - 1, 0, b"x"),
+                   NOW - 1)
+            wb.put(generate_key(b"h999", b"fresh"),
+                   SCHEMAS[2].generate_value(0, 0, b"f"), 0)
+            eng.write_batch([(wb, eng.last_committed_decree() + 1)])
+        assert len(port._mem) == 4
+    assert port._single_run_digest_rows(NOW, pmask) is not None
+    _assert_digests_agree(ref, port, pmask)
+
+
+def _assert_digests_agree(ref, port, pmask):
+    fast = port.state_digest(now=NOW, pmask=pmask)
+    merged = list(port._merged_digest_rows(NOW, pmask))
+    from pegasus_tpu_torch.base.crc64 import crc64_batch
+
+    cs = [crc64_batch(*c) for c in merged]
+    xor = add = 0
+    for c in cs:
+        xor ^= int(np.bitwise_xor.reduce(c)) if len(c) else 0
+        add = (add + int(c.sum(dtype=np.uint64))) & 0xFFFFFFFFFFFFFFFF
+    assert fast["digest"] == f"{xor:016x}{add:016x}"
+    assert fast["records"] == sum(len(c) for c in cs)
+    assert fast == ref.state_digest(now=NOW, pmask=pmask)
+
+
+def test_single_l0_file_digest_takes_the_array_path(tmp_path):
+    """An engine whose one SST is an L0 flush (a checkpoint of a freshly
+    loaded replica) digests with array ops too, equal to the merged scan
+    and to the reference engine's."""
+    ref = _ref_engine(str(tmp_path / "ref"))
+    port = _port_engine(str(tmp_path / "port"))
+    try:
+        for eng, batch_cls in ((ref, RefBatch), (port, WriteBatch)):
+            wb = batch_cls()
+            for i in range(300):
+                exp = NOW - 1 if i % 7 == 0 else 0
+                wb.put(generate_key(b"h%03d" % (i % 31), b"s%d" % i),
+                       SCHEMAS[2].generate_value(exp, 0, b"v%d" % i), exp)
+            eng.write_batch([(wb, 1)])
+            eng.flush()
+        assert len(port._l0) == 1
+        assert port._single_run_digest_rows(NOW, 3) is not None
+        _assert_digests_agree(ref, port, 3)
+    finally:
+        ref.close()
+        port.close()

@@ -102,3 +102,92 @@ def test_fence_index_matches_reference(runs):
                                                  ref_dr.fence_step)
         np.testing.assert_array_equal(dr.fence.numpy(),
                                       np.asarray(ref_dr.fence))
+
+
+# ------------------------------------------- the kernel's plain version
+
+def _edge_cases():
+    import chip_smoke
+
+    return chip_smoke.lookup_probe_cases("cpu")
+
+
+def _ref_run(keys):
+    from pegasus_tpu.engine.block import KVBlock as RefBlock
+
+    return ref_compact.pack_run_device(RefBlock.from_records(
+        [(k, b"v", 0, False) for k in keys],
+        hashes=np.zeros(len(keys), np.uint64)))
+
+
+@pytest.mark.parametrize("run", ["n1", "n5", "one_lane", "high_bit",
+                                 "dense", "random"])
+def test_plain_version_matches_reference_and_host_on_edge_runs(run):
+    """fence_lookup_plain (the kernel's yardstick) on the kernel's edge
+    cases: runs of 1 and 5 rows, one-lane runs, high-bit lanes, a crowded
+    hash key; 1, 127, 129 and 300 queries; points and ranges. Rows equal
+    the host walk, and the JAX package's lookup_batch / range_batch at
+    300 queries."""
+    import bisect
+
+    import torch
+
+    import chip_smoke
+
+    dr_keys = dict((name, keys) for name, _, keys in
+                   chip_smoke.lookup_edge_runs("cpu"))[run]
+    ref_dr = _ref_run(dr_keys)
+    for name, dr, points, ranges, keys_q, ranges_q in _edge_cases():
+        if name.split("/")[0] != run:
+            continue
+        got = port_lookup.fence_lookup_plain(dr, points).numpy()
+        assert got.dtype == np.int32
+        host = np.array([i if i < len(dr_keys) and dr_keys[i] == k else -1
+                         for k in keys_q
+                         for i in [bisect.bisect_left(dr_keys, k)]],
+                        np.int32)
+        np.testing.assert_array_equal(got, host, err_msg=name)
+        # the JAX package at one query count per run (each count is a
+        # program of its own there)
+        with_ref = name.endswith("/q300")
+        if with_ref:
+            np.testing.assert_array_equal(
+                got, ref_lookup.lookup_batch(ref_dr, keys_q), err_msg=name)
+        got_r = port_lookup.fence_lookup_plain(dr, ranges).numpy()
+        lb = [(bisect.bisect_left(dr_keys, s), bisect.bisect_left(dr_keys, t))
+              for s, t in ranges_q]
+        np.testing.assert_array_equal(
+            got_r, np.array([(a, max(a, b)) for a, b in lb], np.int32),
+            err_msg=name)
+        if with_ref:
+            np.testing.assert_array_equal(
+                got_r, ref_lookup.range_batch(ref_dr, ranges_q),
+                err_msg=name)
+        # one upload: every set of a probe in one int64 buffer
+        assert points.dtype == torch.int64 and points.shape == (
+            1, dr.w + 1, len(keys_q))
+
+
+def test_cpu_runs_take_the_plain_version():
+    from pegasus_tpu_torch.ops import fence_lookup
+
+    before = fence_lookup.LAUNCHES["fence_lookup"]
+    name, dr, points, ranges, _, _ = _edge_cases()[0]
+    port_lookup.fence_lookup(dr, points)
+    port_lookup.fence_lookup(dr, ranges)
+    assert fence_lookup.LAUNCHES["fence_lookup"] == before
+
+
+@pytest.mark.cuda
+def test_fence_kernel_matches_plain_on_card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU: "
+                    "python -m pytest -m cuda tests/test_torch_*.py)")
+    import chip_smoke
+
+    for name, dr, points, ranges, _, _ in chip_smoke.lookup_probe_cases(
+            torch.device("cuda")):
+        chip_smoke._check_fence(dr, points, name)
+        chip_smoke._check_fence(dr, ranges, name)

@@ -602,14 +602,14 @@ run = false
 
 
 @pytest.mark.parametrize("section", [
-    "[apps.replica1]\ntype = replica\nport = 0\n",
+    "[apps.collector]\ntype = collector\nport = 0\n",
     "[apps.offload]\ntype = compact_offload\nbackend = tpu\nport = 0\n",
 ])
 def test_entry_point_refuses_what_the_port_lacks(tmp_path, section):
     proc = _server(_ini(tmp_path, section))
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
-    if "replica" in section:
-        assert "serving chain (ROADMAP Queue 1 item 6)" in err
+    if "collector" in section:
+        assert "collector comes with ROADMAP Queue 1 item 9" in err
     else:
         assert "cuda or cpu" in err

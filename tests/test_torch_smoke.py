@@ -311,3 +311,34 @@ def test_replicate_phase_at_tiny_size(tmp_path):
     # the learner replays the ingest decree from the log tail (the
     # checkpoint's durable decree does not cover it): one run more
     assert rep["compaction"]["expected_launches"] == 7
+
+
+def test_cluster_phase_at_tiny_size(tmp_path):
+    """The cluster phase with every process on device="cpu": a meta and
+    three replica processes booted from an ini derived from onebox.ini,
+    a 4-partition table bulk-loaded through PacificA (every replica's run
+    held to the cpu backend), a 50/50 run from 4 threads with the node
+    leading the most partitions SIGKILLed, failed over (a 2 s grace),
+    restarted and relearned, every acknowledged update and a sample read
+    back, every primary's manual compaction held to the cpu backend, and
+    all 12 replicas' audit digests equal (run_cluster raises on any
+    mismatch); every process exits 0."""
+    provider = str(tmp_path / "provider")
+    counts = chip_smoke.write_provider(provider, "usertable", 6000, 4,
+                                       chip_smoke.SERVE_FILES)
+    rep = chip_smoke.run_cluster(
+        "cpu", str(tmp_path / "cluster"), provider, counts, n_records=6000,
+        n_parts=4, n_ops=1200, n_threads=4, n_sample=300, kill_at=300,
+        restart_at=700, fd={"beacon_interval_seconds": 0.2,
+                            "grace_seconds": 2,
+                            "check_interval_seconds": 0.5})
+    run = rep["run"]
+    assert run["ops_done"] == 1200 and run["retries"] > 0
+    assert run["victim_led_partitions"] >= 1
+    # the grace runs from the victim's last beacon, up to one beacon
+    # interval before the kill
+    assert run["failover_s"] is not None and run["failover_s"] >= 1.5
+    assert run["learn"]["tail_mutations_replayed"] > 0
+    assert rep["read_back"]["sampled_keys"] == 300
+    assert rep["audit"]["replicas"] == 12
+    assert set(rep["stop_rcs"].values()) == {0}
