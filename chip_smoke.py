@@ -89,7 +89,8 @@ exits non-zero before printing any result. Phases, one JSON line each:
               value) bulk-loaded from 4 unsorted raw sets per partition,
               one RPC_BULK_LOAD_INGEST each (>= 32 merge-kernel launches),
               each partition's installed run digest-equal to the cpu
-              backend's compaction of the same raw sets; 200k closed-loop ops from 8 PegasusClient threads, 50 % get,
+              backend's compaction of the same raw sets; 100k closed-loop
+              ops from 8 PegasusClient threads, 50 % get,
               50 % set on zipfian ranks (theta 0.99), every read the loaded
               or an issued value; read-back of every updated key and a
               100k sample of untouched keys through batch dispatch (its
@@ -99,45 +100,59 @@ exits non-zero before printing any result. Phases, one JSON line each:
               (>= 32 launches) under torch.profiler, each output
               digest-equal to the cpu backend's compaction of the
               partition's runs from just before; the read-back again.
- 11. replicate  PacificA at BASELINE #3's per-partition scale: partitions
-              0-3 of the serve table, each a ReplicaGroup of 3 replicas
+ 11. replicate  PacificA at BASELINE #3's per-partition scale: partition
+              0 of the serve table, a ReplicaGroup of 3 replicas
               (cuda engines, quorum 2), loaded through PacificA with one
-              RPC_BULK_LOAD_INGEST write each (36 merge launches);
-              YCSB-A, 40k ops from 8 threads (gets through
+              RPC_BULK_LOAD_INGEST write (9 merge launches);
+              YCSB-A, 10k ops from 8 threads (gets through
               primary.server.on_get_batch), group 0's primary killed at
-              op 15k and restarted as a learner at op 25k (writes commit
-              throughout); every acknowledged update and a 100k sample
-              read back from every replica (fence-lookup launches
-              counted); state digests equal per
-              group; a manual compaction of all 12 replicas, each output
-              digest-equal to the cpu backend's compaction of its runs.
+              op 3.75k and restarted as a learner at op 6.25k (writes
+              commit throughout); every acknowledged update and a 100k
+              sample read back from every replica (fence-lookup launches
+              counted); state digests equal; a manual
+              compaction of all 3 replicas, each output digest-equal to
+              the cpu backend's compaction of its runs.
  12. cluster  BASELINE #3 with its three replicas as processes: an ini
               derived from onebox.ini (cluster_ini: one meta, replica1..3
               on fixed ports, compaction_backend = cuda, onebox's failure
               detector), each app a `python -m pegasus_tpu_torch.server`
-              subprocess on the card; `usertable` of 32 partitions,
-              replica_count 3; one RPC_BULK_LOAD_INGEST per partition to
-              its primary through MetaResolver (every replica ingests: 288
-              merge launches), every replica's run digest-equal to the
-              cpu backend's; 40k YCSB-A ops from 8 threads in a client
-              process, the node leading the most partitions SIGKILLed at
-              op 15k and restarted at op 25k once failed over (the meta
-              re-adds it, it relearns over RPC_LEARN_*), no op failing for
-              good; every acknowledged update and a 100k sample read back
-              (fence-lookup launches scraped from the processes); a manual
-              compaction of every replica through RPC_CM_SET_APP_ENVS,
-              each primary's output digest-equal to the cpu backend's;
-              trigger-audit on every primary, query-audit on every
-              replica: equal digests at an equal decree for all 32
-              partitions; every process stopped with SIGTERM, exit 0.
+              subprocess on the card. Through the port's shell
+              (Shell.run_line; an error line raises): `create usertable
+              -p 32 -r 3` and a bulk-load session (`start_bulk_load -a`,
+              query_bulk_load_status to succeed: every replica ingests,
+              288 merge launches), every replica's run digest-equal to
+              the cpu backend's; 40k YCSB-A ops from 8 threads in a
+              client process, the node leading the most partitions
+              SIGKILLed at op 15k and restarted at op 25k once failed over
+              (the meta re-adds it, it relearns over RPC_LEARN_*), no op
+              failing for good; every acknowledged update and a 100k
+              sample read back (fence-lookup launches scraped from the
+              processes). The table lifecycle: `backup_app`; the split to
+              64 partitions (RPC_CM_START_PARTITION_SPLIT) while 2 writers
+              keep updating, each child seeded by a learn (seconds and
+              bytes); the GC compaction of all 192 replicas through
+              RPC_CM_SET_APP_ENVS, each primary's output digest-equal to
+              the cpu backend's under mask 63, owning only its keys, the
+              primaries' records summing to the table's; every
+              acknowledged write (the run's and the split's) and the
+              sample read back through 64 partitions; trigger-audit on
+              every primary, query-audit on every replica: equal digests
+              at an equal decree on all 192; `restore_app` into
+              usertable_r (query_restore_status to ok), its read-back
+              equal to the values at backup time; batched-manual-compact
+              of usertable_r on every node (the batched merge kernel),
+              each replica's output held to the cpu backend; every
+              process stopped with SIGTERM, exit 0.
 
 The main paths (compact, blockwise, batched, offload, serve's ingest
 and compaction, replicate's load and compaction; the reads of reads,
 serve and replicate) each run with the launch counts set to 0 just
 before and read just after; the cluster phase reads each process's
-counts (perf counters kernel.*) before and after its load, read-back
-and compaction. Then, before the last line, the kernel table (times,
-launches, bounds; merge_path, merge_path_batched and fence_lookup) and
+counts (perf counters kernel.*) before and after each of its steps:
+the bulk-load session, the read-backs, the GC compaction and the
+restored table's node compaction. Then, before the last line, the
+kernel table (times, launches, bounds, launches by phase; merge_path,
+merge_path_batched and fence_lookup) and
 the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises and exits non-zero. Engine and offload-service
@@ -178,8 +193,13 @@ BLOCKWISE_BUDGET = 1 << 22   # max_device_records of the blockwise phase
 PHASE_LOG = os.path.join(ROOT, ".scratch", "chip_smoke_phases.jsonl")
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    line = json.dumps({"phase": phase, **kw})
+    """One phase's JSON line, with the script's seconds so far (t_s)."""
+    line = json.dumps({"phase": phase, **kw,
+                       "t_s": time.perf_counter() - _STARTED})
     print(line, flush=True)
     os.makedirs(os.path.dirname(PHASE_LOG), exist_ok=True)
     with open(PHASE_LOG, "a") as f:
@@ -1337,7 +1357,9 @@ def run_batched(jobs, post_opts, device) -> dict:
     events = _device_events(prof)
     busy_s = sum(e[1] for e in events) / 1e3
     t0 = time.perf_counter()
-    for (runs, _, pidx), got, po in zip(jobs, outs, post_opts):
+
+    def check(item):
+        (runs, _, pidx), got, po = item
         want = compact.compact_blocks(runs, CompactOptions(
             backend="cpu", now=NOW, pidx=pidx,
             partition_mask=pmask, bottommost=True,
@@ -1347,6 +1369,8 @@ def run_batched(jobs, post_opts, device) -> dict:
             raise AssertionError(f"batched partition {pidx}: digest "
                                  f"{block_digest([got])} != cpu backend "
                                  f"{block_digest([want])}")
+
+    _parallel(check, list(zip(jobs, outs, post_opts)))
     cpu_s = time.perf_counter() - t0
     LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
     t0 = time.perf_counter()
@@ -1723,7 +1747,8 @@ def run_server(runs, device, work: str) -> dict:
 SERVE_PARTITIONS = 32
 SERVE_RECORDS = 10_000_000
 SERVE_FILES = 4            # raw-set files per partition
-SERVE_OPS = 200_000
+SERVE_OPS = 100_000        # 200 000 until the cluster phase took on the
+                           # table lifecycle: cut for the clock
 SERVE_THREADS = 8
 SERVE_SAMPLE = 100_000     # untouched keys read back
 SERVE_THETA = 0.99
@@ -2114,18 +2139,12 @@ def _client_run(addresses, n_records: int, n_ops: int, n_threads: int,
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"YCSB run failed: {errors[:3]}")
     rng = np.random.default_rng(77)
-    upd = sorted(acked)
     pick = rng.choice(n_records, min(n_records, n_sample + len(acked)),
                       replace=False).tolist()
     sample = [r for r in pick if r not in acked][:n_sample]
-    rows, lens = ycsb_hash_keys(np.asarray(sample, np.int64))
-    _CLIENT.update(
-        resolver=resolver,
-        updated=([(hash_key(r), SERVE_FIELD) for r in upd],
-                 [acked[r] for r in upd]),
-        sampled=([(rows[i, :lens[i]].tobytes(), SERVE_FIELD)
-                  for i in range(len(sample))],
-                 [loaded_value(r) for r in sample]))
+    _CLIENT.update(resolver=resolver,
+                   meta=meta_app[0] if meta_app else None)
+    _client_keys(acked, sample)
     done = len(lat["get"]) + len(lat["set"])
     out = {"seconds": run_s, "ops_done": done, "ops_per_s": done / run_s,
            "get": _percentiles(lat["get"]), "set": _percentiles(lat["set"]),
@@ -2135,17 +2154,57 @@ def _client_run(addresses, n_records: int, n_ops: int, n_threads: int,
     return out
 
 
-def _client_read_back(what: str, chunk: int = 4000) -> dict:
+def _client_keys(acked: dict, sample: list) -> None:
+    """In the client process: the keys to read back, every updated rank
+    (its last acknowledged value) and the sampled untouched ranks (their
+    loaded values)."""
+    upd = sorted(acked)
+    rows, lens = ycsb_hash_keys(np.asarray(sample, np.int64))
+    _CLIENT.update(
+        acked=acked, sample=sample,
+        updated=([(hash_key(r), SERVE_FIELD) for r in upd],
+                 [acked[r] for r in upd]),
+        sampled=([(rows[i, :lens[i]].tobytes(), SERVE_FIELD)
+                  for i in range(len(sample))],
+                 [loaded_value(r) for r in sample]))
+
+
+def _client_snapshot() -> int:
+    """In the client process: keep the read-back keys' values as they are
+    now (the read-back's answers, just before the cold backup) for the
+    restored table's read-back. -> keys kept."""
+    _CLIENT["at_backup"] = {k: _CLIENT[k] for k in ("updated", "sampled")}
+    return sum(len(v[0]) for v in _CLIENT["at_backup"].values())
+
+
+def _client_absorb(acked: dict) -> int:
+    """In the client process: later acknowledged writes ({rank: value})
+    join the keys to read back; a sampled rank they wrote becomes an
+    updated one. -> how many of them overwrote a key the backup holds."""
+    backed = set(_CLIENT["acked"]) | set(_CLIENT["sample"])
+    merged = dict(_CLIENT["acked"])
+    merged.update(acked)
+    _client_keys(merged, [r for r in _CLIENT["sample"] if r not in acked])
+    return len(backed & set(acked))
+
+
+def _client_read_back(what: str, chunk: int = 4000, app: str = None,
+                      at_backup: bool = False) -> dict:
     """In the client process: batch_get every updated key (its last
     acknowledged value) and every sampled untouched key (its loaded
-    value); any other answer raises."""
-    from pegasus_tpu_torch.client import PegasusClient
+    value); any other answer raises. With `app`, from that table of the
+    same meta; with at_backup, the values _client_snapshot kept."""
+    from pegasus_tpu_torch.client import MetaResolver, PegasusClient
 
-    client = PegasusClient(_CLIENT["resolver"], timeout=120)
+    resolver = (MetaResolver([_CLIENT["meta"]], app) if app
+                else _CLIENT["resolver"])
+    resolver.refresh()   # a split since the last call changes the routes
+    client = PegasusClient(resolver, timeout=120)
+    keysets = _CLIENT["at_backup"] if at_backup else _CLIENT
     out = {}
     try:
         for name in ("updated", "sampled"):
-            keys, want = _CLIENT[name]
+            keys, want = keysets[name]
             t0 = time.perf_counter()
             for lo in range(0, len(keys), chunk):
                 got = client.batch_get(keys[lo: lo + chunk])
@@ -2350,13 +2409,16 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
 
 # ---------------------------------------------------------- replicate
 
-REPLICATE_GROUPS = 4        # partitions 0..3 of the serve table
-REPLICATE_OPS = 40_000
+# partition 0 of the serve table, 10 000 ops (4 groups and 40 000 before
+# the cluster phase took on the table lifecycle: the in-process groups are
+# a subset of what the cluster's processes do, cut for the clock)
+REPLICATE_GROUPS = 1
+REPLICATE_OPS = 10_000
 REPLICATE_THREADS = 8
 REPLICATE_WAVE = 8          # ops per client wave; its gets, one batch per group
 REPLICATE_SAMPLE = 100_000  # untouched loaded keys read back from every replica
-REPLICATE_KILL_AT = 15_000
-REPLICATE_RESTART_AT = 25_000
+REPLICATE_KILL_AT = 3_750
+REPLICATE_RESTART_AT = 6_250
 REPLICATE_APP_ID = 4
 
 
@@ -2769,8 +2831,14 @@ CLUSTER_SAMPLE = 100_000      # untouched loaded keys read back
 CLUSTER_KILL_AT = 15_000
 CLUSTER_RESTART_AT = 25_000
 CLUSTER_APP = "usertable"
+CLUSTER_RESTORED = "usertable_r"
 CLUSTER_OP_DEADLINE_S = 180.0  # one op's retries, a failover included
 CLUSTER_AUDIT_ID = 7007
+CLUSTER_SPLIT_THREADS = 2      # YCSB-A writers while the split runs
+CLUSTER_SPLIT_MARGIN_S = 2.0   # writers' time before and after the split
+CLUSTER_DDL_TIMEOUT_S = 1800.0  # one shell DDL over every partition
+CLUSTER_POLL_S = 900.0         # a session or a restore followed to its end
+CLUSTER_CHECK_S = 900.0        # compactions and audits followed to their end
 
 
 def _free_ports(n: int) -> list:
@@ -2887,8 +2955,44 @@ def _config(meta: str, app: str):
                       mm.QueryConfigResponse)
 
 
+def _shell(meta: str, line: str) -> str:
+    """One command through the port's Shell.run_line, its meta and node
+    calls allowed CLUSTER_DDL_TIMEOUT_S. The shell prints an error where
+    a command fails (`ERROR: ...`, `... failed: ...`, a usage line): any
+    such line raises here. -> the command's output."""
+    import io
+    import re
+
+    from pegasus_tpu_torch.shell.main import Shell
+
+    out = io.StringIO()
+    sh = Shell([meta], out=out, rpc_timeout=CLUSTER_DDL_TIMEOUT_S)
+    try:
+        sh.run_line(line)
+    finally:
+        sh.pool.close()
+    text = out.getvalue()
+    if sh.failed or re.search(r"^(ERROR|usage:|unknown command)|failed",
+                              text, re.M):
+        raise AssertionError(f"shell `{line}`: {text.strip()[:2000]}")
+    return text
+
+
+def _shell_poll(meta: str, line: str, done: str) -> tuple:
+    """A status command through the shell until its output holds `done`
+    (a failed status raises in _shell). -> (output, seconds)."""
+    t0 = time.perf_counter()
+    while True:
+        text = _shell(meta, line)
+        if done in text:
+            return text, time.perf_counter() - t0
+        if time.perf_counter() - t0 > CLUSTER_POLL_S:
+            raise AssertionError(f"`{line}` never read {done!r}: {text}")
+        time.sleep(0.2)
+
+
 def _kernel_counts(addrs) -> dict:
-    """{addr: {counter: launches}} scraped with perf-counters-by-prefix."""
+    """{addr: {counter: value}} scraped with perf-counters-by-prefix."""
     return {a: json.loads(_remote_command(a, "perf-counters-by-prefix",
                                           ["kernel."]))
             for a in addrs}
@@ -2917,6 +3021,197 @@ def _cluster_client_init(progress) -> None:
     _PROGRESS = progress
 
 
+def split_value(tid: int, seq: int) -> bytes:
+    """A value a split-time writer issues, unique per (thread, op)."""
+    return b"S%02d%017d" % (tid, seq) + _FILLER
+
+
+class _SplitWriters:
+    """YCSB-A updates while a split runs: n_threads closed-loop writers
+    over MetaResolver on zipfian ranks (each thread its own, rank mod
+    n_threads), every update retried until it is acknowledged: a parent
+    rejects its children's keys from split phase 1 and a child serves
+    once seeded, so a write waits out its child's seeding (up to
+    CLUSTER_DDL_TIMEOUT_S, the split's own bound). Keeps every
+    acknowledged value, the latencies and the retries."""
+
+    def __init__(self, meta: str, n_records: int, n_threads: int):
+        import threading
+
+        from pegasus_tpu_torch.client import MetaResolver
+
+        self.resolver = MetaResolver([meta], CLUSTER_APP)
+        self.zipf = ZipfRanks(n_records)
+        self.n = n_threads
+        self.stop = threading.Event()
+        self.acked, self.lat, self.errors = {}, [], []
+        self.retries = 0
+        self._lock = threading.Lock()
+        self.threads = [threading.Thread(target=self._worker, args=(t,))
+                        for t in range(n_threads)]
+
+    def start(self) -> "_SplitWriters":
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _worker(self, tid: int) -> None:
+        from pegasus_tpu_torch.client import PegasusClient
+
+        rng = np.random.default_rng(5000 + tid)
+        c = PegasusClient(self.resolver)
+        lat, acked, seq = [], {}, 0
+        try:
+            while not self.stop.is_set():
+                r = self.zipf.pick(rng)
+                while r % self.n != tid:
+                    r = self.zipf.pick(rng)
+                val = split_value(tid, seq)
+                seq += 1
+                t = time.perf_counter()
+                end = time.monotonic() + CLUSTER_DDL_TIMEOUT_S
+                while True:
+                    try:
+                        c.set(hash_key(r), SERVE_FIELD, val)
+                        break
+                    except Exception:  # noqa: BLE001 - re-routed, retried
+                        if time.monotonic() > end:
+                            raise
+                        with self._lock:
+                            self.retries += 1
+                        time.sleep(0.05)
+                lat.append(time.perf_counter() - t)
+                acked[r] = val
+        except Exception as e:  # raised by finish()
+            self.errors.append(e)
+        finally:
+            c.close()
+            with self._lock:
+                self.lat.extend(lat)
+                self.acked.update(acked)
+
+    def finish(self) -> dict:
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=CLUSTER_DDL_TIMEOUT_S + 60)
+        secs = time.perf_counter() - self.t0
+        if self.errors or any(t.is_alive() for t in self.threads):
+            raise AssertionError(f"split-time writers failed: "
+                                 f"{self.errors[:3]}")
+        return {"seconds": secs, "ops": len(self.lat),
+                "ops_per_s": len(self.lat) / secs,
+                "set": _percentiles(self.lat), "retries": self.retries,
+                "keys_written": len(self.acked)}
+
+
+def _learns(addrs, app_id: int, first_pidx: int) -> list:
+    """[(pidx, node, seconds)] of every finished learn of partitions
+    >= first_pidx of the app, from each process's event ring."""
+    out = []
+    for a in addrs:
+        dump = json.loads(_remote_command(a, "events-dump",
+                                          ["4096", "learn.finish"]))
+        for evs in dump.values():
+            for ev in evs:
+                at = ev.get("attrs") or {}
+                aid, _, p = str(at.get("gpid", "")).partition(".")
+                if aid == str(app_id) and int(p) >= first_pidx:
+                    if not at.get("ok"):
+                        raise AssertionError(f"learn of {at['gpid']} on "
+                                             f"{a} failed")
+                    out.append((int(p), a, float(at["dur_s"])))
+    return out
+
+
+def _owned_rows(blocks, pidx: int, pmask: int) -> tuple:
+    """(rows whose key hashes to pidx under pmask, rows that do not), the
+    hash recomputed from the key bytes (crc64 of the hash key)."""
+    from pegasus_tpu_torch.engine.block import _batch_key_hashes
+
+    own = other = 0
+    for b in blocks:
+        h = _batch_key_hashes(b.key_arena, b.key_off, b.key_len)
+        hit = int(np.count_nonzero((h & np.uint64(pmask)) == np.uint64(pidx)))
+        own += hit
+        other += b.n - hit
+    return own, other
+
+
+def _snapshot_runs(work: str, names: dict, app_id: int, replicas,
+                   snap: str) -> dict:
+    """Hard links of each (node, pidx) replica's SSTs just before a
+    compaction. -> {(node, pidx): [paths]}."""
+    kept = {}
+    for node, p in replicas:
+        path = os.path.join(work, names[node], f"{app_id}.{p}", "data")
+        d = os.path.join(snap, f"{names[node]}.{p}")
+        os.makedirs(d)
+        kept[(node, p)] = []
+        for f in engine_files(path):
+            dst = os.path.join(d, os.path.basename(f))
+            os.link(f, dst)
+            kept[(node, p)].append(dst)
+    return kept
+
+
+def _check_outputs(work: str, names: dict, app_id: int, kept: dict,
+                   pmask: int) -> dict:
+    """Each compacted replica's output held to the cpu backend's
+    compaction of its runs (`kept`: {(node, pidx): the run files},
+    compact_blocks with the same pidx and partition_mask); replicas given
+    the same files (a restored table's, the backup's) share one cpu
+    compaction. With a mask, every output key owned by its partition.
+    -> {"seconds", "input_rows", "output_records", "gc_dropped_rows",
+    "records_by_pidx"} (by pidx: the records of the last replica
+    checked)."""
+    import threading
+
+    from pegasus_tpu_torch.engine.sstable import read_sst
+    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
+
+    t0 = time.perf_counter()
+    wants, locks, guard = {}, {}, threading.Lock()
+
+    def want_of(p, files):
+        """-> (cpu compaction digest, input rows, output rows, rows not
+        owned), once per (pidx, files)."""
+        key = (p, tuple(files))
+        with guard:
+            lock = locks.setdefault(key, threading.Lock())
+        with lock:
+            if key not in wants:
+                runs = [read_sst(f)[0] for f in files]
+                want = compact_blocks(runs, CompactOptions(
+                    backend="cpu", prefix_u32=8, pidx=p,
+                    partition_mask=pmask, bottommost=True, default_ttl=0,
+                    runs_sorted=True)).block
+                wants[key] = (block_digest([want]), sum(r.n for r in runs),
+                              want.n,
+                              _owned_rows(runs, p, pmask)[1] if pmask else 0)
+            return wants[key]
+
+    def one(item):
+        (node, p), files = item
+        want, n_in, n_out, dropped = want_of(p, files)
+        got = engine_blocks(os.path.join(work, names[node], f"{app_id}.{p}",
+                                          "data"))
+        if block_digest(got) != want:
+            raise AssertionError(f"{names[node]} partition {p}: compaction "
+                                 f"{block_digest(got)} != cpu backend {want}")
+        if pmask and _owned_rows(got, p, pmask)[1]:
+            raise AssertionError(f"{names[node]} partition {p} kept keys "
+                                 f"it does not own under mask {pmask}")
+        return p, n_in, n_out, dropped
+
+    res = _parallel(one, sorted(kept.items(), key=lambda kv: kv[0][1]))
+    return {"seconds": time.perf_counter() - t0,
+            "input_rows": sum(r[1] for r in res),
+            "output_records": sum(r[2] for r in res),
+            "gc_dropped_rows": sum(r[3] for r in res),
+            "records_by_pidx": {p: n for p, _, n, _ in res}}
+
+
 def run_cluster(device, work: str, provider: str, counts: list,
                 n_records: int = SERVE_RECORDS,
                 n_parts: int = SERVE_PARTITIONS, n_ops: int = CLUSTER_OPS,
@@ -2924,23 +3219,39 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 n_sample: int = CLUSTER_SAMPLE,
                 kill_at: int = CLUSTER_KILL_AT,
                 restart_at: int = CLUSTER_RESTART_AT,
-                fd: dict = None) -> dict:
+                fd: dict = None, lifecycle: bool = False) -> dict:
     """BASELINE config #3 with its three replicas, as a cluster of
     processes: one meta and replica1..3 (cluster_ini), each `python -m
-    pegasus_tpu_torch.server` on the card; table `usertable` of n_parts
-    partitions, replica_count 3; one RPC_BULK_LOAD_INGEST per partition to
-    its primary (resolved through MetaResolver, PacificA makes every
-    replica ingest: 3 merge launches each), every replica's run held to
-    the cpu backend (ingest_want); the YCSB-A run from a client process,
-    the node that leads the most partitions SIGKILLed at op kill_at and
-    restarted after the meta failed it over and at op restart_at (the
-    meta re-adds it; it relearns); every acknowledged update and a
-    sample of untouched keys read back with batch_get; a manual
-    compaction of every replica through RPC_CM_SET_APP_ENVS, each
-    primary's output held to the cpu backend's compaction of its runs;
+    pegasus_tpu_torch.server` on the card. Through the port's shell:
+    `create usertable -p n_parts -r 3`, then a bulk-load session
+    (`start_bulk_load usertable <provider> -a`, followed with
+    query_bulk_load_status to succeed): the meta walks the partitions,
+    each primary ingests through PacificA (3 merge launches per replica);
+    one marker write per partition carries the secondaries' ingests;
+    every replica's run held to the cpu backend (ingest_want). The YCSB-A
+    run from a client process, the node that leads the most partitions
+    SIGKILLed at op kill_at and restarted after the meta failed it over
+    and at op restart_at (the meta re-adds it; it relearns); every
+    acknowledged update and a sample of untouched keys read back with
+    batch_get.
+
+    With `lifecycle`, then: a cold backup (`backup_app`); the split to
+    2 * n_parts partitions (RPC_CM_START_PARTITION_SPLIT) while
+    CLUSTER_SPLIT_THREADS writers keep updating, every acknowledged
+    write kept. Then (after the split, or else right after the
+    read-back) a manual compaction of every replica through
+    RPC_CM_SET_APP_ENVS, each primary's output held to the cpu backend
+    with the table's ownership mask (after a split: only owned keys
+    survive, and the primaries' records sum to the table's); with
+    `lifecycle`, the read-back again through the doubled partitions;
     trigger-audit on every primary and query-audit on every replica:
-    equal digests at an equal decree. Kernel launches are scraped from
-    each process (perf-counters-by-prefix kernel.)."""
+    equal digests at an equal decree. With `lifecycle`, last: the backup
+    restored into usertable_r (`restore_app`, followed with
+    query_restore_status to ok), the read-back keys read from it with
+    their values at backup time, and `batched-manual-compact <app_id>` on
+    every node (the batched merge kernel), each replica's output held to
+    the cpu backend. Kernel launches are scraped from each process
+    (perf-counters-by-prefix kernel.)."""
     import multiprocessing
     import signal
     from concurrent.futures import ThreadPoolExecutor
@@ -2949,20 +3260,16 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
     from pegasus_tpu_torch.base import consts
     from pegasus_tpu_torch.client import MetaResolver, PegasusClient
-    from pegasus_tpu_torch.engine.sstable import read_sst
     from pegasus_tpu_torch.meta import messages as mm
-    from pegasus_tpu_torch.meta.meta_server import (RPC_CM_CREATE_APP,
-                                                    RPC_CM_LIST_NODES,
-                                                    RPC_CM_SET_APP_ENVS)
-    from pegasus_tpu_torch.ops.compact import CompactOptions, compact_blocks
-    from pegasus_tpu_torch.rpc import codec
-    from pegasus_tpu_torch.rpc import messages as msg
-    from pegasus_tpu_torch.rpc.task_codes import RPC_BULK_LOAD_INGEST
+    from pegasus_tpu_torch.meta.meta_server import (RPC_CM_LIST_NODES,
+                                                    RPC_CM_SET_APP_ENVS,
+                                                    RPC_CM_SPLIT_APP)
 
     on_card = torch.device(device).type == "cuda"
     os.makedirs(work, exist_ok=True)
     ini, meta, node_addr = cluster_ini(work, device, fd)
     names = {a: n for n, a in node_addr.items()}
+    addrs = list(node_addr.values())
     out = {"config": "BASELINE #3: YCSB workload-A (50/50 read/update), "
            f"{n_parts} hash partitions, 3 replicas",
            "processes": "meta1 + replica1..3, one python -m "
@@ -2980,6 +3287,19 @@ def run_cluster(device, work: str, provider: str, counts: list,
     def step(what):
         print(f"[cluster] {time.perf_counter() - started:.1f} s: {what}",
               flush=True)
+
+    def wait_compacted(app_id, n_replicas, t0):
+        """Every replica of the app idle with a finished manual compaction."""
+        while True:
+            states = [line for a in addrs for line in _remote_command(
+                a, "query-compact-state").splitlines()
+                if line.startswith(f"{app_id}.")]
+            if len(states) == n_replicas and all(
+                    "idle; last finish" in st for st in states):
+                return
+            if time.perf_counter() - t0 > CLUSTER_CHECK_S:
+                raise AssertionError(f"compactions did not finish: {states}")
+            time.sleep(0.2)
 
     try:
         deadline = time.monotonic() + 300
@@ -2999,42 +3319,29 @@ def run_cluster(device, work: str, provider: str, counts: list,
         step("booted")
 
         t0 = time.perf_counter()
-        cr = _meta_call(meta, RPC_CM_CREATE_APP, mm.CreateAppRequest(
-            CLUSTER_APP, n_parts, 3), mm.CreateAppResponse, timeout=300)
-        if cr.error:
-            raise AssertionError(f"create {CLUSTER_APP}: {cr.error_text}")
-        app_id = cr.app_id
+        _shell(meta, f"create {CLUSTER_APP} -p {n_parts} -r 3")
         cfg = _config(meta, CLUSTER_APP)
+        app_id = cfg.app.app_id
         if cfg.app.partition_count != n_parts or any(
                 not pc.primary or len(pc.secondaries) != 2
                 for pc in cfg.partitions):
             raise AssertionError(f"partitions without 3 members: {cfg}")
         out["create_s"] = time.perf_counter() - t0
-        gpids = [f"{app_id}.{p}" for p in range(n_parts)]
 
-        # ---- load: one ingest per partition, to its primary
-        before = _kernel_counts(node_addr.values())
+        # ---- load: a bulk-load session, the meta walking the partitions
+        before = _kernel_counts(addrs)
+        t0 = time.perf_counter()
+        _shell(meta, f"start_bulk_load {CLUSTER_APP} {provider} -a")
+        status, _ = _shell_poll(meta, f"query_bulk_load_status {CLUSTER_APP}",
+                                ": succeed,")
+        if f"{n_parts}/{n_parts} partitions, {sum(counts)} records" \
+                not in status:
+            raise AssertionError(f"bulk load session: {status}")
+        session_s = time.perf_counter() - t0
+        step("bulk-load session succeeded")
         resolver = MetaResolver([meta], CLUSTER_APP)
         # a marker's prepare waits on its secondaries' ingests
         loader = PegasusClient(resolver, timeout=120)
-
-        def ingest(p):
-            conn = loader.pool.get(resolver.resolve(p), shard=p)
-            _, body = conn.call(RPC_BULK_LOAD_INGEST, codec.encode(
-                msg.BulkLoadIngestRequest(provider, CLUSTER_APP, n_parts)),
-                app_id=app_id, partition_index=p, timeout=SERVE_TIMEOUT_S)
-            return codec.decode(msg.BulkLoadIngestResponse, body)
-
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(n_parts) as ex:
-            resps = list(ex.map(ingest, range(n_parts)))
-        for p, r in enumerate(resps):
-            if r.error or r.ingested_records != counts[p]:
-                raise AssertionError(f"partition {p} ingested "
-                                     f"{r.ingested_records} of {counts[p]} "
-                                     f"(error {r.error})")
-        primaries_s = time.perf_counter() - t0
-        step("primaries ingested")
         # one set per partition carries the ingest's commit point to the
         # secondaries, which ingest inside that prepare; a few at a time,
         # so each process ingests a few partitions at once and answers
@@ -3059,11 +3366,11 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
         with ThreadPoolExecutor(4) as ex:
             list(ex.map(mark, markers.values()))
-        markers_s = time.perf_counter() - t0 - primaries_s
+        markers_s = time.perf_counter() - t0 - session_s
         step("markers acknowledged")
         while True:
             applied = {}
-            for a in node_addr.values():
+            for a in addrs:
                 for g, ent in json.loads(
                         _remote_command(a, "query-audit", timeout=300)).items():
                     applied[(a, g)] = ent["applied"]
@@ -3073,10 +3380,11 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 raise AssertionError(f"secondaries never ingested: "
                                      f"{applied}")
             time.sleep(0.2)
-        after = _kernel_counts(node_addr.values())
+        after = _kernel_counts(addrs)
         load_launches = _delta(after, before, "kernel.merge_path.launches")
         out["load"] = {"seconds": time.perf_counter() - t0,
-                       "primaries_s": primaries_s, "markers_s": markers_s,
+                       "session_s": session_s, "markers_s": markers_s,
+                       "session": status.strip(),
                        "merge_launches": load_launches,
                        "ingested_records": sum(counts)}
         if on_card and sum(load_launches.values()) != \
@@ -3178,9 +3486,9 @@ def run_cluster(device, work: str, provider: str, counts: list,
         out["run"] = run
 
         # ---- read-back through batch dispatch and the kernel
-        before = _kernel_counts(node_addr.values())
+        before = _kernel_counts(addrs)
         rb = pool.apply(_client_read_back, ("cluster",))
-        after = _kernel_counts(node_addr.values())
+        after = _kernel_counts(addrs)
         rb["fence_launches"] = _delta(after, before,
                                       "kernel.fence_lookup.launches")
         if on_card and not sum(rb["fence_launches"].values()):
@@ -3189,65 +3497,113 @@ def run_cluster(device, work: str, provider: str, counts: list,
         out["read_back"] = rb
         step("read back")
 
-        # ---- manual compaction of every replica, through the meta
+        parts, life = n_parts, {}
+        if lifecycle:
+            out["lifecycle"] = life
+            # ---- cold backup, the read-back's answers its expected values
+            backup_root = os.path.join(work, "backups")
+            kept_keys = pool.apply(_client_snapshot)
+            t0 = time.perf_counter()
+            text = _shell(meta, f"backup_app {CLUSTER_APP} {backup_root}")
+            backup_id = int(text.split("backup_id=")[1].split()[0])
+            life["backup"] = {
+                "seconds": time.perf_counter() - t0, "backup_id": backup_id,
+                "bytes": sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(backup_root)
+                             for f in fs),
+                "keys_expected": kept_keys}
+            step("backed up")
+
+            # ---- the split, under load
+            ship0 = {a: json.loads(_remote_command(a, "learn-status"))
+                     ["ship.bytes"] for a in addrs}
+            writers = _SplitWriters(meta, n_records,
+                                    CLUSTER_SPLIT_THREADS).start()
+            time.sleep(CLUSTER_SPLIT_MARGIN_S)
+            t0 = time.perf_counter()
+            sr = _meta_call(meta, RPC_CM_SPLIT_APP,
+                            mm.SplitAppRequest(CLUSTER_APP),
+                            mm.SplitAppResponse,
+                            timeout=CLUSTER_DDL_TIMEOUT_S)
+            split_s = time.perf_counter() - t0
+            time.sleep(CLUSTER_SPLIT_MARGIN_S)
+            load = writers.finish()
+            if sr.error or sr.new_partition_count != 2 * n_parts:
+                raise AssertionError(f"split: {sr}")
+            parts = 2 * n_parts
+            cfg = _config(meta, CLUSTER_APP)
+            if cfg.app.partition_count != parts or any(
+                    not pc.primary or len(pc.secondaries) != 2
+                    for pc in cfg.partitions):
+                raise AssertionError(f"split partitions: {cfg}")
+            envs = json.loads(cfg.app.envs_json)
+            if envs.get("replica.partition_version") != str(parts - 1) \
+                    or "replica.split_pending" in envs:
+                raise AssertionError(f"split envs: {envs}")
+            learns = _learns(addrs, app_id, n_parts)
+            prim = {pc.pidx: pc.primary for pc in cfg.partitions}
+            seed = {k: sorted(s for p, a, s in learns
+                              if (a == prim[p]) == (k == "primary"))
+                    for k in ("primary", "secondary")}
+            if len(seed["primary"]) != n_parts or \
+                    len(seed["secondary"]) != 2 * n_parts:
+                raise AssertionError(f"seeding learns: {learns}")
+            overwritten = pool.apply(_client_absorb, (writers.acked,))
+            life["split"] = {
+                "seconds": split_s, "partitions": parts,
+                "seed_s": {k: {"p50": v[len(v) // 2], "max": v[-1],
+                               "learns": len(v)} for k, v in seed.items()},
+                "learn_bytes": sum(json.loads(_remote_command(
+                    a, "learn-status"))["ship.bytes"] - ship0[a]
+                    for a in addrs),
+                "writers": load, "overwrote_backed_up_keys": overwritten}
+            step("split")
+
+        # ---- manual compaction of every replica, through the meta (after
+        # a split, the GC of the keys a partition no longer owns)
+        pmask = parts - 1 if lifecycle else 0
         cfg = _config(meta, CLUSTER_APP)
-        snap = os.path.join(work, "pre_compaction")
-        kept = {}
-        for a in node_addr.values():
+        for a in addrs:
             _remote_command(a, "flush-memtable", timeout=300)
-        for pc in cfg.partitions:
-            path = os.path.join(work, names[pc.primary], f"{app_id}.{pc.pidx}",
-                                "data")
-            d = os.path.join(snap, str(pc.pidx))
-            os.makedirs(d)
-            kept[pc.pidx] = []
-            for f in engine_files(path):
-                os.link(f, os.path.join(d, os.path.basename(f)))
-                kept[pc.pidx].append(os.path.join(d, os.path.basename(f)))
-        before = _kernel_counts(node_addr.values())
+        snap = os.path.join(work, "pre_compaction")
+        kept = _snapshot_runs(work, names, app_id,
+                              [(pc.primary, pc.pidx) for pc in cfg.partitions],
+                              snap)
+        before = _kernel_counts(addrs)
         t0 = time.perf_counter()
         r = _meta_call(meta, RPC_CM_SET_APP_ENVS, mm.SetAppEnvsRequest(
             CLUSTER_APP, json.dumps({
                 consts.MANUAL_COMPACT_ONCE_TRIGGER_TIME_KEY:
                 str(int(time.time()) - 1)})), mm.SetAppEnvsResponse,
-            timeout=1800)
+            timeout=CLUSTER_DDL_TIMEOUT_S)
         if r.error:
             raise AssertionError(f"set app envs: {r.error_text}")
-        while True:
-            states = [line for a in node_addr.values()
-                      for line in _remote_command(
-                          a, "query-compact-state").splitlines()]
-            if len(states) == 3 * n_parts and all(
-                    "idle; last finish" in st for st in states):
-                break
-            if time.perf_counter() - t0 > 900:
-                raise AssertionError(f"compactions did not finish: {states}")
-            time.sleep(0.2)
+        wait_compacted(app_id, 3 * parts, t0)
         compact_s = time.perf_counter() - t0
         step("compacted")
-        after = _kernel_counts(node_addr.values())
-        t0 = time.perf_counter()
-
-        def check_primary(pc):
-            runs = [read_sst(f)[0] for f in kept[pc.pidx]]
-            want = block_digest([compact_blocks(runs, CompactOptions(
-                backend="cpu", prefix_u32=8, pidx=pc.pidx, partition_mask=0,
-                bottommost=True, default_ttl=0,
-                runs_sorted=True)).block])
-            got = block_digest(engine_blocks(os.path.join(
-                work, names[pc.primary], f"{app_id}.{pc.pidx}", "data")))
-            if got != want:
-                raise AssertionError(f"partition {pc.pidx} primary "
-                                     f"{pc.primary}: compaction {got} != "
-                                     f"cpu backend {want}")
-
-        _parallel(check_primary, cfg.partitions)
-        shutil.rmtree(snap)
+        after = _kernel_counts(addrs)
+        if on_card and not sum(_delta(after, before,
+                                      "kernel.merge_path.launches").values()):
+            raise AssertionError("the compaction launched no merge kernel")
         out["compaction"] = {
-            "seconds": compact_s,
+            "seconds": compact_s, "partition_mask": pmask,
             "merge_launches": _delta(after, before,
-                                     "kernel.merge_path.launches"),
-            "check_s": time.perf_counter() - t0}
+                                     "kernel.merge_path.launches")}
+        # the outputs are held to the cpu backend in this process while
+        # the servers read back and audit
+        checker = ThreadPoolExecutor(1)
+        checking = checker.submit(_check_outputs, work, names, app_id, kept,
+                                  pmask)
+
+        if lifecycle:
+            before = _kernel_counts(addrs)
+            rb = pool.apply(_client_read_back, ("cluster after the split",))
+            after = _kernel_counts(addrs)
+            rb["fence_launches"] = _delta(after, before,
+                                          "kernel.fence_lookup.launches")
+            rb["partitions"] = parts
+            life["split_read_back"] = rb
+            step("read back through the split")
 
         # ---- the audit: every replica's digest at one decree
         t0 = time.perf_counter()
@@ -3256,10 +3612,11 @@ def run_cluster(device, work: str, provider: str, counts: list,
         def trigger(p):
             return json.loads(_remote_command(
                 primary[p], "trigger-audit",
-                [gpids[p], str(CLUSTER_AUDIT_ID)], timeout=900))
+                [f"{app_id}.{p}", str(CLUSTER_AUDIT_ID)],
+                timeout=CLUSTER_CHECK_S))
 
-        with ThreadPoolExecutor(n_parts) as ex:
-            trig = list(ex.map(trigger, range(n_parts)))
+        with ThreadPoolExecutor(parts) as ex:
+            trig = list(ex.map(trigger, range(parts)))
         trigger_s = time.perf_counter() - t0
         step("audits triggered")
         bad = [t for t in trig if "error" in t]
@@ -3267,17 +3624,18 @@ def run_cluster(device, work: str, provider: str, counts: list,
             raise AssertionError(f"trigger-audit failed: {bad[:3]}")
         while True:
             audits = {}
-            for a in node_addr.values():
+            for a in addrs:
                 for g, ent in json.loads(
                         _remote_command(a, "query-audit", timeout=300)).items():
                     au = ent.get("audit") or {}
-                    if au.get("audit_id") == CLUSTER_AUDIT_ID:
+                    if g.startswith(f"{app_id}.") and \
+                            au.get("audit_id") == CLUSTER_AUDIT_ID:
                         audits.setdefault(g, []).append(
                             (au["decree"], au["digest"], au.get("records")))
-            if len(audits) == n_parts and all(
+            if len(audits) == parts and all(
                     len(v) == 3 for v in audits.values()):
                 break
-            if time.perf_counter() - t0 > 900:
+            if time.perf_counter() - t0 > CLUSTER_CHECK_S:
                 raise AssertionError(f"audits incomplete: {audits}")
             time.sleep(0.5)
         diverged = {g: v for g, v in audits.items() if len(set(v)) != 1}
@@ -3287,11 +3645,79 @@ def run_cluster(device, work: str, provider: str, counts: list,
                         "trigger_s": trigger_s,
                         "digest_us": {names[a]: json.loads(_remote_command(
                             a, "perf-counters-by-prefix", ["audit."]))
-                            for a in node_addr.values()},
+                            for a in addrs},
                         "partitions": len(audits), "replicas": 3 * len(audits),
                         "records": sum(v[0][2] for v in audits.values())}
+        step("audited")
+        checked = checking.result()
+        checker.shutdown()
+        shutil.rmtree(snap)
+        out["compaction"].update(check_s=checked.pop("seconds"), **checked)
+        table_records = sum(counts) + len(markers)
+        if lifecycle and sum(checked["records_by_pidx"].values()) \
+                != table_records:
+            raise AssertionError(f"the primaries hold "
+                                 f"{sum(checked['records_by_pidx'].values())}"
+                                 f" records, the table {table_records}")
+        step("compaction checked")
+
+        if lifecycle:
+            # ---- restore the backup into a new table and read it back
+            t0 = time.perf_counter()
+            _shell(meta, f"restore_app {backup_root} {backup_id} "
+                         f"{CLUSTER_APP} {CLUSTER_RESTORED}")
+            status, _ = _shell_poll(
+                meta, f"query_restore_status {CLUSTER_RESTORED}", ": ok,")
+            restore_s = time.perf_counter() - t0
+            rcfg = _config(meta, CLUSTER_RESTORED)
+            r_id = rcfg.app.app_id
+            before = _kernel_counts(addrs)
+            rb = pool.apply(_client_read_back, (
+                "restored table", 4000, CLUSTER_RESTORED, True))
+            after = _kernel_counts(addrs)
+            rb["fence_launches"] = _delta(after, before,
+                                          "kernel.fence_lookup.launches")
+            life["restore"] = {"seconds": restore_s, "status": status.strip(),
+                               "app_id": r_id, "read_back": rb}
+            if on_card and not sum(rb["fence_launches"].values()):
+                raise AssertionError("the restored read-back launched no "
+                                     "fence-lookup kernel")
+            step("restored")
+
+            # ---- node compaction of the restored table: the batched
+            # kernel, every replica's output held to the cpu backend's
+            # compaction of the backup's runs it restored
+            backed = {p: engine_files(os.path.join(
+                backup_root, str(backup_id), CLUSTER_APP, str(p)))
+                for p in range(n_parts)}
+            kept = {(a, pc.pidx): backed[pc.pidx] for pc in rcfg.partitions
+                    for a in [pc.primary] + pc.secondaries}
+            before = _kernel_counts(addrs)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(addrs)) as ex:
+                stats = dict(zip(addrs, ex.map(lambda a: json.loads(
+                    _remote_command(a, "batched-manual-compact", [str(r_id)],
+                                    timeout=CLUSTER_CHECK_S)), addrs)))
+            node_s = time.perf_counter() - t0
+            after = _kernel_counts(addrs)
+            checked = _check_outputs(work, names, r_id, kept, 0)
+            calls = _delta(after, before, "kernel.merge_path.launches")
+            rows = _delta(after, before, "kernel.merge_path.rows")
+            life["node_compaction"] = {
+                "seconds": node_s, "stats": {names[a]: s
+                                             for a, s in stats.items()},
+                "merge_calls": calls, "merge_rows": rows,
+                "check_s": checked["seconds"],
+                "output_records": checked["output_records"]}
+            if any(s["fallback"] or not s["batched"] for s in stats.values()):
+                raise AssertionError(f"node compaction fell back: {stats}")
+            if on_card and not all(rows[a] > calls[a] for a in addrs):
+                raise AssertionError(f"node compaction did not batch: calls "
+                                     f"{calls}, rows {rows}")
+            step("restored table node-compacted")
+
         out["launches_per_process"] = {
-            names[a]: c for a, c in _kernel_counts(node_addr.values()).items()}
+            names[a]: c for a, c in _kernel_counts(addrs).items()}
         if on_card:
             # this script's own process holds a context on the card too
             out["device_mib"] = {
@@ -3536,7 +3962,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         cluster = run_cluster(device, os.path.join(work, "cluster"),
                               os.path.join(work, "serve", "provider"),
-                              serve["partition_records"])
+                              serve["partition_records"], lifecycle=True)
         emit("cluster", **cluster)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3556,12 +3982,37 @@ def main() -> int:
     # the fence lookup: per launch on a serve partition's run at the
     # read-backs' probe size (64 queries); its launches over the main
     # path's reads (engine reads, serve, replicate and cluster read-backs)
+    life = cluster["lifecycle"]
     fence_launches = {
         "reads": reads["fence_launches"],
         "serve": sum(serve[k]["fence_launches"] for k in (
             "read_back_after_run", "read_back_after_compaction")),
         "replicate": replicate["read_back"]["fence_launches"],
-        "cluster": sum(cluster["read_back"]["fence_launches"].values())}
+        "cluster": sum(cluster["read_back"]["fence_launches"].values()),
+        "cluster_split_read_back": sum(
+            life["split_read_back"]["fence_launches"].values()),
+        "cluster_restore_read_back": sum(
+            life["restore"]["read_back"]["fence_launches"].values())}
+    # the merge's launches on every path of the main run, per phase (the
+    # cluster's scraped from its processes)
+    node = life["node_compaction"]
+    merge_launches = {
+        "compact": launches,
+        "serve": {"ingest": serve["ingest_merge_launches"],
+                  "compaction": serve["compaction"]["merge_launches"]},
+        "replicate": {"load": replicate["load"]["merge_launches"],
+                      "compaction": replicate["compaction"]
+                      ["merge_launches"]},
+        "cluster": {"bulk_load_session": sum(
+            cluster["load"]["merge_launches"].values()),
+            "split_gc_compaction": sum(
+                cluster["compaction"]["merge_launches"].values())}}
+    batched_launches = {
+        "batched": {"calls": batched["merge_calls"],
+                    "rows": batched["merge_rows"]},
+        "cluster_restored_node_compaction": {
+            "calls": sum(node["merge_calls"].values()),
+            "rows": sum(node["merge_rows"].values())}}
     fence_64 = fence["serve_partition"]["64"]["point"]
     fence_line = {
         "name": "fence_lookup",
@@ -3598,12 +4049,7 @@ def main() -> int:
         "synthetic_shared_prefix_ms": kern["large_shared_prefix"]["ms"],
         "own_over_synthetic": (own_half / kern["large"]["ms"]
                                if own_half else None),
-        "serve_launches": {
-            "ingest": serve["ingest_merge_launches"],
-            "compaction": serve["compaction"]["merge_launches"]},
-        "replicate_launches": {
-            "load": replicate["load"]["merge_launches"],
-            "compaction": replicate["compaction"]["merge_launches"]},
+        "launches_by_phase": merge_launches,
         "ptxas": ptxas,
     }, {
         "name": "merge_path_batched",
@@ -3625,6 +4071,7 @@ def main() -> int:
         "batch": own_b[0]["batch"],
         "synthetic_ms": kern_b["timed"]["ms"],
         "synthetic_sequential_ms": kern_b["timed"]["sequential_ms"],
+        "launches_by_phase": batched_launches,
         "ptxas": ptxas,
     }, fence_line]}), flush=True)
     print(smi, flush=True)
@@ -3634,5 +4081,65 @@ def main() -> int:
     return 0
 
 
+def _child_pids() -> list:
+    """The pids of this process's children that have not been reaped,
+    from /proc/<pid>/stat (its 4th field is the parent's pid)."""
+    me, kids = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rpartition(")")[2].split()[1]) == me:
+            kids.append(int(name))
+    return kids
+
+
+def _stop_processes() -> None:
+    """Ends every process this script started and has not ended, and
+    reaps it, so that none outlives the script. First multiprocessing's
+    own exit sequence (pools terminated, their semaphores unlinked),
+    then any child a phase left running (reported on stderr), then the
+    resource tracker the spawn pools started: Pythons without
+    ResourceTracker.__del__ leave it running past the script's exit."""
+    import signal
+    from multiprocessing import resource_tracker, util
+
+    util._exit_function()
+    tracker = resource_tracker._resource_tracker
+    for pid in _child_pids():
+        if pid == tracker._pid:
+            continue
+        print(f"chip_smoke: stopping leftover child process {pid}",
+              file=sys.stderr)
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    if tracker._fd is None or tracker._pid is None:
+        return
+    # the tracker ends when every holder of its pipe has closed it (the
+    # pool workers, its other holders, are gone); it ignores SIGINT and
+    # SIGTERM
+    os.close(tracker._fd)
+    tracker._fd = None
+    deadline = time.monotonic() + 60
+    while os.waitpid(tracker._pid, os.WNOHANG) == (0, 0):
+        if time.monotonic() > deadline:
+            os.kill(tracker._pid, signal.SIGKILL)
+            os.waitpid(tracker._pid, 0)
+            break
+        time.sleep(0.05)
+    tracker._pid = None
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        _stop_processes()
+    sys.exit(rc)

@@ -14,15 +14,16 @@ def epoch_now(now: float = None) -> int:
 _PRINTABLE = set(range(0x20, 0x7F)) - {ord('"'), ord("\\")}
 
 
-def c_escape_string(data: bytes) -> str:
-    """C-style escaping for log display (the same text as pegasus_tpu's)."""
+def c_escape_string(data: bytes, always_escape: bool = False) -> str:
+    """C-style escaping for log and shell display (the same text as
+    pegasus_tpu's); always_escape escapes every byte."""
     out = []
     for b in data:
-        if b in _PRINTABLE:
+        if not always_escape and b in _PRINTABLE:
             out.append(chr(b))
-        elif b == ord('"'):
+        elif b == ord('"') and not always_escape:
             out.append('\\"')
-        elif b == ord("\\"):
+        elif b == ord("\\") and not always_escape:
             out.append("\\\\")
         else:
             out.append(f"\\x{b:02X}")

@@ -53,7 +53,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..base.crc64 import crc64_batch
+from ..base.crc64 import MASK as CRC64_MASK, crc64_batch, crc64_update
 from ..base.key_schema import key_hash
 from ..base.utils import epoch_now
 from ..base.value_schema import check_if_ts_expired
@@ -80,6 +80,9 @@ _UNRESOLVED = object()  # get_batch: "not answered yet"
 # candidate keys; below it the host binary search serves (a lone key
 # never pays a device round trip)
 DEVICE_READ_MIN_BATCH = 2
+# state_digest's array path: the most rows the sources newer than the
+# base run may hold (each is looked up in the base one at a time)
+DIGEST_OVERLAY_MAX = 4096
 
 
 @dataclass
@@ -677,13 +680,13 @@ class LsmEngine:
         partition no longer owns are excluded."""
         now = epoch_now() if now is None else now
         pmask = self.opts.partition_mask if pmask is None else pmask
-        chunks = self._single_run_digest_rows(now, pmask)
-        if chunks is None:
-            chunks = self._merged_digest_rows(now, pmask)
+        crcs = self._single_run_digest_rows(now, pmask)
+        if crcs is None:
+            crcs = (crc64_batch(*rows)
+                    for rows in self._merged_digest_rows(now, pmask))
         xor = add = records = 0
         # the per-record crc64s, vectorized over chunks of records
-        for arena, offs, lens in chunks:
-            c = crc64_batch(arena, offs, lens)
+        for c in crcs:
             xor ^= int(np.bitwise_xor.reduce(c)) if len(c) else 0
             add = (add + int(c.sum(dtype=np.uint64))) & 0xFFFFFFFFFFFFFFFF
             records += len(c)
@@ -705,26 +708,39 @@ class LsmEngine:
             yield np.frombuffer(b"".join(chunk), np.uint8), offs, lens
 
     def _single_run_digest_rows(self, now: int, pmask: int):
-        """The same records as _merged_digest_rows, built with array ops,
-        when the SSTs are one sorted level (a fully compacted replica, its
-        output split into files of disjoint key ranges) or one L0 file (a
-        checkpoint of a freshly loaded replica) and the memtables
-        are small beside it (a secondary applies the last committed
-        writes with the next prepare): each key lives in one file once,
-        so the merge's rows are the files' live rows whose keys no
-        memtable holds, plus the memtables' newest live rows (the digest
-        ignores order). None otherwise."""
+        """The crc64s of the same records as _merged_digest_rows, in
+        chunks, computed with array ops when one base run holds nearly
+        every row. The base is the oldest source: the deepest level (a
+        fully compacted replica, its output split into files of disjoint
+        key ranges) or, with no level, the oldest L0 file (a loaded
+        replica). What is newer is the memtables (a secondary applies the
+        last committed writes with the next prepare) and the other files
+        (the writes flushed since the load, which a split's learns and a
+        backup's checkpoint carry). The digest ignores order, so the rows
+        are the base's live rows whose keys nothing newer holds, plus the
+        newer sources' newest live rows. None when the newer sources hold
+        more than DIGEST_OVERLAY_MAX rows."""
         with self._lock:
-            levels = [fs for fs in self._levels.values() if fs]
-            if len(self._l0) + len(levels) != 1 or len(self._l0) > 1:
+            levels = [self._levels[lv] for lv in sorted(self._levels)
+                      if self._levels[lv]]
+            if levels:
+                base = list(levels[-1])
+                newer = list(self._l0) + [f for fs in levels[:-1] for f in fs]
+            elif self._l0:
+                base, newer = [self._l0[-1]], list(self._l0[:-1])
+            else:
                 return None
-            ssts = list(self._l0) + [f for fs in levels for f in fs]
             newest = {}
             for mem in [self._mem] + list(self._imm):  # newest first
                 for k, ved in mem.items():
                     newest.setdefault(k, ved)
-        if len(newest) > 4096:
+        if len(newest) + sum(f.n for f in newer) > DIGEST_OVERLAY_MAX:
             return None
+        for sst in newer:  # newest first, as the merged scan ranks them
+            b = self._sst_block(sst)
+            for i in range(b.n):
+                newest.setdefault(b.key(i), (b.value(i), int(b.expire_ts[i]),
+                                             bool(b.deleted[i])))
         mem_rows = [
             struct.pack("<I", len(k)) + k + struct.pack("<q", int(e)) + v
             for k, (v, e, d) in sorted(newest.items())
@@ -732,19 +748,20 @@ class LsmEngine:
             and (not pmask or key_hash(k) % (pmask + 1) == self.opts.pidx)]
 
         def chunks():
-            for sst in ssts:
+            for sst in base:
                 yield from self._live_digest_rows(sst, now, pmask, newest)
             if mem_rows:
                 lens = np.fromiter(map(len, mem_rows), np.int64,
                                    len(mem_rows))
-                yield (np.frombuffer(b"".join(mem_rows), np.uint8),
-                       np.cumsum(lens) - lens, lens)
+                yield crc64_batch(np.frombuffer(b"".join(mem_rows), np.uint8),
+                                  np.cumsum(lens) - lens, lens)
 
         return chunks()
 
     def _live_digest_rows(self, sst, now: int, pmask: int, shadowed):
-        """One file's live rows as digest records, without the keys in
-        `shadowed` (newer versions in a memtable)."""
+        """The crc64s of one file's live rows as digest records, without
+        the keys in `shadowed` (newer versions in a memtable or a newer
+        file)."""
         b = self._sst_block(sst)
         exp = b.expire_ts.astype(np.int64)
         keep = ~b.deleted & ~((exp > 0) & (exp <= now))
@@ -757,7 +774,7 @@ class LsmEngine:
             keep &= hashes % np.uint64(pmask + 1) == np.uint64(self.opts.pidx)
         idx = np.nonzero(keep)[0]
         for lo in range(0, len(idx), 1 << 16):
-            yield _digest_rows(b, idx[lo: lo + (1 << 16)])
+            yield _digest_crcs(b, idx[lo: lo + (1 << 16)])
 
     def scrub(self, rate_bytes_per_s: float = None) -> dict:
         """Background integrity pass: re-verify every landed SST's section
@@ -1442,27 +1459,18 @@ def _split_block(block: KVBlock, target_bytes: int) -> list:
     return [block.gather(np.arange(s, e, dtype=np.int64)) for s, e in bounds]
 
 
-def _segments(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
-    """Flat byte indices of the segments [starts[i], starts[i] + lens[i])."""
-    ends = np.cumsum(lens)
-    return (np.repeat(starts - (ends - lens), lens)
-            + np.arange(int(ends[-1]) if len(ends) else 0, dtype=np.int64))
-
-
-def _digest_rows(b: KVBlock, idx: np.ndarray) -> tuple:
-    """state_digest's records of block rows idx as (arena, offsets,
-    lengths): u32 LE key length, key, i64 LE expire_ts, value."""
+def _digest_crcs(b: KVBlock, idx: np.ndarray) -> np.ndarray:
+    """state_digest's per-record crc64 of block rows idx, each over u32
+    LE key length, key, i64 LE expire_ts, value: the record hashed part
+    by part, straight from the block's arenas."""
+    n = len(idx)
     kl = b.key_len[idx].astype(np.int64)
     vl = b.val_len[idx].astype(np.int64)
-    lens = 12 + kl + vl
-    offs = np.cumsum(lens) - lens
-    arena = np.empty(int(lens.sum()), np.uint8)
-    arena[offs[:, None] + np.arange(4)] = \
-        kl.astype("<u4").view(np.uint8).reshape(-1, 4)
-    arena[_segments(offs + 4, kl)] = \
-        b.key_arena[_segments(b.key_off[idx].astype(np.int64), kl)]
-    arena[(offs + 4 + kl)[:, None] + np.arange(8)] = \
-        b.expire_ts[idx].astype("<i8").view(np.uint8).reshape(-1, 8)
-    arena[_segments(offs + 12 + kl, vl)] = \
-        b.val_arena[_segments(b.val_off[idx].astype(np.int64), vl)]
-    return arena, offs, lens
+    crc = np.full(n, CRC64_MASK, dtype=np.uint64)
+    crc = crc64_update(crc, kl.astype("<u4").view(np.uint8),
+                       np.arange(n, dtype=np.int64) * 4, np.full(n, 4))
+    crc = crc64_update(crc, b.key_arena, b.key_off[idx], kl)
+    crc = crc64_update(crc, b.expire_ts[idx].astype("<i8").view(np.uint8),
+                       np.arange(n, dtype=np.int64) * 8, np.full(n, 8))
+    crc = crc64_update(crc, b.val_arena, b.val_off[idx], vl)
+    return crc ^ np.uint64(CRC64_MASK)

@@ -1,22 +1,22 @@
 """Meta server: table DDL, partition->replica mapping, beacon FD, failover.
 
-Port of the core of pegasus_tpu/meta/meta_server.py (the rDSN
-meta-server role): app state and partition configs live here, persisted
-to a JSON state file that both packages read and write (a port meta
-loads a reference meta's state.json and the other way round); replica
-nodes register via beacons with lease/grace semantics, and node death
-triggers reconfiguration: promote the surviving secondary with the
-longest prepared log, then rebuild the replica count by seeding a
-learner on an under-loaded node.
+Port of pegasus_tpu/meta/meta_server.py (the rDSN meta-server role): app
+state and partition configs live here, persisted to a JSON state file
+that both packages read and write (a port meta loads a reference meta's
+state.json and the other way round); replica nodes register via beacons
+with lease/grace semantics, and node death triggers reconfiguration:
+promote the surviving secondary with the longest prepared log, then
+rebuild the replica count by seeding a learner on an under-loaded node.
 
 Served: create, drop, list and query-config of apps, app envs, list
-nodes, the meta level and the beacon. Not ported yet, so their codes
-stay unregistered and answer ERR_HANDLER_NOT_FOUND: split, backup and
-restore, bulk-load sessions, duplication, backup policies, recall and
-purge of dropped apps, recover, ddd_diagnose, query_cluster_state, the
-quarantine repair, balance and propose. The state file's entries for
-those planes (duplications, backup policies, soft-dropped apps) are
-kept as loaded and written back unchanged.
+nodes, the meta level, the beacon, and the table lifecycle: partition
+split, cold backup and restore, meta-driven bulk-load sessions and
+backup policies (run by the meta app's policy timer). Not ported yet, so
+their codes stay unregistered and answer ERR_HANDLER_NOT_FOUND:
+duplication, recall and purge of dropped apps, recover, ddd_diagnose,
+query_cluster_state, the quarantine repair, balance and propose. The
+state file's entries for those planes (duplications, soft-dropped apps)
+are kept as loaded and written back unchanged.
 """
 
 import json
@@ -81,6 +81,12 @@ RPC_QUERY_REPLICA_INFO = "RPC_QUERY_REPLICA_INFO"
 
 class MetaServer:
     REPAIR_WORKERS = 8   # partitions seeding a learner at once
+    # split children seeding at once, each in its own order (primary,
+    # then its secondaries); the reference seeds one child after another
+    SPLIT_SEED_WORKERS = 8
+    # partitions a bulk-load session ingests at once; the reference walks
+    # them one by one
+    BULK_LOAD_WORKERS = 8
 
     def __init__(self, state_path: str, fd_grace_seconds: float = 22.0,
                  replica_count: int = 3, election=None):
@@ -97,10 +103,12 @@ class MetaServer:
         self._node_replicas = {} # addr -> ["app_id.pidx"] from the last beacon
         self._node_states = {}   # addr -> {gpid: lag/audit state} (beacon)
         self._node_tables = {}   # addr -> {tables@pid:N: tenant-ledger frag}
-        # planes not ported yet, kept as loaded so the state file
-        # round-trips: duplication entries, backup policies, soft drops
-        self._dups = {}          # app_id -> list[dict] duplication entries
         self._policies = {}      # name -> dict (BackupPolicyInfo fields)
+        self._bulk_loads = {}    # app_id -> bulk-load session dict
+        self._restores = {}      # new_app_name -> restore status dict
+        # planes not ported yet, kept as loaded so the state file
+        # round-trips: duplication entries, soft drops
+        self._dups = {}          # app_id -> list[dict] duplication entries
         self._dropped = {}       # app_id -> {"app","parts","expire_ts"}
         self.level = "lively"    # freezed | steady | lively (see META_LEVELS)
         self._next_app_id = 1
@@ -164,6 +172,16 @@ class MetaServer:
             RPC_CM_QUERY_CONFIG: self._on_query_config,
             RPC_CM_SET_APP_ENVS: self._on_set_app_envs,
             RPC_CM_LIST_NODES: self._on_list_nodes,
+            RPC_CM_SPLIT_APP: self._on_split_app,
+            RPC_CM_BACKUP_APP: self._on_backup_app,
+            RPC_CM_RESTORE_APP: self._on_restore_app,
+            RPC_CM_START_BULK_LOAD: self._on_start_bulk_load,
+            RPC_CM_QUERY_BULK_LOAD: self._on_query_bulk_load,
+            RPC_CM_CONTROL_BULK_LOAD: self._on_control_bulk_load,
+            RPC_CM_QUERY_RESTORE: self._on_query_restore,
+            RPC_CM_ADD_BACKUP_POLICY: self._on_add_backup_policy,
+            RPC_CM_LS_BACKUP_POLICY: self._on_ls_backup_policy,
+            RPC_CM_MODIFY_BACKUP_POLICY: self._on_modify_backup_policy,
             RPC_CM_CONTROL_META: self._on_control_meta,
             RPC_FD_BEACON: self._on_beacon,
         }
@@ -310,6 +328,520 @@ class MetaServer:
         with ThreadPoolExecutor(len(per_node),
                                 thread_name_prefix="meta-push") as ex:
             list(ex.map(push, per_node))
+
+    # ------------------------------------------------------ split/backup/load
+
+    def _on_split_app(self, header, body) -> bytes:
+        """Online partition split: double the partition count (SURVEY §2.4
+        'Partition split'; reference meta split + engine-side stale-key GC).
+        Child partition pidx+n is seeded from parent pidx via the learn
+        path on the same member set; every replica then gets
+        partition_version = 2n-1 so compaction GCs keys it no longer owns
+        (key_ttl_compaction_filter.h:107 analogue)."""
+        req = codec.decode(mm.SplitAppRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.SplitAppResponse(error=1,
+                                                        error_text="no such app"))
+            parts = self._parts[app.app_id]
+            envs = json.loads(app.envs_json)
+            pending = envs.get("replica.split_pending")
+            if pending is not None:
+                # RESUME an incomplete split (the retry the seeding-failure
+                # error text promises): the count is already doubled and
+                # the child configs installed — re-drive phase 2 for the
+                # existing children instead of doubling again
+                old_n, new_n = int(pending), app.partition_count
+                children = [(parts[p - old_n], parts[p])
+                            for p in range(old_n, new_n)]
+            else:
+                old_n = app.partition_count
+                new_n = 2 * old_n
+                children = []
+                for pidx in range(old_n, new_n):
+                    parent = parts[pidx - old_n]
+                    pc = mm.PartitionConfig(
+                        pidx=pidx, ballot=1, primary=parent.primary,
+                        secondaries=list(parent.secondaries))
+                    parts.append(pc)
+                    children.append((parent, pc))
+                app.partition_count = new_n
+                # the resume marker rides the app envs (persisted with
+                # the config) until phase 3 declares seeding complete
+                envs["replica.split_pending"] = str(old_n)
+                app.envs_json = json.dumps(envs)
+            parents = list(parts[:old_n])
+            self._persist_locked()
+        n = old_n
+        from ..runtime import events
+
+        events.emit("split.phase", severity="warn",
+                    phase="resume" if pending is not None else "start",
+                    app=req.app_name, old_n=old_n, new_n=2 * old_n)
+        # Phase 1: parents learn the NEW partition count FIRST, so any write
+        # still routed with the old count but belonging to a child half is
+        # rejected from here on (client re-resolves). Writes accepted before
+        # this point precede the child learn below and are carried by it —
+        # no write can fall between the two.
+        for pc in parents:
+            self._install_partition(app, pc)
+        # Phase 2: seed each child's PRIMARY from the parent's primary
+        # (full-copy learn), then each child SECONDARY from the child
+        # primary — ONE history source. Seeding every member from the
+        # parent directly looks equivalent but is not under live load:
+        # the parent advances between the independent learns, so two
+        # members could snapshot different parent decrees and the gap
+        # mutations exist in neither the later learner's checkpoint nor
+        # the child primary's plog — decrees align again through the
+        # prepare stream while the CONTENT stays divergent forever (the
+        # decree-anchored audit caught exactly this under chaos load).
+        # Failures are fatal for the split: the stale-key GC mask must
+        # not spread unless every child holds its half.
+        def seed(item) -> bool:
+            parent, pc = item
+            req_primary = mm.OpenReplicaRequest(
+                app_name=app.app_name, app_id=app.app_id, pidx=pc.pidx,
+                ballot=pc.ballot, primary=pc.primary,
+                secondaries=pc.secondaries, envs_json=app.envs_json,
+                partition_count=2 * n, learn_from=parent.primary,
+                learn_pidx=parent.pidx)
+            if self._send_to_node(pc.primary, RPC_OPEN_REPLICA, req_primary,
+                                  ignore_errors=True) is None:
+                return False
+            req_secondary = mm.OpenReplicaRequest(
+                app_name=app.app_name, app_id=app.app_id, pidx=pc.pidx,
+                ballot=pc.ballot, primary=pc.primary,
+                secondaries=pc.secondaries, envs_json=app.envs_json,
+                partition_count=2 * n, learn_from=pc.primary,
+                learn_pidx=pc.pidx)
+            ok = True
+            for node in pc.secondaries:
+                if self._send_to_node(node, RPC_OPEN_REPLICA, req_secondary,
+                                      ignore_errors=True) is None:
+                    ok = False
+            return ok
+
+        # each seed is whole learns inside open RPCs: a child's learns run
+        # beside other children's, across the nodes
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max(1, min(self.SPLIT_SEED_WORKERS,
+                                           len(children))),
+                                thread_name_prefix="meta-split") as ex:
+            seeded = all(list(ex.map(seed, children)))
+        if not seeded:
+            events.emit("split.phase", severity="error",
+                        phase="seed_incomplete", app=req.app_name,
+                        new_n=2 * n)
+            return codec.encode(mm.SplitAppResponse(
+                error=1, new_partition_count=2 * n,
+                error_text="child seeding incomplete; GC mask withheld — "
+                           "re-run split to retry"))
+        # Phase 3: with every child seeded, spread the ownership mask so
+        # compaction GCs keys each partition no longer owns.
+        with self._lock:
+            envs = json.loads(app.envs_json)
+            envs.pop("replica.split_pending", None)
+            envs["replica.partition_version"] = str(2 * n - 1)
+            app.envs_json = json.dumps(envs)
+            all_parts = list(self._parts[app.app_id])
+            self._persist_locked()
+        for pc in all_parts:
+            self._install_partition(app, pc)
+        events.emit("split.phase", phase="complete", app=req.app_name,
+                    new_n=2 * n)
+        return codec.encode(mm.SplitAppResponse(new_partition_count=2 * n))
+
+    def _on_backup_app(self, header, body) -> bytes:
+        """Cold backup: every partition primary checkpoints into the backup
+        root (block-service local-FS provider), then backup metadata lands
+        beside them (reference cold backup to block service, SURVEY §2.4)."""
+        req = codec.decode(mm.BackupAppRequest, body)
+        err, backup_id = self._do_backup(req.app_name, req.backup_root)
+        if err:
+            return codec.encode(mm.BackupAppResponse(error=1, error_text=err))
+        return codec.encode(mm.BackupAppResponse(backup_id=backup_id))
+
+    def _do_backup(self, app_name: str, backup_root: str,
+                   backup_id: int = None):
+        """-> (error_text or None, backup_id). One full app backup into
+        backup_root/<backup_id>/<app_name>/<pidx>/ + backup_metadata."""
+        with self._lock:
+            app = self._apps.get(app_name)
+            if app is None:
+                return "no such app", 0
+            parts = list(self._parts[app.app_id])
+        backup_id = backup_id or int(time.time() * 1000)
+        # replicas resolve this path through a block service rooted at "/";
+        # absolutize here so a relative root means the same tree everywhere
+        base = os.path.join(os.path.abspath(backup_root),
+                            str(backup_id), app_name)
+        for pc in parts:
+            dest = os.path.join(base, str(pc.pidx))
+            out = self._send_to_node(pc.primary, RPC_COLD_BACKUP,
+                                     mm.OpenReplicaRequest(
+                                         app_id=app.app_id, pidx=pc.pidx,
+                                         restore_dir=dest),
+                                     ignore_errors=True)
+            if out is None:
+                return f"partition {pc.pidx} backup failed", 0
+        with open(os.path.join(base, "backup_metadata"), "w") as f:
+            json.dump({"app_name": app.app_name, "app_id": app.app_id,
+                       "partition_count": app.partition_count,
+                       "backup_id": backup_id, "envs_json": app.envs_json}, f)
+        return None, backup_id
+
+    def _on_restore_app(self, header, body) -> bytes:
+        """Restore a backup into a NEW table: create the app with the
+        backed-up partition count, each replica seeding its engine from the
+        backup dir at open (reference restore envs ROCKSDB_ENV_RESTORE_*,
+        pegasus_server_impl.cpp:1339-1393)."""
+        req = codec.decode(mm.RestoreAppRequest, body)
+        backup_root = os.path.abspath(req.backup_root)
+        meta_file = os.path.join(backup_root, str(req.backup_id),
+                                 req.old_app_name, "backup_metadata")
+        try:
+            with open(meta_file) as f:
+                bmeta = json.load(f)
+        except OSError:
+            return codec.encode(mm.RestoreAppResponse(
+                error=1, error_text=f"no backup metadata at {meta_file}"))
+        with self._lock:
+            if req.new_app_name in self._apps:
+                return codec.encode(mm.RestoreAppResponse(
+                    error=1, error_text="app exists"))
+            alive = self._alive_nodes_locked()
+            if not alive:
+                return codec.encode(mm.RestoreAppResponse(
+                    error=1, error_text="no alive nodes"))
+            app = mm.AppInfo(app_name=req.new_app_name,
+                             app_id=self._next_app_id,
+                             partition_count=bmeta["partition_count"],
+                             replica_count=min(3, len(alive)),
+                             envs_json=bmeta.get("envs_json", "{}"))
+            self._next_app_id += 1
+            self._apps[req.new_app_name] = app
+            parts = []
+            for pidx in range(app.partition_count):
+                members = self._pick_nodes_locked(app.replica_count, pidx)
+                parts.append(mm.PartitionConfig(pidx=pidx, ballot=1,
+                                                primary=members[0],
+                                                secondaries=members[1:]))
+            self._parts[app.app_id] = parts
+            self._persist_locked()
+        self._restores[app.app_name] = {
+            "status": "restoring", "backup_id": req.backup_id,
+            "old_app": req.old_app_name, "done": 0,
+            "total": app.partition_count}
+        # every node restores its replicas in partition order, the nodes
+        # at once (the reference opens one replica after another)
+        per_node = {}
+        for pc in parts:
+            src = os.path.join(backup_root, str(req.backup_id),
+                               req.old_app_name, str(pc.pidx))
+            req_open = mm.OpenReplicaRequest(
+                app_name=app.app_name, app_id=app.app_id, pidx=pc.pidx,
+                ballot=pc.ballot, primary=pc.primary,
+                secondaries=pc.secondaries, envs_json=app.envs_json,
+                partition_count=app.partition_count, restore_dir=src)
+            for node in [pc.primary] + pc.secondaries:
+                per_node.setdefault(node, []).append(req_open)
+
+        def restore(node):
+            for req_open in per_node[node]:
+                self._send_to_node(node, RPC_OPEN_REPLICA, req_open,
+                                   ignore_errors=True)
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max(1, len(per_node)),
+                                thread_name_prefix="meta-restore") as ex:
+            list(ex.map(restore, per_node))
+        self._restores[app.app_name]["done"] = app.partition_count
+        self._restores[app.app_name]["status"] = "ok"
+        return codec.encode(mm.RestoreAppResponse(app_id=app.app_id))
+
+    def _on_start_bulk_load(self, header, body) -> bytes:
+        """Meta-driven bulk load: validate provider metadata, then each
+        partition primary ingests its set (reference bulk-load DDL,
+        SURVEY §2.4 'Bulk load framework'). async_start runs the partition
+        walk as a controllable session (pause/restart/cancel/query, the
+        reference's bulk-load state machine surface, shell bulk_load.cpp);
+        the default stays synchronous."""
+        from ..engine import bulk_load as bl
+
+        req = codec.decode(mm.StartBulkLoadRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.StartBulkLoadResponse(
+                    error=1, error_text="no such app"))
+            sess = self._bulk_loads.get(app.app_id)
+            if sess and sess["status"] in ("downloading", "ingesting",
+                                           "paused"):
+                return codec.encode(mm.StartBulkLoadResponse(
+                    error=1, error_text="bulk load already in progress"))
+        provider_root = os.path.abspath(req.provider_root)
+        try:
+            with open(bl.metadata_path(provider_root, req.app_name)) as f:
+                bmeta = json.load(f)
+        except OSError:
+            return codec.encode(mm.StartBulkLoadResponse(
+                error=1, error_text="no bulk_load_metadata"))
+        if bmeta["partition_count"] != app.partition_count:
+            return codec.encode(mm.StartBulkLoadResponse(
+                error=1, error_text="partition count mismatch"))
+        sess = {"status": "ingesting", "done": 0, "next": 0,
+                "total": app.partition_count, "ingested": 0,
+                "error_text": "", "provider_root": provider_root,
+                "app_name": req.app_name}
+        with self._lock:
+            self._bulk_loads[app.app_id] = sess
+        if req.async_start:
+            threading.Thread(target=self._bulk_load_worker,
+                             args=(app, sess), daemon=True,
+                             name=f"bulk-load:{app.app_name}").start()
+            return codec.encode(mm.StartBulkLoadResponse())
+        self._bulk_load_worker(app, sess)
+        if sess["status"] != "succeed":
+            return codec.encode(mm.StartBulkLoadResponse(
+                error=1, error_text=sess["error_text"] or sess["status"]))
+        return codec.encode(mm.StartBulkLoadResponse(
+            ingested_records=sess["ingested"]))
+
+    def _bulk_load_worker(self, app, sess) -> None:
+        """Walk the partitions, BULK_LOAD_WORKERS at a time, honoring
+        pause/cancel between them (an ingest that started finishes)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(self.BULK_LOAD_WORKERS,
+                                thread_name_prefix="bulk-load") as ex:
+            list(ex.map(lambda _: self._bulk_load_walk(app, sess),
+                        range(self.BULK_LOAD_WORKERS)))
+        with self._lock:
+            if sess["status"] == "ingesting" and \
+                    sess["done"] >= sess["total"]:
+                sess["status"] = "succeed"
+
+    def _bulk_load_walk(self, app, sess) -> None:
+        """One of the session's walkers: take the next partition, ingest
+        it through its primary, until none is left or the session stops."""
+        from ..rpc import messages as rpc_msg
+        from ..rpc.task_codes import RPC_BULK_LOAD_INGEST
+
+        while True:
+            with self._lock:
+                status = sess["status"]
+                if status in ("canceled", "failed"):
+                    return
+                if status != "paused":
+                    if sess["next"] >= sess["total"]:
+                        return
+                    pc = self._parts[app.app_id][sess["next"]]
+                    sess["next"] += 1
+            if status == "paused":
+                time.sleep(0.05)
+                continue
+            ingest = rpc_msg.BulkLoadIngestRequest(
+                provider_root=sess["provider_root"],
+                app_name=sess["app_name"],
+                partition_count=app.partition_count)
+            # route through the primary's WRITE path: the ingestion command
+            # replicates via PacificA so every replica loads the set at the
+            # same decree (survives failover)
+            out = self._send_to_node(pc.primary, RPC_BULK_LOAD_INGEST, ingest,
+                                     app_id=app.app_id, pidx=pc.pidx,
+                                     ignore_errors=True)
+            resp = (codec.decode(rpc_msg.BulkLoadIngestResponse, out)
+                    if out is not None else None)
+            with self._lock:
+                if resp is None or resp.error:
+                    if sess["status"] != "failed":
+                        sess["status"] = "failed"
+                        sess["error_text"] = (f"partition {pc.pidx} ingest "
+                                              + ("failed" if resp is None
+                                                 else "error"))
+                    return
+                sess["ingested"] += resp.ingested_records
+                sess["done"] += 1
+
+    def _on_query_bulk_load(self, header, body) -> bytes:
+        req = codec.decode(mm.QueryBulkLoadRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.QueryBulkLoadResponse(
+                    error=1, error_text="no such app"))
+            sess = self._bulk_loads.get(app.app_id)
+            if sess is None:
+                return codec.encode(mm.QueryBulkLoadResponse(status="none"))
+            return codec.encode(mm.QueryBulkLoadResponse(
+                status=sess["status"], done_partitions=sess["done"],
+                total_partitions=sess["total"],
+                ingested_records=sess["ingested"],
+                error_text=sess["error_text"]))
+
+    def _on_query_restore(self, header, body) -> bytes:
+        """query_restore_status <new_app> (reference restore.cpp
+        query_restore_status)."""
+        req = codec.decode(mm.QueryRestoreRequest, body)
+        with self._lock:
+            info = self._restores.get(req.app_name)
+        if info is None:
+            return codec.encode(mm.QueryRestoreResponse(status="none"))
+        return codec.encode(mm.QueryRestoreResponse(
+            status=info["status"], backup_id=info["backup_id"],
+            old_app_name=info["old_app"], done_partitions=info["done"],
+            total_partitions=info["total"]))
+
+    def _on_control_bulk_load(self, header, body) -> bytes:
+        """pause_bulk_load / restart_bulk_load / cancel_bulk_load
+        (reference shell bulk_load.cpp control verbs)."""
+        req = codec.decode(mm.ControlBulkLoadRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.ControlBulkLoadResponse(
+                    error=1, error_text="no such app"))
+            sess = self._bulk_loads.get(app.app_id)
+            if sess is None:
+                return codec.encode(mm.ControlBulkLoadResponse(
+                    error=1, error_text="no bulk load session"))
+            cur = sess["status"]
+            if req.action == "pause":
+                if cur != "ingesting":
+                    return codec.encode(mm.ControlBulkLoadResponse(
+                        error=1, error_text=f"cannot pause ({cur})"))
+                sess["status"] = "paused"
+            elif req.action == "restart":
+                if cur != "paused":
+                    return codec.encode(mm.ControlBulkLoadResponse(
+                        error=1, error_text=f"cannot restart ({cur})"))
+                sess["status"] = "ingesting"
+            elif req.action == "cancel":
+                if cur not in ("ingesting", "paused", "failed"):
+                    return codec.encode(mm.ControlBulkLoadResponse(
+                        error=1, error_text=f"cannot cancel ({cur})"))
+                sess["status"] = "canceled"
+            else:
+                return codec.encode(mm.ControlBulkLoadResponse(
+                    error=1, error_text=f"unknown action {req.action!r}"))
+        return codec.encode(mm.ControlBulkLoadResponse())
+
+    # ------------------------------------------------------- backup policies
+
+    def _on_add_backup_policy(self, header, body) -> bytes:
+        req = codec.decode(mm.AddBackupPolicyRequest, body)
+        p = req.policy
+        with self._lock:
+            if p.name in self._policies:
+                return codec.encode(mm.AddBackupPolicyResponse(
+                    error=1, error_text=f"policy {p.name} exists"))
+            if not p.name or not p.backup_root or not p.apps:
+                return codec.encode(mm.AddBackupPolicyResponse(
+                    error=1, error_text="name, backup_root and apps required"))
+            missing = [a for a in p.apps if a not in self._apps]
+            if missing:
+                return codec.encode(mm.AddBackupPolicyResponse(
+                    error=1, error_text=f"no such app(s): {missing}"))
+            self._policies[p.name] = {
+                "name": p.name, "backup_root": p.backup_root,
+                "apps": list(p.apps),
+                "interval_seconds": max(1, p.interval_seconds),
+                "history_count": max(1, p.history_count),
+                "enabled": bool(p.enabled),
+                "next_backup_ts": int(p.next_backup_ts),
+                "recent_backup_ids": []}
+            self._persist_locked()
+        return codec.encode(mm.AddBackupPolicyResponse())
+
+    def _on_ls_backup_policy(self, header, body) -> bytes:
+        req = codec.decode(mm.LsBackupPolicyRequest, body)
+        with self._lock:
+            if req.name:
+                pols = [self._policies[req.name]] \
+                    if req.name in self._policies else []
+                if not pols:
+                    return codec.encode(mm.LsBackupPolicyResponse(
+                        error=1, error_text=f"no policy {req.name}"))
+            else:
+                pols = list(self._policies.values())
+            return codec.encode(mm.LsBackupPolicyResponse(
+                policies=[mm.BackupPolicyInfo(**p) for p in pols]))
+
+    def _on_modify_backup_policy(self, header, body) -> bytes:
+        req = codec.decode(mm.ModifyBackupPolicyRequest, body)
+        with self._lock:
+            p = self._policies.get(req.name)
+            if p is None:
+                return codec.encode(mm.ModifyBackupPolicyResponse(
+                    error=1, error_text=f"no policy {req.name}"))
+            if req.enabled in (0, 1):
+                p["enabled"] = bool(req.enabled)
+            if req.interval_seconds > 0:
+                p["interval_seconds"] = req.interval_seconds
+            if req.history_count > 0:
+                p["history_count"] = req.history_count
+            for a in req.add_apps:
+                if a not in self._apps:
+                    return codec.encode(mm.ModifyBackupPolicyResponse(
+                        error=1, error_text=f"no such app {a}"))
+                if a not in p["apps"]:
+                    p["apps"].append(a)
+            for a in req.remove_apps:
+                if a in p["apps"]:
+                    p["apps"].remove(a)
+            self._persist_locked()
+        return codec.encode(mm.ModifyBackupPolicyResponse())
+
+    def run_backup_policies(self, now: int = None) -> list:
+        """Execute every enabled policy that is due; prune history beyond
+        history_count (reference policy scheduler in meta backup_service,
+        SURVEY §2.4 'Cold backup'). Called from the meta app's timer (and
+        directly by tests with a pinned `now`). Returns [(policy, app,
+        backup_id or None)]."""
+        import shutil
+
+        now = int(time.time()) if now is None else now
+        ran = []
+        with self._lock:
+            due = [dict(p) for p in self._policies.values()
+                   if p["enabled"] and p["next_backup_ts"] <= now]
+        for p in due:
+            # one backup_id per policy run, shared by all its apps (the
+            # reference's per-policy backup_id), so retention prunes runs;
+            # derived from `now` so tests with a pinned clock stay stable.
+            # Each policy backs up under backup_root/<policy_name>/ so two
+            # policies sharing a root can never collide on a run id and
+            # retention-prune each other's trees.
+            run_id = now * 1000
+            root = os.path.join(p["backup_root"], p["name"])
+            new_ids = []
+            for app_name in p["apps"]:
+                err, bid = self._do_backup(app_name, root,
+                                           backup_id=run_id)
+                ran.append((p["name"], app_name, None if err else bid))
+                if err:
+                    print(f"[backup-policy {p['name']}] {app_name}: {err}",
+                          flush=True)
+                else:
+                    new_ids.append(bid)
+            with self._lock:
+                live = self._policies.get(p["name"])
+                if live is None:
+                    continue
+                ids = sorted(set(live["recent_backup_ids"]) | set(new_ids))
+                # retention: newest history_count backups stay on disk
+                while len(ids) > live["history_count"]:
+                    victim = ids.pop(0)
+                    shutil.rmtree(os.path.join(
+                        os.path.abspath(live["backup_root"]), live["name"],
+                        str(victim)), ignore_errors=True)
+                live["recent_backup_ids"] = ids
+                live["next_backup_ts"] = now + live["interval_seconds"]
+                self._persist_locked()
+        return ran
 
     def _on_list_nodes(self, header, body) -> bytes:
         with self._lock:

@@ -18,9 +18,10 @@ LAUNCHES["merge_path"] counts merges that went through the kernels, one
 per merge_two_sorted call whatever its batch; LAUNCHES["merge_path_rows"]
 adds each call's batch rows. A run proves it went through the kernels by
 reading the counts before and after, and a batched run that B merges
-shared each call by the ratio of the two. LAUNCHES["merge_path"] is
-exported as the perf counter kernel.merge_path.launches, so a serving
-process can be scraped for it.
+shared each call by the ratio of the two. LAUNCHES["merge_path"] and
+["merge_path_rows"] are exported as the perf counters
+kernel.merge_path.launches and kernel.merge_path.rows, so a serving
+process can be scraped for them.
 """
 
 import ctypes
@@ -33,6 +34,7 @@ from .device_sort import lex_less, merge_two_sorted_plain
 
 LAUNCHES = {"merge_path": 0, "merge_path_rows": 0}
 counters.gauge("kernel.merge_path.launches", lambda: LAUNCHES["merge_path"])
+counters.gauge("kernel.merge_path.rows", lambda: LAUNCHES["merge_path_rows"])
 # merges of concurrent compactions (the offload service's RPC threads)
 # count from several threads
 _LAUNCHES_LOCK = threading.Lock()

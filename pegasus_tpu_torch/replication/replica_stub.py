@@ -14,13 +14,17 @@ together.
 The engines default to the cuda backend on the card (EngineOptions()):
 every replica's merges and device reads run there, and a failure raises.
 
-Not ported yet (ROADMAP Queue 1): partition groups (group_spec and the
-socket adoption loop), duplication, cold backup and restore,
-meta-driven RPC_BULK_LOAD, quarantine and scrub-replica, the scheduler
-commands, set-read-residency, detect_hotkey, the table-stats beacon
-fragment, the job tracer and the metric history. Split seeding (an open
-that learns from another partition) raises RpcError until split is
-ported.
+The table lifecycle is served as the reference serves it: split
+seeding (an open that learns from another partition, once only and
+before the child serves), restore at open from a backup through the
+block service (runtime/block_service.py), RPC_COLD_BACKUP and
+RPC_BULK_LOAD.
+
+Not ported yet (ROADMAP Queue 1): partition groups (a group_spec raises,
+naming the module; the socket adoption loop), duplication, quarantine
+and scrub-replica, the scheduler commands, set-read-residency,
+detect_hotkey, the table-stats beacon fragment, the job tracer and the
+metric history.
 """
 
 import json
@@ -31,13 +35,15 @@ import time
 from ..engine.db import EngineOptions
 from ..engine.replica_service import ReplicaService
 from ..meta import messages as mm
-from ..meta.meta_server import (RPC_CLOSE_REPLICA, RPC_FD_BEACON,
+from ..meta.meta_server import (RPC_BULK_LOAD, RPC_CLOSE_REPLICA,
+                                RPC_COLD_BACKUP, RPC_FD_BEACON,
                                 RPC_OPEN_REPLICA, RPC_QUERY_REPLICA_INFO,
                                 RPC_REPLICA_STATE)
 from ..rpc import codec
 from ..rpc import messages as rpc_msg
 from ..rpc.transport import (ConnectionPool, ERR_INVALID_STATE,
                              ERR_OBJECT_NOT_FOUND, RpcError, RpcServer)
+from ..runtime import events
 from ..runtime.perf_counters import counters
 from ..runtime.remote_command import RemoteCommandService
 from .mutation_log import LogMutation
@@ -158,8 +164,15 @@ class _RemotePeer:
 
 class ReplicaStub:
     def __init__(self, root: str, meta_addrs, host: str = "127.0.0.1",
-                 port: int = 0, options_factory=None, cluster_id: int = 1):
+                 port: int = 0, options_factory=None, cluster_id: int = 1,
+                 block_service_provider: str = "local_service",
+                 group_spec=None):
+        if group_spec is not None:
+            raise NotImplementedError(
+                "group_spec: partition groups (replication/serve_groups.py) "
+                "are not ported to pegasus_tpu_torch yet")
         self.root = root
+        self.block_service_provider = block_service_provider
         self.meta_addrs = list(meta_addrs)
         self.cluster_id = cluster_id
         # the card unless the caller asks otherwise (the reference's stub
@@ -176,6 +189,8 @@ class ReplicaStub:
         self.rpc.register(RPC_CLOSE_REPLICA, self._on_close_replica)
         self.rpc.register(RPC_REPLICA_STATE, self._on_replica_state)
         self.rpc.register(RPC_QUERY_REPLICA_INFO, self._on_query_replica_info)
+        self.rpc.register(RPC_COLD_BACKUP, self._on_cold_backup)
+        self.rpc.register(RPC_BULK_LOAD, self._on_bulk_load)
         self.rpc.register(RPC_PREPARE, self._on_prepare)
         self.rpc.register(RPC_LEARN, self._on_learn)
         self.rpc.register(RPC_LEARN_PREPARE, self._on_learn_prepare)
@@ -304,34 +319,87 @@ class ReplicaStub:
 
     def _on_open_replica(self, header, body) -> bytes:
         req = codec.decode(mm.OpenReplicaRequest, body)
-        if req.learn_from and 0 <= req.learn_pidx != req.pidx:
-            raise RpcError(ERR_INVALID_STATE,
-                           f"partition {req.app_id}.{req.pidx}: learning from"
-                           f" partition {req.learn_pidx} is split seeding, "
-                           f"which the port does not serve yet")
-        if req.restore_dir:
-            raise RpcError(ERR_INVALID_STATE,
-                           f"partition {req.app_id}.{req.pidx}: restore from "
-                           f"a backup is not ported yet")
         key = (req.app_id, req.pidx)
+        # a CROSS-partition learn is split child seeding (parent history
+        # copied once); a same-pidx learn is a repair/failover re-seed
+        # from the partition's own authoritative primary
+        cross_learn = bool(req.learn_from) and 0 <= req.learn_pidx != req.pidx
+        restored = False
         with self._lock:
             rep = self._replicas.get(key)
             if rep is None:
                 path = os.path.join(self.root, f"{req.app_id}.{req.pidx}")
+                if req.restore_dir and not os.path.exists(
+                        os.path.join(path, "data", "MANIFEST")):
+                    self._seed_from_restore(path, req.restore_dir)
+                    restored = True
                 rep = Replica(self.address, path, req.app_id, req.pidx,
                               self.options_factory(),
                               peers=self._peer_factory(req.app_id, req.pidx),
                               cluster_id=self.cluster_id)
                 self._replicas[key] = rep
-            self._service.add_replica(rep.server, req.partition_count)
-        if req.learn_from and req.learn_from != self.address:
-            # a repair or failover re-seed from the partition's primary
-            rep.learn_from(_RemotePeer(self, req.learn_from, req.app_id,
-                                       req.pidx))
-            with self._lock:
-                # the learn swapped in a new server: re-register it
-                self._service.remove_replica(req.app_id, req.pidx)
+            # Split seeding is ONCE-ONLY and SEED-BEFORE-SERVE:
+            #  * once-only: when the meta retries a split whose seeding
+            #    failed part-way, a child that did seed and then took
+            #    writes must not re-learn from its parent (the parent has
+            #    rejected child-half writes since split phase 1, and a
+            #    learn replaces the engine wholesale: acked writes would
+            #    be lost);
+            #  * seed-before-serve: a child pending its seed is registered
+            #    only after the learn succeeds, so a child whose learn
+            #    fails is never served empty.
+            seeded = getattr(rep, "split_seeded", False) \
+                or rep.last_committed > 0
+            need_seed = cross_learn and not seeded
+            if not need_seed:
+                # (re-)register: a split changes the count of existing
+                # replicas, which drives the misroute rejection
                 self._service.add_replica(rep.server, req.partition_count)
+        if restored and rep.server.engine.opts.backend == "cuda":
+            # the restored runs serve device reads and compactions at once
+            # (the reference leaves them to its first flush/compaction)
+            rep.server.engine.prime_resident_runs()
+        learn_self = (req.learn_from == self.address
+                      and (req.learn_pidx < 0 or req.learn_pidx == req.pidx))
+        if req.learn_from and not learn_self and (need_seed
+                                                  or not cross_learn):
+            learn_pidx = req.learn_pidx if req.learn_pidx >= 0 else req.pidx
+            if req.learn_from == self.address:
+                # in-process parent (split on the same node); a parent in
+                # a sibling group executor would be learned over RPC, but
+                # partition groups are not ported (the constructor refuses
+                # a group_spec)
+                with self._lock:
+                    peer = self._replicas.get((req.app_id, learn_pidx))
+            else:
+                peer = _RemotePeer(self, req.learn_from, req.app_id,
+                                   learn_pidx)
+            if peer is not None:
+                if need_seed:
+                    events.emit("split.seed_start",
+                                gpid=f"{req.app_id}.{req.pidx}",
+                                parent=f"{req.app_id}.{learn_pidx}",
+                                source=req.learn_from)
+                rep.learn_from(peer)
+                with self._lock:
+                    if cross_learn:
+                        # seed complete: a split retry must never learn
+                        # this child from its parent again
+                        rep.split_seeded = True
+                    self._service.remove_replica(req.app_id, req.pidx)
+                    self._service.add_replica(rep.server, req.partition_count)
+                if need_seed:
+                    events.emit("split.seeded",
+                                gpid=f"{req.app_id}.{req.pidx}",
+                                committed=rep.last_committed)
+            elif need_seed:
+                # no resolvable seed source: a success reply would let the
+                # meta count this child as seeded and spread the GC mask
+                # over a hollow, unregistered partition
+                raise RpcError(ERR_INVALID_STATE,
+                               f"split child {req.app_id}.{req.pidx} cannot "
+                               f"seed: parent {req.app_id}.{learn_pidx} not "
+                               f"found at {req.learn_from}")
         rep.app_name = req.app_name or rep.app_name
         if rep.app_name:
             rep.server.set_table_name(rep.app_name)
@@ -342,6 +410,16 @@ class ReplicaStub:
             rep.server.update_app_envs(envs)
         return codec.encode(mm.OpenReplicaResponse(
             last_committed=rep.last_committed, last_prepared=rep.last_prepared))
+
+    def _seed_from_restore(self, replica_path: str, restore_dir: str) -> None:
+        """Pre-open restore: download the backup's checkpoint files into
+        the data dir through the block service (reference restore at
+        open, pegasus_server_impl.cpp:1339)."""
+        from ..runtime.block_service import create_block_service
+
+        data = os.path.join(replica_path, "data")
+        bs = create_block_service(self.block_service_provider, "/")
+        bs.download_dir(restore_dir, data)
 
     def _on_close_replica(self, header, body) -> bytes:
         req = codec.decode(mm.CloseReplicaRequest, body)
@@ -485,6 +563,46 @@ class ReplicaStub:
         if rep is not None:
             rep.finish_learn(req.learn_id)
         return codec.encode(rpc_msg.LearnFetchResponse())
+
+    # ------------------------------------------------ backup and bulk load
+
+    def _on_cold_backup(self, header, body) -> bytes:
+        """Checkpoint this partition, then upload it through the block
+        service (reference: copy_checkpoint_to_dir -> block service
+        upload)."""
+        from ..runtime.block_service import create_block_service
+
+        req = codec.decode(mm.OpenReplicaRequest, body)
+        with self._lock:
+            rep = self._replicas.get((req.app_id, req.pidx))
+        if rep is None:
+            raise RpcError(ERR_OBJECT_NOT_FOUND, "replica not served here")
+        engine = rep.server.engine
+        # the checkpoint lock spans create and upload, so a concurrent
+        # maintenance checkpoint can neither GC this decree nor swap the
+        # directory under the upload
+        with engine.checkpoint_lock:
+            decree = engine.sync_checkpoint()
+            src = engine.get_checkpoint_dir(decree)
+            bs = create_block_service(self.block_service_provider, "/")
+            bs.upload_dir(src, req.restore_dir)
+        return codec.encode(mm.OpenReplicaResponse(last_committed=decree))
+
+    def _on_bulk_load(self, header, body) -> bytes:
+        """Ingest this partition's bulk-load set from the provider root
+        into the local engine (no replication: the meta's sessions take
+        the replicated RPC_BULK_LOAD_INGEST write instead)."""
+        from ..engine import bulk_load as bl
+
+        req = codec.decode(mm.OpenReplicaRequest, body)
+        with self._lock:
+            rep = self._replicas.get((req.app_id, req.pidx))
+        if rep is None:
+            raise RpcError(ERR_OBJECT_NOT_FOUND, "replica not served here")
+        stats = bl.ingest_partition(
+            rep.server.engine, req.restore_dir, req.app_name,
+            req.partition_count, req.pidx, rep.server._schema)
+        return int(stats["records"]).to_bytes(8, "little")
 
     # ------------------------------------------------------ remote commands
 

@@ -585,6 +585,13 @@ class RpcConnection:
         return out
 
     def close(self):
+        # shutdown first: a close alone leaves the reader thread blocked
+        # in recv, and the peer's serving thread waiting for a frame, for
+        # as long as both processes live
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:

@@ -52,7 +52,12 @@ class MetaApp:
     shared state_dir (meta/election.py); followers redirect. A timer
     every [failure_detector] check_interval_seconds expires dead nodes
     (check_leases) and re-seeds partitions below their replica count
-    (repair_under_replication), so a restarted node is re-added."""
+    (repair_under_replication), so a restarted node is re-added. A
+    second timer, every max(check_interval_seconds, 5) s, runs the
+    backup policies that are due (run_backup_policies): a long backup
+    must not stall lease checks. The reference's timer also purges
+    expired soft drops and refreshes duplication envs; the port serves
+    neither plane yet."""
 
     def __init__(self, name, config: Config, section: str):
         from ..meta.meta_server import MetaServer
@@ -85,6 +90,7 @@ class MetaApp:
         for code, fn in self.meta.rpc_handlers().items():
             self.rpc.register(code, fn)
         self._fd_timer = None
+        self._policy_timer = None
         self._stopped = False
         self._fd_interval = config.get_float("failure_detector",
                                              "check_interval_seconds", 5.0)
@@ -99,6 +105,7 @@ class MetaApp:
         if self.election is not None:
             self.election.start()
         self._arm_fd()
+        self._arm_policy()
         return self
 
     def _is_leader(self) -> bool:
@@ -120,10 +127,27 @@ class MetaApp:
         if not self._stopped:
             self._arm_fd()
 
+    def _arm_policy(self):
+        self._policy_timer = threading.Timer(max(self._fd_interval, 5.0),
+                                             self._policy_tick)
+        self._policy_timer.daemon = True
+        self._policy_timer.start()
+
+    def _policy_tick(self):
+        try:
+            if self._is_leader():
+                self.meta.run_backup_policies()
+        except Exception as e:  # a policy failure must not kill the timer
+            print(f"[meta] maintenance tick failed: {e!r}", flush=True)
+        if not self._stopped:
+            self._arm_policy()
+
     def stop(self):
         self._stopped = True
         if self._fd_timer:
             self._fd_timer.cancel()
+        if self._policy_timer:
+            self._policy_timer.cancel()
         if self.election is not None:
             self.election.stop()
         self.rpc.stop()

@@ -342,3 +342,80 @@ def test_cluster_phase_at_tiny_size(tmp_path):
     assert rep["read_back"]["sampled_keys"] == 300
     assert rep["audit"]["replicas"] == 12
     assert set(rep["stop_rcs"].values()) == {0}
+
+
+def test_cluster_lifecycle_at_tiny_size(tmp_path):
+    """The cluster phase's table lifecycle with every process on
+    device="cpu": the table created and bulk-loaded through the port's
+    shell (a session), the run with its kill and restart, a cold backup,
+    a 4 -> 8 split while two writers keep updating (every acknowledged
+    write kept), the GC compaction of every replica (each primary held
+    to the cpu backend under mask 7, owning only its keys, the
+    primaries' records summing to the table's), the read-back through 8
+    partitions, all 24 replicas' audit digests equal, the restore into
+    a new table read back with the backup-time values, and the restored
+    table's node compaction through the batched path, each replica held
+    to the cpu backend (run_cluster raises on any mismatch)."""
+    provider = str(tmp_path / "provider")
+    counts = chip_smoke.write_provider(provider, "usertable", 6000, 4,
+                                       chip_smoke.SERVE_FILES)
+    rep = chip_smoke.run_cluster(
+        "cpu", str(tmp_path / "cluster"), provider, counts, n_records=6000,
+        n_parts=4, n_ops=1200, n_threads=4, n_sample=300, kill_at=300,
+        restart_at=700, fd={"beacon_interval_seconds": 0.2,
+                            "grace_seconds": 2,
+                            "check_interval_seconds": 0.5}, lifecycle=True)
+    life = rep["lifecycle"]
+    assert "4/4 partitions, 6000 records" in rep["load"]["session"]
+    assert life["backup"]["bytes"] > 0
+    split = life["split"]
+    assert split["partitions"] == 8 and split["writers"]["ops"] > 0
+    assert split["seed_s"]["primary"]["learns"] == 4
+    assert split["seed_s"]["secondary"]["learns"] == 8
+    assert rep["compaction"]["partition_mask"] == 7
+    assert rep["compaction"]["gc_dropped_rows"] > 0
+    assert life["split_read_back"]["sampled_keys"] > 0
+    assert rep["audit"]["replicas"] == 24
+    assert life["restore"]["read_back"]["sampled_keys"] > 0
+    assert sum(s["batched"] for s in
+               life["node_compaction"]["stats"].values()) == 12
+    assert set(rep["stop_rcs"].values()) == {0}
+
+
+_LEFTOVERS = """
+import json, multiprocessing, os, subprocess, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from multiprocessing import resource_tracker
+
+ctx = multiprocessing.get_context("spawn")
+pool = ctx.Pool(1)
+assert pool.apply(abs, (-2,)) == 2
+progress = ctx.Value("q", 0)
+stray = subprocess.Popen(["sleep", "60"])
+tracker = resource_tracker._resource_tracker._pid
+chip_smoke._stop_processes()
+print(json.dumps({{"children": chip_smoke._child_pids(),
+                  "tracker": tracker,
+                  "tracker_alive": os.path.exists(f"/proc/{{tracker}}"),
+                  "stray": stray.pid}}))
+"""
+
+
+def test_stop_processes_leaves_no_child_running(tmp_path):
+    """The script's last act: a spawn pool never terminated and a stray
+    child are ended and reaped, and so is the resource tracker the pool
+    started, before the script exits (nothing of it outlives it)."""
+    import json
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _LEFTOVERS.format(root=chip_smoke.ROOT)],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["tracker"] is not None
+    assert got["children"] == [] and not got["tracker_alive"]
+    assert f"stopping leftover child process {got['stray']}" in proc.stderr
+    assert "leaked" not in proc.stderr
