@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (pegasus_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py fence-ab PARENT   (the fence kernel against
+                                            another checkout's; fence_ab)
 
 Needs one CUDA device and the CUDA toolkit (nvcc); without a device it
 exits non-zero before printing any result. Phases, one JSON line each:
@@ -25,9 +27,12 @@ exits non-zero before printing any result. Phases, one JSON line each:
               bench keys' heads timed beside 32 sequential 2-D calls;
               then the fence-lookup kernel byte-equal to its plain
               version (device_lookup.fence_lookup_plain) on
-              lookup_probe_cases(), points and ranges, and timed with the
-              plain version on a serve partition's run (312 500 rows) at
-              64 and 4096 queries;
+              lookup_probe_cases(), points and ranges, at the wrapper's
+              lanes per query and at each of the kernel's, and timed on
+              a serve partition's run (312 500 rows) at 64 and 4096
+              queries (time_fence: the wrapper's calls, the kernel's own
+              device time L2-warm and L2-cold, the wrapper's host time,
+              the plain version, rounds per query, the probe's split);
      device_stage  the compaction's device stage alone on the bench runs
               (below), under torch.profiler: wall time, device busy time,
               device time by kernel; the three merges' own operands are
@@ -47,7 +52,8 @@ exits non-zero before printing any result. Phases, one JSON line each:
               hits, half misses) and 1000 scan_range_batch ranges, each
               equal to the host walk (get / scan), through the
               fence-lookup kernel (its launches counted); the kernel then
-              checked and timed on the 10M-record compaction output;
+              checked and timed on the 10M-record compaction output
+              (time_fence);
   6. blockwise  the 10M runs through compact_blocks(backend="cuda",
               max_device_records=2^22): at least 3 key ranges, at
               PEGASUS_COMPACT_PIPELINE_DEPTH 1 and 2, each digest equal to
@@ -100,6 +106,8 @@ exits non-zero before printing any result. Phases, one JSON line each:
               (>= 32 launches) under torch.profiler, each output
               digest-equal to the cpu backend's compaction of the
               partition's runs from just before; the read-back again.
+              Then (`fence_probe`) time_fence on the serve partition's
+              run at the read-backs' batch size (read.batch.size p50).
  11. replicate  PacificA at BASELINE #3's per-partition scale: partition
               0 of the serve table, a ReplicaGroup of 3 replicas
               (cuda engines, quorum 2), loaded through PacificA with one
@@ -792,11 +800,15 @@ def lookup_edge_runs(device, seed: int = 4) -> list:
     """The fence lookup's edge cases as (name, DeviceRun, sorted keys):
     runs of 1 and 5 rows (a fence longer than the run, hi clamped to
     n - 1), keys with high-bit bytes (lanes above 0x7FFFFFFF, beside the
-    0xFFFFFFFF pads), one-lane runs, one crowded hash key and random
-    hash keys."""
+    0xFFFFFFFF pads), one-lane runs, one crowded hash key, random hash
+    keys, a serve partition's keys in small (YCSB names under field0: the
+    first lane takes a handful of values, so the fence narrows nothing)
+    and one hash key over 40 000 rows (a window above 33 * 33 rows: three
+    pivot rounds of the kernel's 32-lane groups and the last)."""
     from pegasus_tpu_torch.base.key_schema import generate_key
 
     rng = np.random.default_rng(seed)
+    rows, lens = ycsb_hash_keys(np.arange(3000, dtype=np.int64))
     out = [("n1", [generate_key(b"h", b"s")]),
            ("n5", [generate_key(b"h%d" % i, b"s") for i in range(5)]),
            ("one_lane", [bytes([b]) for b in rng.integers(0, 256, 40)]),
@@ -807,8 +819,17 @@ def lookup_edge_runs(device, seed: int = 4) -> list:
                       for i in range(0, 18000, 3)]),
            ("random", [generate_key(b"hk%04d" % rng.integers(0, 3000),
                                     b"s%d" % rng.integers(0, 9))
-                       for _ in range(2500)])]
+                       for _ in range(2500)]),
+           ("serve_lane0", [generate_key(rows[i, :lens[i]].tobytes(),
+                                         SERVE_FIELD)
+                            for i in range(len(lens))]),
+           ("wide", [generate_key(b"widehash", b"%07d" % i)
+                     for i in range(0, 80000, 2)])]
     return [(name,) + _key_run(keys, device) for name, keys in out]
+
+
+# 4097: a multiple of no block's groups, ranges' or points'
+LOOKUP_QUERY_COUNTS = (1, 127, 129, 300, 4097)
 
 
 def lookup_queries(keys, rng, n: int = 300) -> list:
@@ -828,16 +849,18 @@ def lookup_queries(keys, rng, n: int = 300) -> list:
 
 def lookup_probe_cases(device, seed: int = 5) -> list:
     """(name, DeviceRun, packed point queries, packed range queries,
-    point keys, ranges) over lookup_edge_runs at 1, 127, 129 and 300
-    queries (q not a multiple of the kernel's 128-thread block)."""
+    point keys, ranges) over lookup_edge_runs at LOOKUP_QUERY_COUNTS
+    queries (counts that fill no whole block of the kernel)."""
     from pegasus_tpu_torch.ops.device_lookup import pack_queries
 
     rng = np.random.default_rng(seed)
+    rng_large = np.random.default_rng(seed + 1)
     out = []
     for name, dr, keys in lookup_edge_runs(device):
         q = lookup_queries(keys, rng)
-        for nq in (1, 127, 129, 300):
-            pts = q[:nq]
+        q_large = lookup_queries(keys, rng_large, max(LOOKUP_QUERY_COUNTS))
+        for nq in LOOKUP_QUERY_COUNTS:
+            pts = q[:nq] if nq <= len(q) else q_large[:nq]
             ranges = [(pts[i], pts[(i + 1) % nq]) for i in range(nq)]
             out.append((f"{name}/q{nq}", dr,
                         pack_queries([pts], dr.w, device),
@@ -847,25 +870,32 @@ def lookup_probe_cases(device, seed: int = 5) -> list:
     return out
 
 
-def _check_fence(dr, packed, name: str) -> int:
+def _check_fence(dr, packed, name: str, group: int = None,
+                 want=None) -> int:
     """The kernel against the plain version on one probe: byte-equal,
-    one launch counted. -> 0 (the max abs difference)."""
+    one launch counted. `group` launches the kernel with that many lanes
+    per query (fence_lookup.launch_group) in place of the wrapper's
+    choice; `want` is the plain version's answer, where the caller has
+    it. -> 0 (the max abs difference)."""
     import torch
 
     from pegasus_tpu_torch.ops import fence_lookup as fl
     from pegasus_tpu_torch.ops.device_lookup import (fence_lookup,
-                                                     fence_lookup_plain)
+                                                     fence_lookup_plain,
+                                                     lookup_steps)
 
     before = fl.LAUNCHES["fence_lookup"]
-    got = fence_lookup(dr, packed)
+    got = fence_lookup(dr, packed) if group is None else fl.launch_group(
+        dr, packed, lookup_steps(dr), group)
     if fl.LAUNCHES["fence_lookup"] != before + 1:
         raise AssertionError(f"fence lookup {name}: no kernel launch")
     torch.cuda.synchronize()
-    want = fence_lookup_plain(dr, packed)
+    if want is None:
+        want = fence_lookup_plain(dr, packed)
     if got.dtype != want.dtype or not torch.equal(got, want):
         bad = (got != want).nonzero()[:5].tolist()
-        raise AssertionError(f"fence lookup {name}: kernel != plain at "
-                             f"{bad}")
+        raise AssertionError(f"fence lookup {name} (group {group}): kernel "
+                             f"!= plain at {bad}")
     return 0
 
 
@@ -908,7 +938,9 @@ def fence_bound(dr, packed) -> dict:
     every row its search probes, 8 B each, and the int32 answers written
     once) over the card's memory rate, against its operations (per round
     w + 1 64-bit compares, two 32-bit operations each, and the two fence
-    searches) over the peak; and its chain: the most dependent
+    searches) over the peak (the reference's search, whose probes the
+    function needs at the least); and `chain_loads`, the chain of that
+    search as a one-thread-per-query kernel runs it: the most dependent
     device-memory loads one query waits on in turn (one per round, plus
     the point lookup's equality load)."""
     n_sets, rows, nq = packed.shape
@@ -928,30 +960,183 @@ def fence_bound(dr, packed) -> dict:
             "chain_loads": int(rounds.max()) + (1 if n_sets == 1 else 0)}
 
 
-def time_fence(dr, keys, nq: int, seed: int = 9) -> dict:
-    """The kernel and the plain version on one probe of nq point queries
-    (half hits) and one of nq ranges against `dr`, checked then timed
-    with CUDA events. -> per kind: ms, plain_ms and the bound."""
+FLUSH_BYTES = 256 << 20   # written before an L2-cold launch: 5x the L2
+
+
+def fence_device_ms(call, cold: bool, reps: int = 30) -> float:
+    """The fence kernel's own device time per launch (torch.profiler's
+    device events of the kernels named fence_*, whatever launched them),
+    over `reps` calls of `call`: back to back with the L2 warm, or with
+    FLUSH_BYTES written just before each launch, so that the launch
+    finds the run in device memory as a serving process's probe does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda") if cold else None
+    call()
+    torch.cuda.synchronize()
+    # the trace loses a launch's record now and then (5 of 30 kept, once,
+    # on the H100): the time is the mean over the records it holds, from
+    # a trace that holds at least half of them
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                if flush is not None:
+                    flush.fill_(i)
+                call()
+            torch.cuda.synchronize()
+        ev = [(ms, c) for name, ms, c in _device_events(prof)
+              if "fence_" in name]
+        seen = sum(c for _, c in ev)
+        if reps // 2 <= seen <= reps:
+            return sum(ms for ms, _ in ev) / seen
+    raise AssertionError(f"the profile holds {ev} fence kernels of {reps} "
+                         f"launches")
+
+
+def host_us(call, reps: int = 200) -> float:
+    """Host microseconds per call of `call` (the wrapper: checks, output
+    allocation, stream, launch), the kernels left to run behind."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def probe_split(dr, points, ranges, reps: int = 20) -> dict:
+    """One probe as device_lookup.lookup_batch / range_batch run it, its
+    steps timed apart on the host clock (median microseconds over reps):
+    pack_queries on the host, the upload, the launch (the wrapper's
+    host time), the download (.cpu(), which waits for the kernel); and
+    the whole lookup_batch / range_batch call."""
+    import torch
+
     from pegasus_tpu_torch.ops.device_lookup import (fence_lookup,
-                                                     fence_lookup_plain,
-                                                     pack_queries)
+                                                     lookup_batch,
+                                                     pack_queries,
+                                                     range_batch)
+
+    dev = dr.cols.device
+    out = {}
+    for kind, sets, whole in (
+            ("point", [points], lambda: lookup_batch(dr, points)),
+            ("range", [[a for a, _ in ranges], [b for _, b in ranges]],
+             lambda: range_batch(dr, ranges))):
+        times = {k: [] for k in ("pack", "upload", "launch", "download",
+                                 "whole")}
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = pack_queries(sets, dr.w, "cpu")
+            t1 = time.perf_counter()
+            packed = host.to(dev)
+            t2 = time.perf_counter()
+            got = fence_lookup(dr, packed)
+            t3 = time.perf_counter()
+            got.cpu().numpy()
+            t4 = time.perf_counter()
+            whole()
+            t5 = time.perf_counter()
+            if i:   # the first round warms the allocator
+                for k, dt in (("pack", t1 - t0), ("upload", t2 - t1),
+                              ("launch", t3 - t2), ("download", t4 - t3),
+                              ("whole", t5 - t4)):
+                    times[k].append(dt * 1e6)
+        out[kind] = {k: float(np.median(v)) for k, v in times.items()}
+    return out
+
+
+def _rounds(rounds) -> dict:
+    return {"max": int(rounds.max()), "mean": float(rounds.float().mean())}
+
+
+def fence_probes(dr, keys, nq: int, seed: int = 9) -> dict:
+    """One probe of nq point queries (half of them hits, half a byte
+    above one) and one of nq ranges (consecutive sorted points) against
+    `dr`: {kind: (queries, packed buffer on the run's device)}."""
+    from pegasus_tpu_torch.ops.device_lookup import pack_queries
 
     rng = np.random.default_rng(seed)
     hits = [keys[int(i)] for i in rng.integers(0, len(keys), nq // 2)]
     pts = hits + [k + b"\x01" for k in hits][: nq - len(hits)]
     starts = sorted(pts)
+    stops = starts[1:] + starts[:1]
+    dev = dr.cols.device
+    return {"point": (pts, pack_queries([pts], dr.w, dev)),
+            "range": (list(zip(starts, stops)),
+                      pack_queries([starts, stops], dr.w, dev))}
+
+
+def time_fence(dr, keys, nq: int) -> dict:
+    """The kernel and the plain version on fence_probes(nq), checked,
+    then timed: `ms` the wrapper's calls back to back (CUDA events),
+    `device_ms` and `device_ms_cold` the kernel alone, L2-warm and
+    L2-cold (fence_device_ms), `host_us` the wrapper's host time per
+    call, `plain_ms`; the bound; the binary search's rounds per query
+    (`binary_rounds`, fence_rounds: a one-thread-per-query kernel's)
+    and, where the tree has it, the kernel's (`rounds`,
+    fence_lookup.search_model); and the probe's split (probe_split)."""
+    from pegasus_tpu_torch.ops import fence_lookup as fl
+    from pegasus_tpu_torch.ops.device_lookup import (fence_lookup,
+                                                     fence_lookup_plain)
+
     out = {"rows": dr.n, "queries": nq, "w": dr.w,
            "fence_len": dr.fence_len}
-    dev = dr.cols.device
-    for kind, packed in (
-            ("point", pack_queries([pts], dr.w, dev)),
-            ("range", pack_queries([starts, starts[1:] + starts[:1]], dr.w,
-                                   dev))):
+    model = getattr(fl, "search_model", None)
+    if model is not None:
+        out["group"] = fl.group_for(nq)
+    probes = fence_probes(dr, keys, nq)
+    for kind, (_, packed) in probes.items():
         _check_fence(dr, packed, f"{dr.n} rows/{nq} {kind}")
-        out[kind] = {"ms": _time_ms(lambda: fence_lookup(dr, packed), 50),
-                     "plain_ms": _time_ms(
-                         lambda: fence_lookup_plain(dr, packed), 3),
-                     **fence_bound(dr, packed)}
+
+        def call():
+            return fence_lookup(dr, packed)
+
+        rec = {"ms": _time_ms(call, 50),
+               "device_ms": fence_device_ms(call, cold=False),
+               "device_ms_cold": fence_device_ms(call, cold=True),
+               "host_us": host_us(call),
+               "plain_ms": _time_ms(lambda: fence_lookup_plain(dr, packed),
+                                    3),
+               **fence_bound(dr, packed),
+               "binary_rounds": _rounds(fence_rounds(dr, packed))}
+        if model is not None:
+            rec["rounds"] = _rounds(model(dr, packed)[1])
+        out[kind] = rec
+    out["split_us"] = probe_split(dr, probes["point"][0],
+                                  probes["range"][0])
+    return out
+
+
+def fence_group_sweep(dr, keys, counts=(64, 256, 1024, 4096)) -> dict:
+    """The kernel at each of its lanes per query (fence_lookup.GROUPS) on
+    fence_probes at each query count: checked, device ms L2-warm and
+    L2-cold, rounds per query. -> {nq: {kind: {group: record}}}."""
+    from pegasus_tpu_torch.ops import fence_lookup as fl
+    from pegasus_tpu_torch.ops.device_lookup import lookup_steps
+
+    out = {}
+    for nq in counts:
+        for kind, (_, packed) in fence_probes(dr, keys, nq).items():
+            rec = out.setdefault(str(nq), {}).setdefault(kind, {})
+            for g in fl.GROUPS:
+                _check_fence(dr, packed, f"{dr.n} rows/{nq} {kind}", g)
+
+                def call(g=g):
+                    return fl.launch_group(dr, packed, lookup_steps(dr), g)
+
+                rec[str(g)] = {
+                    "device_ms": fence_device_ms(call, cold=False),
+                    "device_ms_cold": fence_device_ms(call, cold=True),
+                    "rounds": _rounds(fl.search_model(dr, packed, g)[1])}
     return out
 
 
@@ -966,18 +1151,33 @@ def serve_partition_run(device, n: int = None):
                      for i in range(n)], device)
 
 
-def check_fence_kernel(device) -> dict:
+def check_fence_kernel(device):
     """Every edge case, point and range, kernel byte-equal to the plain
-    version on the card; then the kernel and the plain version timed on a
-    serve partition's run at 64 and 4096 queries."""
+    version on the card, at the wrapper's lanes per query and at each of
+    the kernel's (fence_lookup.GROUPS); then the kernel timed on a serve
+    partition's run at 64 and 4096 queries (time_fence). -> (the phase's
+    record, that run and its keys)."""
+    from pegasus_tpu_torch.ops.device_lookup import fence_lookup_plain
+    from pegasus_tpu_torch.ops.fence_lookup import GROUPS
+
     cases = lookup_probe_cases(device)
     for name, dr, points, ranges, _, _ in cases:
-        _check_fence(dr, points, name + "/point")
-        _check_fence(dr, ranges, name + "/range")
+        for kind, packed in (("point", points), ("range", ranges)):
+            want = fence_lookup_plain(dr, packed)
+            for group in (None,) + GROUPS:
+                _check_fence(dr, packed, f"{name}/{kind}", group, want)
+    n_cases = 2 * len(cases)
+    del cases
     dr, keys = serve_partition_run(device)
-    return {"cases": 2 * len(cases), "max_abs_err": 0,
+    return {"cases": n_cases, "groups": [None, *GROUPS], "max_abs_err": 0,
             "serve_partition": {str(nq): time_fence(dr, keys, nq)
-                                for nq in (64, 4096)}}
+                                for nq in (64, 4096)}}, dr, keys
+
+
+def _run_sample(blk, seed: int = 8) -> list:
+    """8192 of a run's keys, sorted: the keys time_fence draws from."""
+    rng = np.random.default_rng(seed)
+    return sorted(blk.key(int(i)) for i in rng.integers(0, blk.n, 8192))
 
 
 def fence_on_engine(eng, queries=(64, 4096)) -> dict:
@@ -990,10 +1190,71 @@ def fence_on_engine(eng, queries=(64, 4096)) -> dict:
     dr = eng._device_run_budgeted(sst)
     if dr is None or dr.fence is None:
         raise AssertionError("the engine's largest run is not resident")
-    blk = sst.block()
-    rng = np.random.default_rng(8)
-    keys = sorted(blk.key(int(i)) for i in rng.integers(0, blk.n, 8192))
+    keys = _run_sample(sst.block())
     return {str(nq): time_fence(dr, keys, nq) for nq in queries}
+
+
+def fence_measure(tree: str) -> dict:
+    """`chip_smoke.py fence-measure TREE`: the fence kernel of the
+    checkout at TREE (its pegasus_tpu_torch, imported ahead of this
+    one's) on a serve partition's run and on a 10 M-record fill run
+    (bench.py's first fill run at 10 M records, sorted: the shape of the
+    reads phase's compaction output), time_fence at 64 and 4096 queries;
+    in a tree with lanes per query to choose, fence_group_sweep.
+    It uses only what every tree with the fence kernel has, so it times
+    that tree's kernel and wrapper."""
+    import torch
+
+    sys.path.insert(0, tree)
+    from pegasus_tpu_torch.ops import _build
+    from pegasus_tpu_torch.ops import fence_lookup as fl
+    from pegasus_tpu_torch.ops.compact import pack_run_device
+
+    if not os.path.realpath(fl.__file__).startswith(os.path.realpath(tree)):
+        raise AssertionError(f"imported {fl.__file__}, not {tree}'s")
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.build("fence_lookup")
+    out = {"tree": tree, "build_s": time.perf_counter() - t0}
+    sweep = hasattr(fl, "GROUPS")
+    dr, keys = serve_partition_run(device)
+    out["serve_partition"] = {str(nq): time_fence(dr, keys, nq)
+                              for nq in (64, 4096)}
+    if sweep:
+        out["serve_partition"]["by_group"] = fence_group_sweep(dr, keys)
+    del dr
+    blk = presort_run(make_run(N_RECORDS, 0, seed=0,
+                               key_space=N_RECORDS // 2))
+    dr = pack_run_device(blk, device=device)
+    keys = _run_sample(blk)
+    del blk
+    out["fill_run"] = {str(nq): time_fence(dr, keys, nq)
+                       for nq in (64, 4096)}
+    if sweep:
+        out["fill_run"]["by_group"] = fence_group_sweep(dr, keys)
+    return out
+
+
+def fence_ab(parent: str) -> list:
+    """`chip_smoke.py fence-ab PARENT`: fence_measure of the checkout at
+    PARENT and of this one in turns (parent, change, change, parent),
+    each in a process of its own on the same card. -> the four records,
+    each also emitted as a `fence_ab` line."""
+    sides = [("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)]
+    out = []
+    for side, tree in sides:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "fence-measure",
+             os.path.abspath(tree)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"fence-measure {tree} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        rec = {"side": side, **json.loads(proc.stdout.splitlines()[-1])}
+        emit("fence_ab", **rec)
+        out.append(rec)
+    return out
 
 
 def _device_events(prof) -> list:
@@ -3802,13 +4063,39 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def fence_main(argv) -> int:
+    """`chip_smoke.py fence-measure TREE`: fence_measure's record as the
+    last line. `chip_smoke.py fence-ab PARENT`: the device line, then
+    fence_ab's four records as `fence_ab` lines, then the nvidia-smi
+    line."""
+    if len(argv) != 2 or argv[0] not in ("fence-measure", "fence-ab"):
+        print("usage: chip_smoke.py [fence-measure TREE | fence-ab PARENT]",
+              file=sys.stderr)
+        return 2
+    mode, tree = argv
+    if mode == "fence-measure":
+        print(json.dumps(fence_measure(tree)), flush=True)
+        return 0
+    import torch
+
+    smi = _nvidia_smi()
+    emit("device", kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda)
+    fence_ab(tree)
+    print(smi, flush=True)
+    return 0
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    if argv:
+        return fence_main(list(argv))
     sys.path.insert(0, ROOT)
     from pegasus_tpu_torch.ops import _build
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
@@ -3827,7 +4114,7 @@ def main() -> int:
     reports = dict(zip(BUILT, _parallel_build(BUILT)))
     ptxas = ptxas_usage(reports["merge_path"])
     ptxas_fence = ptxas_usage(reports["fence_lookup"],
-                              r"(fence_lookup)_kernel")
+                              r"(fence_search_kernelILi\d+)")
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          ptxas_fence_lookup=ptxas_fence)
     for src, usage in (("merge_path", ptxas), ("fence_lookup", ptxas_fence)):
@@ -3839,7 +4126,7 @@ def main() -> int:
 
     kern = check_kernel(device)
     kern_b = check_batched_kernel(device)
-    fence = check_fence_kernel(device)
+    fence, fence_dr, fence_keys = check_fence_kernel(device)
     emit("kernel", **kern, batched=kern_b, fence_lookup=fence)
 
     t0 = time.perf_counter()
@@ -3937,6 +4224,13 @@ def main() -> int:
     try:
         serve = run_serve(device, os.path.join(work, "serve"))
         emit("serve", **serve)
+        # the fence kernel on a serve partition's run at the probe size
+        # the serve read-backs' batches had (read.batch.size p50)
+        p50 = max(1, int(serve["read_back_after_run"]["batch_size"]["p50"]))
+        fence["serve_partition"]["batch_p50"] = time_fence(
+            fence_dr, fence_keys, p50)
+        emit("fence_probe", **fence["serve_partition"]["batch_p50"])
+        del fence_dr, fence_keys
         if serve["ingest_merge_launches"] < SERVE_PARTITIONS or \
                 serve["compaction"]["merge_launches"] < SERVE_PARTITIONS:
             raise AssertionError(
@@ -3979,9 +4273,10 @@ def main() -> int:
     half = [m["ms"] for m in merges if m["la"] == kern["large"]["la"]]
     own_half = sum(half) / len(half) if half else None
 
-    # the fence lookup: per launch on a serve partition's run at the
-    # read-backs' probe size (64 queries); its launches over the main
-    # path's reads (engine reads, serve, replicate and cluster read-backs)
+    # the fence lookup: per launch on a serve partition's run at 64
+    # queries (`ms` the wrapper's calls back to back; `device_ms` the
+    # kernel alone); its launches over the main path's reads (engine
+    # reads, serve, replicate and cluster read-backs)
     life = cluster["lifecycle"]
     fence_launches = {
         "reads": reads["fence_launches"],
@@ -4026,6 +4321,11 @@ def main() -> int:
         "bound_ms": fence_64["bound_ms"],
         "bound_by": fence_64["bound_by"],
         "library_ms": None,
+        "device_ms": fence_64["device_ms"],
+        "device_ms_cold": fence_64["device_ms_cold"],
+        "host_us": fence_64["host_us"],
+        "rounds": fence_64["rounds"],
+        "binary_rounds": fence_64["binary_rounds"],
         "chain_loads": fence_64["chain_loads"],
         "launches_by_phase": fence_launches,
         "serve_partition": fence["serve_partition"],
@@ -4139,7 +4439,7 @@ def _stop_processes() -> None:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     finally:
         _stop_processes()
     sys.exit(rc)

@@ -6,8 +6,11 @@ including queries longer than the run's prefix window (klen tie-break),
 strict prefixes, misses on both ends, inverted ranges and open stops.
 """
 
+import functools
+
 import numpy as np
 import pytest
+import torch
 
 from pegasus_tpu.base.key_schema import generate_key, generate_next_bytes
 from pegasus_tpu.ops import compact as ref_compact
@@ -106,10 +109,18 @@ def test_fence_index_matches_reference(runs):
 
 # ------------------------------------------- the kernel's plain version
 
+@functools.lru_cache(maxsize=1)
 def _edge_cases():
     import chip_smoke
 
     return chip_smoke.lookup_probe_cases("cpu")
+
+
+@functools.lru_cache(maxsize=1)
+def _edge_runs():
+    import chip_smoke
+
+    return {name: keys for name, _, keys in chip_smoke.lookup_edge_runs("cpu")}
 
 
 def _ref_run(keys):
@@ -121,21 +132,19 @@ def _ref_run(keys):
 
 
 @pytest.mark.parametrize("run", ["n1", "n5", "one_lane", "high_bit",
-                                 "dense", "random"])
+                                 "dense", "random", "serve_lane0", "wide"])
 def test_plain_version_matches_reference_and_host_on_edge_runs(run):
     """fence_lookup_plain (the kernel's yardstick) on the kernel's edge
     cases: runs of 1 and 5 rows, one-lane runs, high-bit lanes, a crowded
-    hash key; 1, 127, 129 and 300 queries; points and ranges. Rows equal
-    the host walk, and the JAX package's lookup_batch / range_batch at
-    300 queries."""
+    hash key, a serve partition's keys in small, a window above 33 * 33
+    rows; 1, 127, 129, 300 and 4097 queries; points and ranges. Rows
+    equal the host walk, and the JAX package's lookup_batch /
+    range_batch at 300 queries."""
     import bisect
 
     import torch
 
-    import chip_smoke
-
-    dr_keys = dict((name, keys) for name, _, keys in
-                   chip_smoke.lookup_edge_runs("cpu"))[run]
+    dr_keys = _edge_runs()[run]
     ref_dr = _ref_run(dr_keys)
     for name, dr, points, ranges, keys_q, ranges_q in _edge_cases():
         if name.split("/")[0] != run:
@@ -187,7 +196,156 @@ def test_fence_kernel_matches_plain_on_card():
                     "python -m pytest -m cuda tests/test_torch_*.py)")
     import chip_smoke
 
+    from pegasus_tpu_torch.ops.fence_lookup import GROUPS
+
     for name, dr, points, ranges, _, _ in chip_smoke.lookup_probe_cases(
             torch.device("cuda")):
-        chip_smoke._check_fence(dr, points, name)
-        chip_smoke._check_fence(dr, ranges, name)
+        for group in (None,) + GROUPS:
+            chip_smoke._check_fence(dr, points, name, group)
+            chip_smoke._check_fence(dr, ranges, name, group)
+
+
+# ------------------------------- Pegasus keys and the kernel's search
+
+def _pegasus_keys(n: int = 4000) -> list:
+    """Stored keys of a serve partition in small: YCSB's hashed names
+    ("user" + fnvhash64(rank)) under sort key field0."""
+    import chip_smoke
+
+    rows, lens = chip_smoke.ycsb_hash_keys(np.arange(n, dtype=np.int64))
+    return sorted({generate_key(rows[i, :lens[i]].tobytes(),
+                                chip_smoke.SERVE_FIELD) for i in range(n)})
+
+
+def _pegasus_queries(dr, keys, rng) -> list:
+    """Hits, misses beside them, strict prefixes, keys past the 4w-byte
+    window, the run's ends, and the keys at and beside every 32nd fence
+    sample (the ends of the reference's fence windows)."""
+    import chip_smoke
+
+    q = chip_smoke.lookup_queries(keys, rng, 300)
+    for pos in range(0, dr.fence_len, 32):
+        i = min(pos * dr.fence_step, dr.n - 1)
+        for j in (i - 1, i, i + 1):
+            if 0 <= j < dr.n:
+                q += [keys[j], keys[j] + b"\x00", keys[j][:-1],
+                      keys[j] + b"Z" * (4 * dr.w)]
+    return q[:512]
+
+
+@pytest.fixture(scope="module")
+def pegasus_run():
+    import chip_smoke
+
+    keys = _pegasus_keys()
+    dr, keys = chip_smoke._key_run(keys, "cpu")
+    return dr, keys, _ref_run(keys)
+
+
+def test_pegasus_run_fence_narrows_nothing(pegasus_run):
+    """The run the kernel was redesigned for: the first lane (the 2-byte
+    hashkey length and two hashkey bytes) takes a handful of values, so
+    the fence window of a query is most of the run."""
+    dr, keys, _ = pegasus_run
+    assert len(set(dr.cols[0][:dr.n].tolist())) <= 5
+    assert len(set(dr.fence.tolist())) <= 5
+
+
+def test_pegasus_run_plain_matches_reference(pegasus_run):
+    """Points and ranges through the port's fence_lookup_plain against
+    the JAX package's lookup_batch / range_batch on a Pegasus-shaped run,
+    at window ends, strict prefixes and keys longer than 4w bytes."""
+    import bisect
+
+    dr, keys, ref_dr = pegasus_run
+    q = _pegasus_queries(dr, keys, np.random.default_rng(11))
+    got = port_lookup.fence_lookup_plain(
+        dr, port_lookup.pack_queries([q], dr.w, "cpu")).numpy()
+    np.testing.assert_array_equal(got, ref_lookup.lookup_batch(ref_dr, q))
+    assert (got >= 0).sum() > 100 and (got < 0).sum() > 100
+    ranges = [(q[i], q[(i + 7) % len(q)]) for i in range(len(q))]
+    got_r = port_lookup.fence_lookup_plain(
+        dr, port_lookup.pack_queries([[a for a, _ in ranges],
+                                      [b for _, b in ranges]], dr.w,
+                                     "cpu")).numpy()
+    np.testing.assert_array_equal(got_r, ref_lookup.range_batch(ref_dr,
+                                                                ranges))
+    np.testing.assert_array_equal(
+        got_r[:, 0], [bisect.bisect_left(keys, a) for a, _ in ranges])
+
+
+@pytest.mark.parametrize("run", ["n1", "n5", "one_lane", "high_bit",
+                                 "dense", "random", "serve_lane0", "wide"])
+def test_search_model_matches_plain_on_edge_runs(run):
+    """The kernel's search (fence_lookup.search_model) at each of the
+    kernel's lanes per query equals fence_lookup_plain on every edge
+    case, points and ranges."""
+    from pegasus_tpu_torch.ops.fence_lookup import GROUPS, search_model
+
+    for name, dr, points, ranges, _, _ in _edge_cases():
+        if name.split("/")[0] != run:
+            continue
+        for packed in (points, ranges):
+            want = port_lookup.fence_lookup_plain(dr, packed)
+            for group in GROUPS:
+                got, rounds = search_model(dr, packed, group)
+                assert got.dtype == want.dtype
+                assert torch.equal(got, want), (name, group)
+                assert int(rounds.min()) >= 1
+
+
+def test_search_model_matches_plain_on_pegasus_run(pegasus_run):
+    from pegasus_tpu_torch.ops.fence_lookup import GROUPS, search_model
+
+    dr, keys, _ = pegasus_run
+    q = _pegasus_queries(dr, keys, np.random.default_rng(12))
+    for packed in (port_lookup.pack_queries([q], dr.w, "cpu"),
+                   port_lookup.pack_queries([q, q[1:] + q[:1]], dr.w,
+                                            "cpu")):
+        want = port_lookup.fence_lookup_plain(dr, packed)
+        for group in GROUPS:
+            assert torch.equal(search_model(dr, packed, group)[0], want)
+
+
+def test_search_model_rounds_on_pegasus_runs(pegasus_run):
+    """At most 5 dependent rounds per query on the Pegasus-shaped run,
+    where a binary search takes ~log2(n); and 4 at a whole
+    serve partition's 312 500 rows (the binary search: 19, and one load
+    more for a point's equality)."""
+    import chip_smoke
+    from pegasus_tpu_torch.ops.fence_lookup import search_model
+
+    dr, keys, _ = pegasus_run
+    packed = port_lookup.pack_queries(
+        [_pegasus_queries(dr, keys, np.random.default_rng(13))], dr.w, "cpu")
+    _, rounds = search_model(dr, packed, 32)
+    assert int(rounds.max()) <= 5
+    assert int(chip_smoke.fence_rounds(dr, packed).max()) >= 11
+    big, big_keys = chip_smoke.serve_partition_run("cpu")
+    rng = np.random.default_rng(14)
+    q = [big_keys[int(i)] for i in rng.integers(0, big.n, 64)]
+    packed = port_lookup.pack_queries([q], big.w, "cpu")
+    got, rounds = search_model(big, packed)
+    assert torch.equal(got, port_lookup.fence_lookup_plain(big, packed))
+    assert int(rounds.max()) == 4
+    assert int(chip_smoke.fence_rounds(big, packed).max()) >= 17
+
+
+def test_launch_checks_raise_before_the_card():
+    """The wrapper's guards raise on what the kernel does not take, before
+    any launch: a buffer of the wrong width, a group the kernel has no
+    instantiation for, a depth short of the run, a wrong dtype."""
+    from pegasus_tpu_torch.ops import fence_lookup as fl
+
+    name, dr, points, ranges, _, _ = _edge_cases()[0]
+    steps = port_lookup.lookup_steps(dr)
+    with pytest.raises(ValueError):
+        fl.launch(dr, points[:, :-1], steps)
+    with pytest.raises(ValueError):
+        fl.launch_group(dr, points, steps, 12)
+    big = next(d for n, d, *_ in _edge_cases() if n.startswith("wide/"))
+    with pytest.raises(ValueError):
+        fl.launch(big, port_lookup.pack_queries([[b"x"]], big.w, "cpu"), 3)
+    with pytest.raises(TypeError):
+        fl.launch(dr, points.to(torch.int32), steps)
+    assert fl.group_for(64) in fl.GROUPS and fl.group_for(4097) in fl.GROUPS
