@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (pegasus_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py fence-ab PARENT   (the fence kernel against
-                                            another checkout's; fence_ab)
+    python3 chip_smoke.py fence-ab TREE ... (the fence kernel of each
+                                            checkout in turn; ab)
+    python3 chip_smoke.py serve-ab TREE ... (the serve phase of each
+                                            checkout in turn; ab)
 
 Needs one CUDA device and the CUDA toolkit (nvcc); without a device it
 exits non-zero before printing any result. Phases, one JSON line each:
@@ -48,6 +50,18 @@ exits non-zero before printing any result. Phases, one JSON line each:
      compact_values  the same with EngineOptions(device_values=True):
               value rows resident too, the output's values gathered on the
               device, the same digest;
+     levels   the engine's own L0 -> L1 compact() and its size-triggered
+              cascade (1M records of the same fill, 8 MiB files, an L1
+              budget of 32 MiB, ratio 4) in two rounds (the older two
+              runs installed and compacted, then the newer two, whose
+              merges meet the levels' files) at
+              PEGASUS_COMPACT_PIPELINE_DEPTH 1 (synchronous installs) and
+              2 (deferred installs), in turns 1, 2, 2, 1, every level's
+              files digest-equal to the cpu backend engine's after each
+              round; compact() seconds and the seconds until its async
+              primes settled; from the compaction's job trace the
+              engine.merge and engine.install hop seconds and the
+              install seconds beside a merge;
   5. reads    200k write_batch puts + flush, get_batch of 100k keys (half
               hits, half misses) and 1000 scan_range_batch ranges, each
               equal to the host walk (get / scan), through the
@@ -99,7 +113,7 @@ exits non-zero before printing any result. Phases, one JSON line each:
               ops from 8 PegasusClient threads, 50 % get,
               50 % set on zipfian ranks (theta 0.99), every read the loaded
               or an issued value; read-back of every updated key and a
-              100k sample of untouched keys through batch dispatch (its
+              50k sample of untouched keys through batch dispatch (its
               batches above 1, device lookups made, each through the
               fence-lookup kernel); a manual
               compaction of every partition through update_app_envs
@@ -115,7 +129,7 @@ exits non-zero before printing any result. Phases, one JSON line each:
               YCSB-A, 10k ops from 8 threads (gets through
               primary.server.on_get_batch), group 0's primary killed at
               op 3.75k and restarted as a learner at op 6.25k (writes
-              commit throughout); every acknowledged update and a 100k
+              commit throughout); every acknowledged update and a 50k
               sample read back from every replica (fence-lookup launches
               counted); state digests equal; a manual
               compaction of all 3 replicas, each output digest-equal to
@@ -133,15 +147,24 @@ exits non-zero before printing any result. Phases, one JSON line each:
               client process, the node leading the most partitions
               SIGKILLed at op 15k and restarted at op 25k once failed over
               (the meta re-adds it, it relearns over RPC_LEARN_*), no op
-              failing for good; every acknowledged update and a 100k
+              failing for good; every acknowledged update and a 50k
               sample read back (fence-lookup launches scraped from the
-              processes). The table lifecycle: `backup_app`; the split to
+              processes). Then the runtime planes through the shell: a
+              traced set's spans under one trace_id in every node's
+              `request_trace`; `set_fail_point` arming a one-shot sleep on
+              a secondary's plog group commit, its `slow_requests` naming
+              plog.append; `tables` folding reads and writes to at least
+              the acknowledged ops, device reads and resident bytes
+              counted. The table lifecycle: `backup_app`; the split to
               64 partitions (RPC_CM_START_PARTITION_SPLIT) while 2 writers
               keep updating, each child seeded by a learn (seconds and
               bytes); the GC compaction of all 192 replicas through
               RPC_CM_SET_APP_ENVS, each primary's output digest-equal to
               the cpu backend's under mask 63, owning only its keys, the
-              primaries' records summing to the table's; every
+              primaries' records summing to the table's (after it:
+              `compact_trace` shows the device stages, `device_health`
+              not wedged with a fresh last_ok, `job_trace` the manual
+              compaction jobs); every
               acknowledged write (the run's and the split's) and the
               sample read back through 64 partitions; trigger-audit on
               every primary, query-audit on every replica: equal digests
@@ -149,11 +172,17 @@ exits non-zero before printing any result. Phases, one JSON line each:
               usertable_r (query_restore_status to ok), its read-back
               equal to the values at backup time; batched-manual-compact
               of usertable_r on every node (the batched merge kernel),
-              each replica's output held to the cpu backend; every
-              process stopped with SIGTERM, exit 0.
+              each replica's output held to the cpu backend, its
+              `job_trace` merge hops carrying the node's launch-count
+              delta; every process stopped with SIGTERM, exit 0, having
+              run under PEGASUS_LOCKRANK=1 with no lock-order violation
+              in its file, and each replica node's acquisition graph
+              (its lockrank.edges counter, read before the stop) not
+              empty.
 
-The main paths (compact, blockwise, batched, offload, serve's ingest
-and compaction, replicate's load and compaction; the reads of reads,
+The main paths (compact, levels at each depth, blockwise, batched,
+offload, serve's ingest and compaction, replicate's load and
+compaction; the reads of reads,
 serve and replicate) each run with the launch counts set to 0 just
 before and read just after; the cluster phase reads each process's
 counts (perf counters kernel.*) before and after each of its steps:
@@ -1235,24 +1264,62 @@ def fence_measure(tree: str) -> dict:
     return out
 
 
-def fence_ab(parent: str) -> list:
-    """`chip_smoke.py fence-ab PARENT`: fence_measure of the checkout at
-    PARENT and of this one in turns (parent, change, change, parent),
-    each in a process of its own on the same card. -> the four records,
-    each also emitted as a `fence_ab` line."""
-    sides = [("parent", parent), ("change", ROOT), ("change", ROOT),
-             ("parent", parent)]
+def serve_measure(tree: str) -> dict:
+    """`chip_smoke.py serve-measure TREE`: the serve phase (run_serve at
+    its defaults) of the checkout at TREE, measured by that tree's own
+    chip_smoke.py with its own package, both imported ahead of this
+    one's (the client process it spawns inherits the path). -> the YCSB
+    run's ops/s and get / set percentiles, the read-backs' keys/s and
+    batch sizes."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, tree)
+    sys.modules.pop("chip_smoke", None)
+    cs = importlib.import_module("chip_smoke")
+    if os.path.realpath(cs.__file__) != os.path.realpath(
+            os.path.join(tree, "chip_smoke.py")):
+        raise AssertionError(f"imported {cs.__file__}, not {tree}'s")
+    cs._parallel_build(cs.BUILT)
+    work = os.path.join(tree, ".scratch", "serve_measure")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        rep = cs.run_serve(torch.device("cuda"), work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    run = rep["run"]
+    return {"tree": tree, "ops_per_s": run["ops_per_s"], "get": run["get"],
+            "set": run["set"],
+            "read_back_keys_per_s": [rep[k]["keys_per_s"] for k in (
+                "read_back_after_run", "read_back_after_compaction")],
+            "batch_size": rep["read_back_after_run"].get("batch_size")}
+
+
+MEASURES = {"fence": "fence_measure", "serve": "serve_measure"}
+
+
+def ab(phase: str, trees) -> list:
+    """`chip_smoke.py <phase>-ab TREE [TREE ...]` (phase fence or serve):
+    <phase>-measure of each tree in the order given (list a pair twice,
+    reversed, to cancel the card's drift), each in a process of its own
+    on the same card; one TREE means TREE and this checkout in turns
+    (TREE, this, this, TREE). -> the records, each also emitted as a
+    `<phase>_ab` line."""
+    if len(trees) == 1:
+        trees = [trees[0], ROOT, ROOT, trees[0]]
     out = []
-    for side, tree in sides:
+    for tree in trees:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "fence-measure",
+            [sys.executable, os.path.abspath(__file__), f"{phase}-measure",
              os.path.abspath(tree)], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, timeout=900)
         if proc.returncode != 0:
-            raise AssertionError(f"fence-measure {tree} exited "
+            raise AssertionError(f"{phase}-measure {tree} exited "
                                  f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-        rec = {"side": side, **json.loads(proc.stdout.splitlines()[-1])}
-        emit("fence_ab", **rec)
+        rec = json.loads(proc.stdout.splitlines()[-1])
+        emit(f"{phase}_ab", **rec)
         out.append(rec)
     return out
 
@@ -1465,6 +1532,170 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
             "fence_launches": fence_launches,
             "device_stages": {k: stages[k] for k in ("read.lookup",
                                                      "read.range")}}
+
+
+# ------------------------------------------- L0 + cascade, deferred installs
+
+LEVELS_RECORDS = 1_000_000   # the levels phase's fill (4 runs)
+LEVELS_OPTS = dict(l0_compaction_trigger=1 << 30,
+                   target_file_size_bytes=8 << 20, level_base_bytes=32 << 20,
+                   level_size_ratio=4, max_levels=3)
+
+
+def _levels_engine(path: str, backend: str, device, opts: dict):
+    """An empty port engine with small level budgets; no L0 trigger
+    fires on its own."""
+    from pegasus_tpu_torch.engine.db import EngineOptions, LsmEngine
+
+    return LsmEngine(path, EngineOptions(backend=backend, device=device,
+                                         **opts))
+
+
+def _install(eng, runs) -> None:
+    for blk in reversed(runs):  # the last installed is the newest
+        eng.install_ingested_block(blk)
+
+
+def levels_digest(path: str) -> dict:
+    """{"l0" | level: [file count, digest]} as the MANIFEST lists them."""
+    from pegasus_tpu_torch.engine.sstable import read_sst
+
+    with open(os.path.join(path, "MANIFEST")) as f:
+        m = json.load(f)
+    out = {"l0": [len(m["l0"]), block_digest(
+        [read_sst(os.path.join(path, n))[0] for n in m["l0"]])]}
+    for lv in sorted(m["levels"], key=int):
+        out[lv] = [len(m["levels"][lv]), block_digest(
+            level_blocks(path, int(lv)))]
+    return out
+
+
+def _hop_intervals(rec, name: str) -> list:
+    return [(h["ts"], h["ts"] + h["duration_us"] / 1e6) for h in rec["hops"]
+            if h["name"] == name]
+
+
+def _levels_rounds(runs) -> list:
+    """The fill's older half, then its newer half: the second round's L0
+    merge meets L1 files it overlaps, and its cascade L2 files."""
+    half = len(runs) // 2
+    return [runs[half:], runs[:half]]
+
+
+def run_levels(runs, device, work: str, opts: dict = LEVELS_OPTS) -> dict:
+    """The engine's own L0 -> L1 compact() and its size-triggered cascade
+    into L2 and L3 (`opts`) in two rounds (the fill's older two runs
+    installed and compacted, then its newer two), on `device` at pipeline
+    depths 1 (synchronous installs) and 2 (deferred installs: each
+    output written on the install pool under the next merge), in turns
+    1, 2, 2, 1 so the card's and the host's drift cancel. After each
+    round every level's files are digest-equal to the cpu backend
+    engine's after the same rounds. Per turn and round: compact()
+    seconds, and settled seconds (compact() until every async prime it
+    queued has landed: depth 2 hands the outputs' primes to the pool,
+    depth 1 primes inline, so only the settled time is the same work at
+    both), merges and kernel launches (counts set to 0 just before, read
+    just after), sst_write seconds, and from the compaction's job trace
+    the engine.merge and engine.install hop seconds and how long
+    installs ran beside a merge. Per depth: the mean of its turns."""
+    import torch
+
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.runtime.job_trace import JOB_TRACER
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    rounds = _levels_rounds(runs)
+    cpu = _levels_engine(os.path.join(work, "cpu"), "cpu", "cpu", opts)
+    want, cpu_s = [], 0.0
+    for rnd in rounds:
+        _install(cpu, rnd)
+        t0 = time.perf_counter()
+        cpu.compact(now=NOW)
+        cpu_s += time.perf_counter() - t0
+        want.append(levels_digest(cpu.path))
+    cpu.close()
+    shutil.rmtree(os.path.join(work, "cpu"))
+    out = {"records": sum(r.n for r in runs), "options": opts,
+           "cpu_backend_s": cpu_s,
+           "files": [{lv: v[0] for lv, v in w.items()} for w in want]}
+    turns = {1: [], 2: []}
+    depth_env = os.environ.get("PEGASUS_COMPACT_PIPELINE_DEPTH")
+    try:
+        for turn, depth in enumerate((1, 2, 2, 1)):
+            os.environ["PEGASUS_COMPACT_PIPELINE_DEPTH"] = str(depth)
+            path = os.path.join(work, f"turn{turn}")
+            eng = _levels_engine(path, "cuda", device, opts)
+            per_round = []
+            for i, rnd in enumerate(rounds):
+                _install(eng, rnd)
+                eng.wait_primes()
+                if on_card:
+                    torch.cuda.synchronize(device)
+                LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+                with COMPACT_TRACER.session() as sess, \
+                        JOB_TRACER.job("compact", phase="levels",
+                                       depth=depth, round=i) as jid:
+                    t0 = time.perf_counter()
+                    stats = eng.compact(now=NOW)
+                    if on_card:
+                        torch.cuda.synchronize(device)
+                    compact_s = time.perf_counter() - t0
+                    eng.wait_primes()
+                    if on_card:
+                        torch.cuda.synchronize(device)
+                    settled_s = time.perf_counter() - t0
+                launches = LAUNCHES["merge_path"]
+                rec = JOB_TRACER.find(jid)
+                merges = _hop_intervals(rec, "engine.merge")
+                installs = _hop_intervals(rec, "engine.install")
+                got = levels_digest(path)
+                if got != want[i]:
+                    raise AssertionError(f"levels depth {depth} round {i}: "
+                                         f"{got} != cpu backend {want[i]}")
+                if depth == 2 and not installs:
+                    raise AssertionError("depth 2 deferred no install")
+                per_round.append({
+                    "compact_s": compact_s, "settled_s": settled_s,
+                    "l0_records": stats["input_records"],
+                    "merges": len(merges), "merge_launches": launches,
+                    "merge_s": sum(e - s for s, e in merges),
+                    "installs": len(installs),
+                    "install_s": sum(e - s for s, e in installs),
+                    "install_beside_merge_s": sum(
+                        max(0.0, min(e, me) - max(s, ms))
+                        for s, e in installs for ms, me in merges),
+                    "stages": sess.summary()})
+            eng.close()
+            shutil.rmtree(path)
+            if on_card and per_round[1]["merge_launches"] <= 3:
+                raise AssertionError(f"levels depth {depth}: the second "
+                                     f"round's cascade launched no merge "
+                                     f"kernel: {per_round}")
+            turns[depth].append({
+                "compact_s": sum(r["compact_s"] for r in per_round),
+                "settled_s": sum(r["settled_s"] for r in per_round),
+                "merge_launches": sum(r["merge_launches"]
+                                      for r in per_round),
+                "sst_write_s": sum(r["stages"].get("sst_write", {})
+                                   .get("s", 0.0) for r in per_round),
+                "rounds": per_round})
+    finally:
+        if depth_env is None:
+            os.environ.pop("PEGASUS_COMPACT_PIPELINE_DEPTH", None)
+        else:
+            os.environ["PEGASUS_COMPACT_PIPELINE_DEPTH"] = depth_env
+    for depth, recs in turns.items():
+        launches = {r["merge_launches"] for r in recs}
+        if len(launches) != 1:
+            raise AssertionError(f"levels depth {depth}: the turns launched "
+                                 f"{launches} merges")
+        out[f"depth{depth}"] = {
+            **{k: sum(r[k] for r in recs) / len(recs)
+               for k in ("compact_s", "settled_s", "sst_write_s")},
+            "merge_launches": launches.pop(), "rounds": recs[0]["rounds"],
+            "turns": recs}
+    return out
 
 
 # --------------------------------------- batched multi-partition path
@@ -2011,7 +2242,9 @@ SERVE_FILES = 4            # raw-set files per partition
 SERVE_OPS = 100_000        # 200 000 until the cluster phase took on the
                            # table lifecycle: cut for the clock
 SERVE_THREADS = 8
-SERVE_SAMPLE = 100_000     # untouched keys read back
+SERVE_SAMPLE = 50_000      # untouched keys read back (100 000 until the
+                           # levels phase and the cluster's lock-order
+                           # and tracing costs needed the clock)
 SERVE_THETA = 0.99
 SERVE_APP_ID = 3
 SERVE_FIELD = b"field0"
@@ -2677,7 +2910,8 @@ REPLICATE_GROUPS = 1
 REPLICATE_OPS = 10_000
 REPLICATE_THREADS = 8
 REPLICATE_WAVE = 8          # ops per client wave; its gets, one batch per group
-REPLICATE_SAMPLE = 100_000  # untouched loaded keys read back from every replica
+REPLICATE_SAMPLE = 50_000  # untouched loaded keys read back from every
+                           # replica (100 000 until the levels phase)
 REPLICATE_KILL_AT = 3_750
 REPLICATE_RESTART_AT = 6_250
 REPLICATE_APP_ID = 4
@@ -3088,7 +3322,8 @@ def run_replicate(device, work: str, provider: str,
 
 CLUSTER_OPS = 40_000
 CLUSTER_THREADS = 8
-CLUSTER_SAMPLE = 100_000      # untouched loaded keys read back
+CLUSTER_SAMPLE = 50_000       # untouched loaded keys read back (100 000
+                              # until the levels phase)
 CLUSTER_KILL_AT = 15_000
 CLUSTER_RESTART_AT = 25_000
 CLUSTER_APP = "usertable"
@@ -3118,8 +3353,9 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
     """onebox.ini cut to one meta and replica1..3 on fixed free ports,
     data under `work`, compaction_backend = cuda (`device = cpu` when the
     phase rehearses on the CPU), [failure_detector] as onebox.ini's unless
-    `fd` overrides it; the planes the port does not serve yet (toollets,
-    http_port, collector, offload) left out. -> (ini path, meta address,
+    `fd` overrides it; the planes the port does not serve yet (http_port,
+    collector, offload) left out, and the toollets too: a middleware sends
+    every frame per frame, and the read-backs are measured batched. -> (ini path, meta address,
     {replica name: address})."""
     import configparser
 
@@ -3155,10 +3391,11 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
 
 class _App:
     """One `python -m pegasus_tpu_torch.server --app <name>` process, its
-    output in <work>/<name>.<n>.log."""
+    output in <work>/<name>.<n>.log, `env` added to this process's."""
 
-    def __init__(self, ini: str, name: str, work: str):
+    def __init__(self, ini: str, name: str, work: str, env: dict = None):
         self.ini, self.name, self.work = ini, name, work
+        self.env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
         self.starts = 0
         self.proc = None
         self.start()
@@ -3170,8 +3407,7 @@ class _App:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "pegasus_tpu_torch.server", "--config",
                  self.ini, "--app", self.name], stdout=out,
-                stderr=subprocess.STDOUT, cwd=self.work,
-                env=dict(os.environ, PYTHONPATH=ROOT))
+                stderr=subprocess.STDOUT, cwd=self.work, env=self.env)
 
     def wait_started(self, deadline: float) -> str:
         marker = f"[pegasus-tpu] app {self.name} started "
@@ -3473,6 +3709,191 @@ def _check_outputs(work: str, names: dict, app_id: int, kept: dict,
             "records_by_pidx": {p: n for p, _, n, _ in res}}
 
 
+# ------------------------------------------ the runtime planes of a cluster
+
+TRACE_SLEEP_MS = 300     # the sleep armed on one secondary's plog group
+
+
+def _shell_nodes(meta: str, line: str) -> dict:
+    """A shell command that answers node by node ("[host:port]", then
+    that node's reply) -> {address: reply text}."""
+    import re
+
+    out, cur = {}, None
+    for ln in _shell(meta, line).splitlines():
+        m = re.fullmatch(r"\[(\d+\.\d+\.\d+\.\d+:\d+)\]", ln.strip())
+        if m:
+            cur = m.group(1)
+            out[cur] = ""
+        elif cur is not None:
+            out[cur] += ln + "\n"
+    return out
+
+
+def _traced_put(client, hk: bytes) -> dict:
+    """One set through `client` in a fresh request trace -> this
+    process's view of the trace."""
+    from pegasus_tpu_torch.runtime.tracing import REQUEST_TRACER
+
+    before = {t["trace_id"] for t in REQUEST_TRACER.trace(512)}
+    client.set(hk, SERVE_FIELD, b"traced")
+    new = [t for t in REQUEST_TRACER.trace(512)
+           if t["trace_id"] not in before and t["op"] == "RPC_RRDB_RRDB_PUT"]
+    if len(new) != 1:
+        raise AssertionError(f"one set made {len(new)} traces")
+    return new[0]
+
+
+def check_traces(meta: str, addrs: list, app: str, n_parts: int) -> dict:
+    """Request tracing through the port's shell. A traced set from this
+    process: `request_trace` on every node shows its spans under the
+    set's trace_id (the primary's handler and the two secondaries'
+    prepares). Then `set_fail_point` arms a one-shot sleep on one
+    secondary's plog group commit, and that node's `slow_requests`
+    holds the next traced set, the sleep in its plog.append span."""
+    from pegasus_tpu_torch.client import MetaResolver, PegasusClient
+
+    client = PegasusClient(MetaResolver([meta], app), timeout=60)
+    try:
+        t = _traced_put(client, b"traced-put")
+        views = {}
+        for a in addrs:
+            for tr in json.loads(_shell(meta, f"request_trace {a} 64")):
+                if tr["trace_id"] == t["trace_id"]:
+                    views[a] = sorted({s["name"] for s in tr["spans"]})
+        names = set().union(*views.values()) if views else set()
+        missing = {"replica.prepare", "replica.on_prepare", "plog.append",
+                   "engine.apply", "engine.write"} - names
+        if set(views) != set(addrs) or missing:
+            raise AssertionError(f"trace {t['trace_id']} on {sorted(views)}"
+                                 f" of {addrs}, missing {missing}: {views}")
+        hk = b"slow-put"
+        pidx = int(_partition_of(np.frombuffer(hk, np.uint8)[None],
+                                 np.array([len(hk)]), n_parts)[0])
+        node = _config(meta, app).partitions[pidx].secondaries[0]
+        armed = _shell(meta, f"set_fail_point {node} plog.group "
+                             f"1*sleep({TRACE_SLEEP_MS})")
+        slow = _traced_put(client, hk)
+    finally:
+        client.close()
+    ledger = [tr for tr in json.loads(_shell(meta,
+                                             f"slow_requests {node} 64"))
+              if tr["trace_id"] == slow["trace_id"]]
+    if not ledger:
+        raise AssertionError(f"{node}'s slow_requests lacks trace "
+                             f"{slow['trace_id']}")
+    held = [s for s in ledger[0]["spans"]
+            if s["duration_us"] >= 0.8 * TRACE_SLEEP_MS * 1000]
+    stage = max(held, key=lambda s: s["depth"])["name"] if held else None
+    if stage != "plog.append":
+        raise AssertionError(f"the slow ledger names {stage}: {ledger[0]}")
+    return {"keys_written": 2,
+            "trace_id": t["trace_id"], "client_us": t["duration_us"],
+            "spans_by_node": views, "fail_point": armed.strip(),
+            "slow_trace_us": ledger[0]["duration_us"], "slow_stage": stage,
+            "slow_stage_us": max(s["duration_us"] for s in held)}
+
+
+def check_tables(meta: str, app: str, acked_ops: int) -> dict:
+    """`tables`: the nodes' ledgers folded; the table's reads and writes
+    cover every acknowledged op, its device reads and resident bytes are
+    counted."""
+    folded = json.loads(_shell(meta, "tables 5"))
+    t = folded["tables"].get(app, {})
+    if t.get("read_qps", 0) + t.get("write_qps", 0) < acked_ops or \
+            t.get("device_read_count", 0) <= 0 or \
+            t.get("hbm_resident_bytes", 0) <= 0:
+        raise AssertionError(f"tables folded {t} for {acked_ops} "
+                             f"acknowledged ops")
+    return {k: t[k] for k in ("read_qps", "write_qps", "scan_qps",
+                              "bytes_in", "bytes_out", "errors",
+                              "device_read_count", "hbm_resident_bytes",
+                              "device_seconds")} | {"top": folded["top"]}
+
+
+def check_compaction_planes(meta: str, addrs: list) -> dict:
+    """After a manual compaction on every node: `compact_trace` shows
+    the device stages, `device_health` reads not wedged with a last_ok
+    from this run, and `job_trace` holds a manual "compact" job with its
+    engine.merge hops."""
+    stages, jobs = {}, {}
+    for a in addrs:
+        text = _shell(meta, f"compact_trace {a} 400")
+        stages[a] = sorted({ln.split()[1] for ln in text.splitlines()
+                            if ln[:1].isdigit()})
+        if "device" not in stages[a]:
+            raise AssertionError(f"{a}'s compact_trace: {text[-2000:]}")
+        recs = [r for rs in json.loads(_shell(meta, f"job_trace {a} 50"))
+                .values() for r in rs if r["kind"] == "compact"
+                and r["attrs"].get("trigger") == "manual"]
+        if not recs or not any(h["name"] == "engine.merge"
+                               for r in recs for h in r["hops"]):
+            raise AssertionError(f"{a}'s job_trace holds no manual compact "
+                                 f"job with a merge hop")
+        jobs[a] = len(recs)
+    health = {a: json.loads(t) for a, t in
+              _shell_nodes(meta, "device_health").items()}
+    for a, h in health.items():
+        if h["wedged_at_stage"] is not None or h["last_ok"] is None or \
+                time.time() - h["last_ok"] > CLUSTER_CHECK_S:
+            raise AssertionError(f"{a}'s device_health: {h}")
+    if set(health) != set(addrs):
+        raise AssertionError(f"device_health answered {sorted(health)}")
+    return {"compact_trace_stages": stages, "manual_compact_jobs": jobs,
+            "device_health": {a: {"device": h["device"],
+                                  "last_ok_age_s": time.time() - h["last_ok"]}
+                              for a, h in health.items()}}
+
+
+def check_node_compaction_jobs(meta: str, addrs: list, calls: dict) -> dict:
+    """`job_trace` on every node: its batched "compact" job's
+    engine.merge hops carry as many kernel launches as the node's
+    counters moved by in the node compaction."""
+    out = {}
+    for a in addrs:
+        recs = [r for rs in json.loads(_shell(meta, f"job_trace {a} 50"))
+                .values() for r in rs if r["kind"] == "compact"
+                and r["attrs"].get("trigger") == "batched"]
+        if not recs:
+            raise AssertionError(f"{a}'s job_trace holds no batched job")
+        hops = recs[-1]["hops"]
+        launches = sum(h.get("launches", 0) for h in hops
+                       if h["name"] == "engine.merge")
+        if launches != calls[a]:
+            raise AssertionError(f"{a}: the job's merge hops launched "
+                                 f"{launches}, the counters moved by "
+                                 f"{calls[a]}: {hops}")
+        out[a] = {"merge_hops": sum(h["name"] == "engine.merge"
+                                    for h in hops),
+                  "install_hops": sum(h["name"] == "engine.install"
+                                      for h in hops),
+                  "launches": launches,
+                  "merge_s": sum(h["duration_us"] for h in hops
+                                 if h["name"] == "engine.merge") / 1e6}
+    return out
+
+
+def check_lockrank(path: str, graphs: dict) -> dict:
+    """The cluster's processes ran with PEGASUS_LOCKRANK=1 and appended
+    any lock-order violation to `path`: none may be there. `graphs`
+    holds each replica node's lockrank.* counters, read while it ran:
+    every node must show an acquisition graph (edges > 0, the detector
+    armed and recording) and no violation of its own."""
+    lines = []
+    if os.path.exists(path):
+        with open(path) as f:
+            lines = [ln for ln in f if ln.strip()]
+    if lines:
+        raise AssertionError(f"lock-order violations: {lines[:5]}")
+    edges = {n: g.get("lockrank.edges", 0) for n, g in graphs.items()}
+    if not graphs or min(edges.values()) <= 0:
+        raise AssertionError(f"lock-order detector not armed: {graphs}")
+    found = {n: g.get("lockrank.violations", 0) for n, g in graphs.items()}
+    if any(found.values()):
+        raise AssertionError(f"lock-order violations: {found}")
+    return {"violations": 0, "edges": edges}
+
+
 def run_cluster(device, work: str, provider: str, counts: list,
                 n_records: int = SERVE_RECORDS,
                 n_parts: int = SERVE_PARTITIONS, n_ops: int = CLUSTER_OPS,
@@ -3542,6 +3963,10 @@ def run_cluster(device, work: str, provider: str, counts: list,
            "reduced": {"fields": "YCSB core fieldcount 10 -> 1 "
                        "(field0, fieldlength 100), as tools/ycsb_bench.py"}}
     apps, pool, loader = {}, None, None
+    lock_graphs = {}
+    # every process checks its lock order; a violation lands in the file
+    lock_file = os.path.join(work, "lockrank.jsonl")
+    lock_env = {"PEGASUS_LOCKRANK": "1", "PEGASUS_LOCKRANK_FILE": lock_file}
     t0 = time.perf_counter()
     started = time.perf_counter()
 
@@ -3565,7 +3990,7 @@ def run_cluster(device, work: str, provider: str, counts: list,
     try:
         deadline = time.monotonic() + 300
         for name in ["meta1"] + list(node_addr):
-            apps[name] = _App(ini, name, work)
+            apps[name] = _App(ini, name, work, env=lock_env)
         for name, app in apps.items():
             app.wait_started(deadline)
         while True:
@@ -3757,6 +4182,9 @@ def run_cluster(device, work: str, provider: str, counts: list,
                                  "fence-lookup kernel")
         out["read_back"] = rb
         step("read back")
+        out["traces"] = check_traces(meta, addrs, CLUSTER_APP, n_parts)
+        out["tables"] = check_tables(meta, CLUSTER_APP, run["ops_done"])
+        step("traces and tables checked")
 
         parts, life = n_parts, {}
         if lifecycle:
@@ -3849,7 +4277,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
         out["compaction"] = {
             "seconds": compact_s, "partition_mask": pmask,
             "merge_launches": _delta(after, before,
-                                     "kernel.merge_path.launches")}
+                                     "kernel.merge_path.launches"),
+            "planes": check_compaction_planes(meta, addrs)}
         # the outputs are held to the cpu backend in this process while
         # the servers read back and audit
         checker = ThreadPoolExecutor(1)
@@ -3914,7 +4343,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
         checker.shutdown()
         shutil.rmtree(snap)
         out["compaction"].update(check_s=checked.pop("seconds"), **checked)
-        table_records = sum(counts) + len(markers)
+        table_records = (sum(counts) + len(markers)
+                         + out["traces"]["keys_written"])
         if lifecycle and sum(checked["records_by_pidx"].values()) \
                 != table_records:
             raise AssertionError(f"the primaries hold "
@@ -3975,10 +4405,14 @@ def run_cluster(device, work: str, provider: str, counts: list,
             if on_card and not all(rows[a] > calls[a] for a in addrs):
                 raise AssertionError(f"node compaction did not batch: calls "
                                      f"{calls}, rows {rows}")
+            life["node_compaction"]["jobs"] = check_node_compaction_jobs(
+                meta, addrs, calls)
             step("restored table node-compacted")
 
         out["launches_per_process"] = {
             names[a]: c for a, c in _kernel_counts(addrs).items()}
+        lock_graphs = {names[a]: json.loads(_remote_command(
+            a, "perf-counters-by-prefix", ["lockrank."])) for a in addrs}
         if on_card:
             # this script's own process holds a context on the card too
             out["device_mib"] = {
@@ -4010,6 +4444,7 @@ def run_cluster(device, work: str, provider: str, counts: list,
                              + "; ".join(f"{n}: {apps[n].tail()[-600:]}"
                                          for n in bad))
     out["stop_rcs"] = rcs
+    out["lockrank"] = check_lockrank(lock_file, lock_graphs)
     return out
 
 
@@ -4063,18 +4498,18 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def fence_main(argv) -> int:
-    """`chip_smoke.py fence-measure TREE`: fence_measure's record as the
-    last line. `chip_smoke.py fence-ab PARENT`: the device line, then
-    fence_ab's four records as `fence_ab` lines, then the nvidia-smi
-    line."""
-    if len(argv) != 2 or argv[0] not in ("fence-measure", "fence-ab"):
-        print("usage: chip_smoke.py [fence-measure TREE | fence-ab PARENT]",
-              file=sys.stderr)
+def ab_main(argv) -> int:
+    """`chip_smoke.py <phase>-measure TREE`: the record as the last line.
+    `chip_smoke.py <phase>-ab TREE [TREE ...]`: the device line, then the
+    records as `<phase>_ab` lines, then the nvidia-smi line."""
+    phase, _, mode = argv[0].partition("-") if argv else ("", "", "")
+    if phase not in MEASURES or mode not in ("measure", "ab") or (
+            len(argv) < 2 or mode == "measure" and len(argv) != 2):
+        print("usage: chip_smoke.py [fence|serve]-measure TREE | "
+              "[fence|serve]-ab TREE [TREE ...]", file=sys.stderr)
         return 2
-    mode, tree = argv
-    if mode == "fence-measure":
-        print(json.dumps(fence_measure(tree)), flush=True)
+    if mode == "measure":
+        print(json.dumps(globals()[MEASURES[phase]](argv[1])), flush=True)
         return 0
     import torch
 
@@ -4082,7 +4517,7 @@ def fence_main(argv) -> int:
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
-    fence_ab(tree)
+    ab(phase, argv[1:])
     print(smi, flush=True)
     return 0
 
@@ -4095,7 +4530,7 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 1
     if argv:
-        return fence_main(list(argv))
+        return ab_main(list(argv))
     sys.path.insert(0, ROOT)
     from pegasus_tpu_torch.ops import _build
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
@@ -4171,6 +4606,10 @@ def main(argv=()) -> int:
         emit("compact_values", **comp_v)
         eng.close()
         del eng
+        torch.cuda.empty_cache()
+        levels = run_levels(fill(LEVELS_RECORDS), device,
+                            os.path.join(work, "levels"))
+        emit("levels", **levels)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4293,6 +4732,8 @@ def main(argv=()) -> int:
     node = life["node_compaction"]
     merge_launches = {
         "compact": launches,
+        "levels": {f"depth{d}": levels[f"depth{d}"]["merge_launches"]
+                   for d in (1, 2)},
         "serve": {"ingest": serve["ingest_merge_launches"],
                   "compaction": serve["compaction"]["merge_launches"]},
         "replicate": {"load": replicate["load"]["merge_launches"],

@@ -13,7 +13,6 @@ pegasus_tpu's servers as well as the port's, and touches no device.
 """
 
 import threading
-from concurrent.futures import ThreadPoolExecutor
 
 from ..base import consts, key_schema
 from ..rpc import codec
@@ -26,6 +25,8 @@ from ..rpc.task_codes import (RPC_CHECK_AND_MUTATE, RPC_CHECK_AND_SET,
 from ..rpc.transport import (ConnectionPool, ERR_BUSY, ERR_INVALID_STATE,
                              ERR_NETWORK_FAILURE, ERR_OBJECT_NOT_FOUND,
                              ERR_TIMEOUT, RpcError)
+from ..runtime.tasking import tracked_executor
+from ..runtime.tracing import REQUEST_TRACER
 
 
 class PegasusError(Exception):
@@ -84,6 +85,13 @@ class PegasusClient:
         return pidx, h
 
     def _call(self, code: str, pidx: int, phash: int, req_obj, resp_cls):
+        # every client op opens (or joins) a request trace: the context
+        # rides the RPC header from here down through replication and the
+        # engine (runtime/tracing.py RequestTracer)
+        with REQUEST_TRACER.root(code):
+            return self._call_traced(code, pidx, phash, req_obj, resp_cls)
+
+    def _call_traced(self, code, pidx, phash, req_obj, resp_cls):
         body = codec.encode(req_obj)
         last = None
         for attempt in range(3):
@@ -408,7 +416,7 @@ class PegasusClient:
     def _executor(self):
         with self._async_lock:
             if self._async_pool is None:
-                self._async_pool = ThreadPoolExecutor(
+                self._async_pool = tracked_executor(
                     self._MAX_ASYNC_WORKERS,
                     thread_name_prefix="pegasus-async")
             return self._async_pool

@@ -18,10 +18,17 @@ Structure:
     overflow cascades one file (+ overlap) per step into the next level.
 
 Device lane (backend="cuda"): every flushed or compacted SST is primed
-onto the device synchronously (its packed key columns and fence index),
-compactions merge the resident runs, and batched reads probe them. A
-device failure raises to the caller; the cpu backend runs only when the
-caller asks for it (backend="cpu").
+onto the device (its packed key columns and fence index) on a pipeline
+pool thread, off the write path; compactions merge the resident runs,
+and batched reads probe them. A device failure raises to the caller; an
+async prime's failure is kept and raised to the next caller that needs
+the run or settles the engine (flush, compact, manual compact, close).
+The cpu backend runs only when the caller asks for it (backend="cpu").
+
+Deferred installs: at pipeline depth > 1 an L0 or cascade merge swaps its
+outputs into the levels at once and writes them on the install pool, so
+the next merge overlaps the last one's write_sst; compact() drains them
+before it returns, and the manifest only ever names files on disk.
 
 Compaction offload: a backend="cpu" engine holding a live placement
 lease (set_offload_target) ships its merges to that compaction service
@@ -47,7 +54,6 @@ import json
 import os
 import shutil
 import struct
-import threading
 import time
 from dataclasses import dataclass, field
 
@@ -59,8 +65,11 @@ from ..base.utils import epoch_now
 from ..base.value_schema import check_if_ts_expired
 from ..ops.compact import (CompactOptions, compact_blocks, resolve_device,
                            sort_block)
-from ..runtime import events
+from ..runtime import events, lockrank
+from ..runtime.fail_points import FailPointError, inject
+from ..runtime.job_trace import JOB_TRACER
 from ..runtime.perf_counters import counters
+from ..runtime.tasking import spawn_thread
 from ..runtime.tracing import COMPACT_TRACER
 from .block import KVBlock, _batch_key_hashes
 from .memtable import Memtable
@@ -147,7 +156,7 @@ class LsmEngine:
         if self.opts.backend not in ("cuda", "cpu"):
             raise ValueError(f"unknown backend {self.opts.backend!r}")
         self.device = resolve_device(self.opts.device)
-        self._lock = threading.RLock()
+        self._lock = lockrank.named_rlock("engine.lock")
         self._mem = Memtable()
         self._imm = []          # immutable memtables pending flush, newest first
         self._l0 = []           # list[SSTable], newest first
@@ -159,12 +168,25 @@ class LsmEngine:
         self._durable_meta = {}
         self._compact_round = {}  # level -> round-robin cursor for cascades
         # one flush drainer at a time
-        self._flush_lock = threading.Lock()
+        self._flush_lock = lockrank.named_lock("engine.flush")
         # serializes merge phases: two concurrent merges over overlapping
         # input snapshots would write the same records twice
-        self._compaction_lock = threading.RLock()
+        self._compaction_lock = lockrank.named_rlock("engine.compaction")
         self._device_cache_used = 0     # bytes pinned by resident runs
         self._device_resident_ssts = 0
+        # async primes: waiters on another thread's in-flight prime of
+        # the same file; the first device failure of an async prime,
+        # raised to the next flush, compaction or close
+        self._prime_cv = lockrank.named_condition("engine.prime_cv",
+                                                  self._lock)
+        self._prime_failure = None     #: guarded_by self._lock
+        self._prime_futs = []          #: guarded_by self._lock
+        # deferred installs: the install jobs in flight, the consumed
+        # inputs awaiting unlink, and whether the on-disk manifest lags
+        # the live file set (it waits while any live file is unwritten)
+        self._pending_installs = []    #: guarded_by self._lock
+        self._pending_unlinks = []     #: guarded_by self._lock
+        self._manifest_dirty = False   #: guarded_by self._lock
         # compaction-offload placement: a service address this cpu engine
         # ships its merges to while the lease lives
         self._offload_addr = ""        #: guarded_by self._lock
@@ -178,7 +200,7 @@ class LsmEngine:
         # serializes checkpoint create/rename/GC (the shared checkpoint.tmp
         # dir would race otherwise); an RLock so callers can hold it across
         # create + consume
-        self.checkpoint_lock = threading.RLock()
+        self.checkpoint_lock = lockrank.named_rlock("engine.checkpoint")
         # learn pins: decree -> {lease token: expiry}. A pinned decree's
         # checkpoint dir is held out of gc_checkpoints while a learner
         # streams it; leases expire, so a dead learner never wedges GC
@@ -189,6 +211,9 @@ class LsmEngine:
         # corruption callout: the hosting replica installs callable(exc)
         # here; a read hitting a CorruptionError notifies it and re-raises
         self.corruption_hook = None
+        # tenant accounting: the table ledger the host wires up
+        # (PegasusServer.set_table_name); device probes are charged to it
+        self.table_ledger = None
         os.makedirs(path, exist_ok=True)
         self._load_manifest()
 
@@ -220,9 +245,8 @@ class LsmEngine:
 
     def compaction_debt(self) -> dict:
         """L0 file count, debt bytes (L0 bytes plus every level's
-        over-budget overflow) and the hard ceiling: what stats() and the
-        admission throttle read. The port installs synchronously, so no
-        install is ever pending."""
+        over-budget overflow), the deferred installs still in flight and
+        the hard ceiling: what stats() and the admission throttle read."""
         with self._lock:
             over = 0
             for lv in self._levels:
@@ -231,7 +255,8 @@ class LsmEngine:
                                 - self._level_budget(lv))
             return {"l0_files": len(self._l0),
                     "debt_bytes": sum(s.data_bytes for s in self._l0) + over,
-                    "pending_installs": 0,
+                    "pending_installs": sum(
+                        1 for f in self._pending_installs if not f.done()),
                     "ceiling_files": self._sched_ceiling}
 
     def compact_debt_ratio(self) -> float:
@@ -468,12 +493,25 @@ class LsmEngine:
             self._notify_corruption(e)
             raise
 
+    def _read_index(self, sst):
+        """sst's device read index for a batched probe, or None (host
+        walk). A run whose async prime failed primes here, inline: the
+        kept failure raises to this reader first, and a re-prime that
+        fails raises too, so a device fault never turns into a quiet
+        host read."""
+        if sst._prime_failed and not sst._device_retired:
+            self._device_run_budgeted(sst)
+        return sst.device_index
+
     def _probe_sst_impl(self, sst, cand, keys, nows, res, use_device) -> None:
-        dr = sst.device_index if use_device else None
-        if dr is not None and len(cand) >= DEVICE_READ_MIN_BATCH:
+        dr = (self._read_index(sst)
+              if use_device and len(cand) >= DEVICE_READ_MIN_BATCH else None)
+        if dr is not None:
             from ..ops.device_lookup import lookup_batch
 
             rows = lookup_batch(dr, [keys[i] for i in cand])
+            if self.table_ledger is not None:
+                self.table_ledger.charge_device_read(len(cand))
             block = sst.block()
             for i, r in zip(cand, rows):
                 if r >= 0:
@@ -653,11 +691,14 @@ class LsmEngine:
                 cand.append(qi)
             if not cand:
                 continue
-            dr = sst.device_index
-            if dr is not None and len(cand) >= DEVICE_READ_MIN_BATCH:
+            dr = (self._read_index(sst)
+                  if len(cand) >= DEVICE_READ_MIN_BATCH else None)
+            if dr is not None:
                 from ..ops.device_lookup import range_batch
 
                 iv = range_batch(dr, [ranges[qi] for qi in cand])
+                if self.table_ledger is not None:
+                    self.table_ledger.charge_device_read(len(cand))
                 for qi, (lo, hi) in zip(cand, iv):
                     bounds[qi][id(sst)] = (int(lo), int(hi))
                 continue
@@ -784,31 +825,38 @@ class LsmEngine:
         -> {"files", "bytes", "findings": [{"path", "detail"}], "errors"}.
         Findings are returned, not acted on; an injected `scrub.verify`
         fault is an error (the file was not verified), never a finding.
-        Files compacted away mid-scan are skipped."""
-        from ..runtime.fail_points import FailPointError, inject
-
+        Files compacted away mid-scan, or still landing (deferred
+        installs), are skipped. One "engine.scrub" job with the hops
+        scrub.files and scrub.manifest."""
         with self._lock:
-            paths = [s.path for s in self._all_ssts_locked()]
+            paths = [s.path for s in self._all_ssts_locked() if s._on_disk]
         findings, errors = [], []
         scanned_files = scanned_bytes = 0
         t0 = time.monotonic()
-        for p in paths:
-            try:
-                inject("scrub.verify")
-                scanned_bytes += verify_sst(p)
-                scanned_files += 1
-            except FileNotFoundError:
-                continue  # compacted away mid-scan
-            except FailPointError as e:
-                errors.append({"path": p, "detail": str(e)})
-            except CorruptionError as e:
-                findings.append({"path": p, "detail": e.detail})
-            if rate_bytes_per_s and rate_bytes_per_s > 0:
-                lag = scanned_bytes / rate_bytes_per_s - (time.monotonic()
-                                                          - t0)
-                if lag > 0:
-                    time.sleep(min(lag, 1.0))
-        findings.extend(self._scrub_manifest())
+        with JOB_TRACER.job("engine.scrub", path=self.path):
+            with JOB_TRACER.hop("scrub.files") as attrs:
+                for p in paths:
+                    try:
+                        inject("scrub.verify")
+                        scanned_bytes += verify_sst(p)
+                        scanned_files += 1
+                    except FileNotFoundError:
+                        continue  # compacted away mid-scan
+                    except FailPointError as e:
+                        errors.append({"path": p, "detail": str(e)})
+                    except CorruptionError as e:
+                        findings.append({"path": p, "detail": e.detail})
+                    if rate_bytes_per_s and rate_bytes_per_s > 0:
+                        lag = scanned_bytes / rate_bytes_per_s - (
+                            time.monotonic() - t0)
+                        if lag > 0:
+                            time.sleep(min(lag, 1.0))
+                attrs.update(files=scanned_files, bytes=scanned_bytes,
+                             findings=len(findings))
+            with JOB_TRACER.hop("scrub.manifest") as attrs:
+                missing = self._scrub_manifest()
+                attrs.update(missing=len(missing))
+                findings.extend(missing)
         counters.rate("scrub.files_count").increment(scanned_files)
         counters.rate("scrub.bytes").increment(scanned_bytes)
         if findings:
@@ -849,10 +897,15 @@ class LsmEngine:
     def flush(self) -> None:
         """Rotate the memtable and flush every immutable to an L0 SST.
         Synchronous; oldest-first keeps both L0 recency order and the
-        durable-decree invariant."""
+        durable-decree invariant. Settles the deferred installs queued
+        now (light: without the compaction lock, so a flush never waits
+        out a whole cascade), then raises an async prime's device failure
+        that no caller has raised yet."""
         with self._lock:
             self._rotate_memtable_locked()
         self._drain_imms()
+        self._settle_installs()
+        self._raise_prime_failure()
 
     def _drain_imms(self) -> None:
         """Flush pending immutables oldest-first under the flush lock; the
@@ -890,9 +943,11 @@ class LsmEngine:
                   compression=self.opts.compression)
         sst = SSTable(path)
         sst._block = sorted_block  # already in memory: skip the disk re-read
-        # flush-time residency prime, synchronous: the newborn run's first
-        # compaction and its batched reads already find it on the device
-        self._device_run_budgeted(sst)
+        # flush-time residency prime, off the write path: a pool worker
+        # uploads the newborn run and builds its fence index; its first
+        # merge waits for that prime, and reads take the host walk until
+        # it lands
+        self._prime_async(sst)
         with self._lock:
             self._l0.insert(0, sst)
             self._imm.remove(imm)
@@ -900,30 +955,115 @@ class LsmEngine:
             self._durable_decree = max(self._durable_decree, imm.last_decree)
             self._write_manifest_locked()
 
+    def _prime_async(self, sst) -> None:
+        """Device-residency prime of one file on the pipeline pool. A
+        caller that needs the run waits on the file's in-flight marker
+        (_device_run_budgeted); wait_primes waits for every prime queued.
+        A device failure is kept and raised to the next caller that needs
+        the run, or that flushes, compacts or closes the engine; it never
+        turns into a host pack."""
+        if self.opts.backend != "cuda":
+            return
+        from ..ops.pipeline import submit
+
+        fut = submit(self._prime_job, sst)
+        with self._lock:
+            self._prime_futs = [f for f in self._prime_futs if not f.done()]
+            self._prime_futs.append(fut)
+
+    def wait_primes(self) -> None:
+        """Block until every async prime queued so far has landed (or
+        failed: the failure stays for the next caller)."""
+        with self._lock:
+            futs = list(self._prime_futs)
+        for f in futs:
+            f.wait()
+
+    def _prime_job(self, sst) -> None:
+        # the pool thread queues the upload and the fence build on the
+        # device's default stream, the stream the merges and the lookups
+        # run on, so every kernel that reads the run is ordered after them
+        try:
+            self._device_run_budgeted(sst)
+        except Exception as e:  # noqa: BLE001 - kept for the next caller
+            with self._lock:
+                sst._prime_error = e
+                sst._prime_failed = True
+                if self._prime_failure is None:
+                    self._prime_failure = e
+            counters.rate("engine.prime_failure_count").increment()
+            print(f"[engine] device-run prime failed for {sst.path}: "
+                  f"{e!r}", flush=True)
+
     def _device_run_budgeted(self, sst):
         """Prime/fetch an SST's device-resident run under the device
         budget: past the budget the file stays host-packed (its merges
-        pack and upload it per merge). A device failure raises."""
-        if self.opts.backend != "cuda" or sst._device_retired:
+        pack and upload it per merge). A per-file in-flight marker, under
+        the engine lock, keeps an async prime and an inline caller from
+        uploading one file twice, without serialising primes of different
+        files or holding a lock across the upload; the budget settles
+        under the lock against the retired flag, so a release never
+        subtracts bytes that were not added. A device failure raises, and
+        an async prime's failure raises here, once, to the caller that
+        needs the run."""
+        if self.opts.backend != "cuda":
             return None
         want_values = self.opts.device_values
-        cached = sst._device_run
-        if cached is not None and (not want_values
-                                   or cached.val2d is not None):
-            return cached
         with self._lock:
-            if self._device_cache_used >= self.opts.device_cache_bytes:
+            while sst._prime_inflight:
+                self._prime_cv.wait(timeout=0.05)
+            err, sst._prime_error = sst._prime_error, None
+            if err is not None:
+                if self._prime_failure is err:
+                    self._prime_failure = None
+                raise err
+            cached = sst._device_run
+            if sst._device_retired:
+                return None
+            if cached is not None and (not want_values
+                                       or cached.val2d is not None):
                 return cached
-        old_bytes = cached.nbytes() if cached is not None else 0
-        dr = sst.device_run(self.opts.prefix_u32, self.device,
-                            with_values=want_values)
-        if dr is not None:
+            # primes stop at 7/8 of the budget: the reference's rule for
+            # a partition that is not read-hot, keeping headroom for a
+            # read-residency pin (read residency is not ported)
+            budget = self.opts.device_cache_bytes
+            budget -= budget >> 3
+            if self._device_cache_used >= budget:
+                return cached
+            sst._prime_inflight = True
+        try:
+            old_bytes = cached.nbytes() if cached is not None else 0
+            dr = sst.device_run(self.opts.prefix_u32, self.device,
+                                with_values=want_values)
             with self._lock:
-                self._device_cache_used += dr.nbytes() - old_bytes
-                if not sst._device_budgeted:
-                    self._device_resident_ssts += 1
-                sst._device_budgeted = True
-        return dr
+                sst._prime_failed = False
+                if sst._device_retired:
+                    # an async prime lost the race against the merge that
+                    # consumed this file: drop the upload, never the budget
+                    sst._device_run = None
+                    return None
+                if dr is not None:
+                    self._device_cache_used += dr.nbytes() - old_bytes
+                    if not sst._device_budgeted:
+                        self._device_resident_ssts += 1
+                    sst._device_budgeted = True
+            return dr
+        finally:
+            with self._lock:
+                sst._prime_inflight = False
+                self._prime_cv.notify_all()
+
+    def _raise_prime_failure(self) -> None:
+        """Raise, once, the first async-prime device failure no caller
+        has raised yet (the failed file re-primes on its next use)."""
+        with self._lock:
+            err, self._prime_failure = self._prime_failure, None
+            if err is None:
+                return
+            for s in self._all_ssts_locked():
+                if s._prime_error is err:
+                    s._prime_error = None
+        raise err
 
     def prime_resident_runs(self) -> int:
         """Prime every current SST onto the device now (bulk-loaded runs
@@ -942,12 +1082,36 @@ class LsmEngine:
             sst._device_budgeted = False
             sst._device_run = None
 
+    def _traced_compact(self, trigger: str) -> dict:
+        """compact() as ONE traced background job: the merge and install
+        hops (the install's on the install pool) land in its timeline.
+        compact() is synchronous through its install drain, so the job
+        finishes with the installed files."""
+        with self._lock:
+            l0 = len(self._l0)
+        jid = JOB_TRACER.begin("compact", engine=self.path,
+                               pidx=self.opts.pidx)
+        JOB_TRACER.note("engine.trigger", job_id=jid, trigger=trigger,
+                        l0_files=l0)
+        try:
+            with JOB_TRACER.adopt(jid):
+                stats = self.compact()
+        except BaseException:
+            JOB_TRACER.finish(jid, status="error")
+            raise
+        JOB_TRACER.finish(jid, input_records=stats.get("input_records", 0),
+                          output_records=stats.get("output_records", 0))
+        return stats
+
     def _maybe_trigger_l0(self) -> bool:
         """Post-flush/ingest L0 trigger. -> True when a compaction ran."""
         with self._lock:
             l0 = len(self._l0)
+        if l0 >= self._sched_ceiling:
+            self._traced_compact("ceiling")
+            return True
         if l0 >= self.opts.l0_compaction_trigger:
-            self.compact()
+            self._traced_compact("trigger")
             return True
         return False
 
@@ -959,7 +1123,11 @@ class LsmEngine:
     def compact(self, bottommost: bool = None, now: int = None) -> dict:
         """L0 compaction: merge all L0 runs with the overlapping L1 files
         into range-partitioned L1 output, then cascade size-triggered
-        single-file compactions down the levels."""
+        single-file compactions down the levels. At pipeline depth > 1
+        the installs are deferred, so each next merge overlaps the last
+        output's write-out; compact() drains them before it returns. An
+        async prime's device failure not yet raised raises first."""
+        self._raise_prime_failure()
         with self._compaction_lock:
             with self._lock:
                 inputs = list(self._l0)
@@ -972,8 +1140,10 @@ class LsmEngine:
                 overlap = self._overlapping_locked(1, lo, hi)
             bm = self._bottommost(1) if bottommost is None else bottommost
             stats = self._merge_to_level(inputs, overlap, target_level=1,
-                                         bottommost=bm, now=now)
+                                         bottommost=bm, now=now,
+                                         deferred=True)
             self._maybe_cascade(now)
+            self._drain_pending_installs()
             return stats
 
     def _overlapping_locked(self, level: int, lo: bytes, hi: bytes):
@@ -987,7 +1157,11 @@ class LsmEngine:
 
     def _maybe_cascade(self, now=None):
         """While a level exceeds its byte budget, push one file (plus the
-        next level's overlap) down: bounded-input leveled compaction."""
+        next level's overlap) down: bounded-input leveled compaction.
+        Installs are deferred: the level swap is immediate (so the next
+        victim selection sees the new sizes) while output k's write-out,
+        manifest and input unlinks run on the install pool under the
+        merge of k+1."""
         with self._compaction_lock:
             for lv in range(1, self.opts.max_levels):
                 while True:
@@ -1004,7 +1178,8 @@ class LsmEngine:
                     self._merge_to_level([victim], overlap,
                                          target_level=lv + 1,
                                          bottommost=self._bottommost(lv + 1),
-                                         now=now)
+                                         now=now, deferred=True)
+            self._drain_pending_installs()
 
     def _level_bytes(self, lv: int) -> int:
         return sum(s.data_bytes for s in self._levels.get(lv, []))
@@ -1014,9 +1189,15 @@ class LsmEngine:
             self.opts.level_size_ratio ** (lv - 1))
 
     def _merge_to_level(self, newer_files, older_files, target_level: int,
-                        bottommost: bool, now=None) -> dict:
+                        bottommost: bool, now=None,
+                        deferred: bool = False) -> dict:
         """Merge newer_files (recency order) over older_files into
-        target_level, splitting output at target_file_size_bytes."""
+        target_level, splitting output at target_file_size_bytes.
+        deferred=True at pipeline depth > 1 moves the install's disk work
+        onto the install pool (_install_merge_deferred)."""
+        from ..ops.merge_path import LAUNCHES
+        from ..ops.pipeline import pipeline_depth
+
         inputs = list(newer_files) + list(older_files)
         input_blocks = [s.block() for s in inputs]
         opts = self._compact_options(
@@ -1026,24 +1207,38 @@ class LsmEngine:
             user_ops=tuple(self.opts.user_ops))
         offload_addr = (self.offload_target() if self.opts.backend == "cpu"
                         else None)
-        if offload_addr:
-            from ..replication.compact_offload import offload_compact_blocks
+        with JOB_TRACER.hop("engine.merge",
+                            where="offload" if offload_addr else "local",
+                            level=target_level, inputs=len(inputs)) as jh:
+            l0 = LAUNCHES["merge_path"]
+            if offload_addr:
+                from ..replication.compact_offload import \
+                    offload_compact_blocks
 
-            result = offload_compact_blocks(
-                input_blocks, opts, offload_addr,
-                tenant=f"{self.opts.pidx}@{os.path.basename(self.path)}")
-            self._c_offload.increment()
+                result = offload_compact_blocks(
+                    input_blocks, opts, offload_addr,
+                    tenant=f"{self.opts.pidx}@{os.path.basename(self.path)}")
+                self._c_offload.increment()
+            else:
+                device_runs = None
+                if self.opts.backend == "cuda":
+                    # device-resident run cache: each SST packs and
+                    # uploads once in its lifetime; this and every later
+                    # merge reads device memory
+                    device_runs = [self._device_run_budgeted(s)
+                                   for s in inputs]
+                result = compact_blocks(input_blocks, opts,
+                                        device_runs=device_runs)
+            # the kernel calls this process counted during the hop
+            jh["launches"] = LAUNCHES["merge_path"] - l0
+        if deferred and pipeline_depth() > 1:
+            self._install_merge_deferred(
+                inputs, _split_block(result.block,
+                                     self.opts.target_file_size_bytes),
+                target_level)
         else:
-            device_runs = None
-            if self.opts.backend == "cuda":
-                # device-resident run cache: each SST packs and uploads
-                # once in its lifetime; this and every later merge reads
-                # device memory
-                device_runs = [self._device_run_budgeted(s) for s in inputs]
-            result = compact_blocks(input_blocks, opts,
-                                    device_runs=device_runs)
-        self._install_merge_output(newer_files, older_files, result.block,
-                                   target_level)
+            self._install_merge_output(newer_files, older_files,
+                                       result.block, target_level)
         return result.stats
 
     def _install_merge_output(self, newer_files, older_files, out_block,
@@ -1089,12 +1284,148 @@ class LsmEngine:
                 self._levels[lv] = [f for f in self._levels[lv]
                                     if id(f) not in gone]
 
+    def _install_merge_deferred(self, inputs, out_blocks,
+                                target_level: int) -> None:
+        """Pipelined install: swap the outputs into the levels NOW
+        (in-memory SSTables serving reads from their cached blocks) and
+        move the disk work (write_sst, the residency prime, the manifest
+        and the input unlinks) onto the install pool, so the next merge
+        overlaps this output's write-out.
+
+        Durability: the on-disk manifest only ever names fully written
+        files (_write_manifest_locked waits while any live SST is off
+        disk), and inputs are unlinked only after a manifest that no
+        longer names them has landed. A crash inside the window recovers
+        to the exact pre-merge on-disk state."""
+        from ..ops.pipeline import submit_install
+
+        meta = {"level": target_level,
+                "last_flushed_decree": self._durable_decree}
+        new_ssts = []
+        for ob in out_blocks:
+            with self._lock:
+                path = os.path.join(self.path, self._alloc_file_locked())
+            new_ssts.append(SSTable.from_block(path, ob, meta))
+        with self._lock:
+            self._swap_levels_locked(inputs, new_ssts, target_level)
+            self._manifest_dirty = True
+            self._pending_unlinks.extend(inputs)
+        for s in inputs:
+            # device memory back under the budget before the next merge
+            self._release_device_run(s)
+        fut = submit_install(self._deferred_install_job, new_ssts)
+        with self._lock:
+            self._pending_installs = [
+                f for f in self._pending_installs if not f.done()]
+            self._pending_installs.append(fut)
+
+    def _deferred_install_job(self, new_ssts) -> None:
+        """Install-pool side of a deferred install: land the output files,
+        then (once every live SST is on disk) write the manifest and
+        unlink the consumed inputs. Residency primes go through
+        _prime_async, so this job only ever waits on the disk. It runs
+        under the compaction job the pool adopted, so its hop lands in
+        the same timeline as the trigger and the merge."""
+        try:
+            with JOB_TRACER.hop("engine.install", ssts=len(new_ssts)):
+                for sst in new_ssts:
+                    with self._lock:
+                        if sst._device_retired:
+                            # consumed by a later merge before it landed:
+                            # superseded, and nothing names the path;
+                            # writing it now would only leave an orphan
+                            sst._on_disk = True
+                            continue
+                    write_sst(sst.path, sst.block(), sst.meta,
+                              compression=self.opts.compression,
+                              bloom=(sst.header["bloom"],
+                                     sst.header["bloom_log2m"]))
+                    with self._lock:
+                        sst._on_disk = True
+                    self._prime_async(sst)
+        finally:
+            self._flush_deferred_state()
+
+    def _flush_deferred_state(self) -> None:
+        """Write the deferred manifest once every live SST is on disk,
+        then unlink the consumed inputs it no longer names. Only inputs
+        whose own install has settled (_on_disk) unlink now: a write_sst
+        in flight can never recreate a path after its unlink."""
+        unlinks = []
+        with self._lock:
+            if self._manifest_dirty:
+                self._write_manifest_locked()
+            if not self._manifest_dirty:
+                unlinks = [s for s in self._pending_unlinks if s._on_disk]
+                self._pending_unlinks = [
+                    s for s in self._pending_unlinks if not s._on_disk]
+        for s in unlinks:
+            try:
+                os.unlink(s.path)
+            except OSError:
+                pass
+
+    def _settle_installs(self) -> None:
+        """Wait for the install jobs queued now and flush the deferred
+        manifest, without the compaction lock (no repair pass: a failed
+        job's rewrite happens in the next full drain)."""
+        with self._lock:
+            futures = list(self._pending_installs)
+        for f in futures:
+            f.wait()
+        self._flush_deferred_state()
+
+    def _drain_pending_installs(self) -> None:
+        """Wait for the install jobs in flight, rewrite inline any file a
+        failed job left unwritten (no manifest named it), and flush the
+        deferred manifest and unlinks: the on-disk state is settled when
+        this returns. Under the compaction lock: install jobs are only
+        submitted while it is held, so after the waits no job can be
+        writing a file the repair pass writes too."""
+        with self._compaction_lock:
+            with self._lock:
+                futures, self._pending_installs = self._pending_installs, []
+            for f in futures:
+                f.wait()
+            with self._lock:
+                missing = [s for s in self._all_ssts_locked()
+                           if not s._on_disk]
+            for s in missing:
+                # a second failure raises to the caller like a synchronous
+                # install would, with the on-disk state still pre-merge
+                write_sst(s.path, s.block(), s.meta,
+                          compression=self.opts.compression,
+                          bloom=(s.header["bloom"], s.header["bloom_log2m"]))
+                with self._lock:
+                    s._on_disk = True
+            self._flush_deferred_state()
+            with self._lock:
+                # no install job is in flight, so whatever is still queued
+                # (outputs consumed before landing, whose job died before
+                # marking them) can go now
+                leftover, self._pending_unlinks = self._pending_unlinks, []
+                settled = not self._manifest_dirty
+                if not settled:
+                    self._pending_unlinks = leftover + self._pending_unlinks
+            if settled:
+                for s in leftover:
+                    try:
+                        os.unlink(s.path)
+                    except OSError:
+                        pass
+
     def manual_compact(self, bottommost: bool = True, now: int = None,
                        target_level: int = None) -> dict:
         """Full compaction: everything merged into one run at target_level
-        (default: the bottommost configured level). The stats carry the
-        per-stage breakdown (pack / h2d / device / gather / sst_write)
-        under "trace"."""
+        (default: the bottommost configured level), as its own traced
+        "compact" job (trigger=manual). The stats carry the per-stage
+        breakdown (pack / h2d / device / gather / sst_write) under
+        "trace"."""
+        with JOB_TRACER.job("compact", engine=self.path,
+                            pidx=self.opts.pidx, trigger="manual"):
+            return self._manual_compact_traced(bottommost, now, target_level)
+
+    def _manual_compact_traced(self, bottommost, now, target_level) -> dict:
         self.flush()
         tl = target_level or self.opts.max_levels
         stats = {"input_records": 0, "output_records": 0, "dropped": 0}
@@ -1156,7 +1487,17 @@ class LsmEngine:
                 try:
                     os.link(sst.path, dst)
                 except OSError:
-                    shutil.copy2(sst.path, dst)
+                    if sst._block is not None:
+                        # a deferred install's output that has not landed
+                        # yet (or is mid-write): the checkpoint gets its
+                        # own copy from the cached block, so the snapshot
+                        # neither waits on nor leaves out the install
+                        write_sst(dst, sst._block, sst.meta,
+                                  compression=self.opts.compression,
+                                  bloom=(sst.header.get("bloom", ""),
+                                         sst.header.get("bloom_log2m", 0)))
+                    else:
+                        shutil.copy2(sst.path, dst)
             with open(os.path.join(dest_dir, MANIFEST), "w") as f:
                 json.dump(self._manifest_dict_locked(), f)
             return self.last_durable_decree()
@@ -1184,11 +1525,8 @@ class LsmEngine:
         if not self.checkpoint_lock.acquire(blocking=False):
             return None  # a checkpoint is already in flight
         self.checkpoint_lock.release()
-        t = threading.Thread(target=self.sync_checkpoint,
-                             kwargs={"flush": False}, daemon=True,
-                             name="engine-checkpoint")
-        t.start()
-        return t
+        return spawn_thread(self.sync_checkpoint, flush=False, daemon=True,
+                            name="engine-checkpoint")
 
     def list_checkpoints(self) -> list:
         """Sorted decrees of the checkpoint.{decree} dirs."""
@@ -1343,6 +1681,12 @@ class LsmEngine:
         }
 
     def _write_manifest_locked(self):
+        if any(not s._on_disk for s in self._all_ssts_locked()):
+            # deferred installs in flight: the manifest never names a file
+            # that has not fully landed; the last install job (or a
+            # drain) writes it
+            self._manifest_dirty = True
+            return
         data = self._manifest_dict_locked()
         tmp = os.path.join(self.path, MANIFEST + ".tmp")
         with open(tmp, "w") as f:
@@ -1350,6 +1694,7 @@ class LsmEngine:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(self.path, MANIFEST))
+        self._manifest_dirty = False  # only once the replace landed
         self._durable_meta = dict(data["meta"])
 
     def _load_manifest(self):
@@ -1398,11 +1743,17 @@ class LsmEngine:
         return self._device_cache_used
 
     def close(self):
-        """Release every device-resident run (the files stay on disk)."""
+        """Settle the deferred installs, wait out the async primes, and
+        release every device-resident run (the files stay on disk). An
+        async prime's device failure not yet raised raises here, after
+        the release."""
+        self._drain_pending_installs()
+        self.wait_primes()
         with self._lock:
             ssts = self._all_ssts_locked()
         for s in ssts:
             self._release_device_run(s)
+        self._raise_prime_failure()
 
     # ------------------------------------------------------------- statistics
 

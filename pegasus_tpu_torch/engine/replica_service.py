@@ -53,7 +53,14 @@ WRITE_CODES = {
 }
 
 
+def _charge_error(srv) -> None:
+    """An error the table saw (a throttle reject, a corrupt read)."""
+    if srv.table_ledger is not None:
+        srv.table_ledger.charge_error()
+
+
 def _corruption_error(srv, e: CorruptionError) -> RpcError:
+    _charge_error(srv)
     return RpcError(ERR_INVALID_DATA, f"on-disk corruption: {e.detail} "
                                       f"(replica {srv.app_id}.{srv.pidx})")
 
@@ -146,6 +153,7 @@ class ReplicaService:
         try:
             srv.read_qps_throttler.consume(1)
         except ThrottleReject as e:
+            _charge_error(srv)
             raise RpcError(ERR_BUSY, str(e))
         return srv
 
@@ -248,7 +256,10 @@ class ReplicaService:
             counters.rate(
                 f"app.{srv.app_id}.{srv.pidx}."
                 "recent_write_throttling_reject_count").increment()
+            _charge_error(srv)
             raise RpcError(ERR_BUSY, str(e))
+        if srv.table_ledger is not None:
+            srv.table_ledger.charge_bytes_in(len(body))
         router = self._write_router
         if router is not None:
             resp = router(srv, header.code, req)

@@ -25,7 +25,10 @@ import time
 from ..base import consts, key_schema
 from ..base.utils import c_escape_string, epoch_now
 from ..base.value_schema import SCHEMAS
+from ..runtime import lockrank
 from ..runtime.perf_counters import counters
+from ..runtime.table_stats import TABLE_STATS
+from ..runtime.tracing import REQUEST_TRACER
 from ..rpc import messages as msg
 from ..rpc.messages import FilterType, Status, match_filter
 from .capacity_unit_calculator import CapacityUnitCalculator
@@ -109,7 +112,7 @@ class _ReadCoalescer:
 
     def __init__(self, engine):
         self.engine = engine
-        self._lock = threading.Lock()
+        self._lock = lockrank.named_lock("read.coalescer")
         self._queue = []        #: guarded_by self._lock
         self._draining = False  #: guarded_by self._lock
         # hot-path counter resolved once (the registry lock is per
@@ -215,7 +218,7 @@ class _RangeCoalescer(_ReadCoalescer):
 
     def __init__(self, engine):
         super().__init__(engine)
-        self._lock = threading.Lock()
+        self._lock = lockrank.named_lock("read.range_coalescer")
         self._c_batch_size = counters.percentile("read.range.batch.size")
 
     def scan_range(self, start: bytes, stop, now: int, hash32=None,
@@ -310,19 +313,29 @@ class PegasusServer:
             app_id, pidx, read_hotkey=self.read_hotkey,
             write_hotkey=self.write_hotkey)
         self.write_service.cu_calculator = self.cu_calculator
-        # the table this partition serves, recorded by set_table_name
+        # tenant accounting: wired by set_table_name once the host learns
+        # which table this partition serves; None until then (engines
+        # without a table name stay unattributed)
         self.table_name = ""
+        self.table_ledger = None
         if app_envs:
             self.update_app_envs(app_envs)
 
     # -------------------------------------------------------------- app envs
 
     def set_table_name(self, name: str) -> None:
-        """Record the table this partition serves. (The per-table tenant
-        ledgers of pegasus_tpu/runtime/table_stats.py are not ported: the
-        name is recorded, nothing is charged.)"""
-        if name:
-            self.table_name = name
+        """Wire this partition to its tenant ledger: resolve the per-table
+        ledger once, register the gpid -> table mapping (job and
+        transport attribution), and hand the ledger to the debt throttle
+        and the engine, so delay-ms and device-read probes are charged
+        where they happen."""
+        if not name or name == self.table_name:
+            return
+        self.table_name = name
+        led = TABLE_STATS.register_gpid(self.app_id, self.pidx, name)
+        self.table_ledger = led
+        self.debt_throttler.ledger = led
+        self.engine.table_ledger = led
 
     def update_app_envs(self, envs: dict) -> None:
         """Hot-apply per-table dynamic config (src/server/pegasus_server_impl.cpp:2406)."""
@@ -458,21 +471,26 @@ class PegasusServer:
         Engine state advances stretch by stretch, so a mid-window failure
         leaves last_committed_decree at the last applied decree."""
         out = {}
-        i = 0
-        while i < len(window):
-            _, _, reqs = window[i]
-            if reqs and all(c in BATCHABLE for c, _ in reqs):
-                j = i + 1
-                while j < len(window) and window[j][2] and \
-                        all(c in BATCHABLE for c, _ in window[j][2]):
-                    j += 1
-                out.update(self._apply_batchable_stretch(window[i:j]))
-                i = j
-            else:
-                d, ts, reqs = window[i]
-                out[d] = self.on_batched_write_requests(d, ts, reqs, now=now)
-                i += 1
-        return out
+        if not window:
+            return out
+        with REQUEST_TRACER.span("engine.apply", decree=window[-1][0],
+                                 batch=sum(len(e[2]) for e in window)):
+            i = 0
+            while i < len(window):
+                _, _, reqs = window[i]
+                if reqs and all(c in BATCHABLE for c, _ in reqs):
+                    j = i + 1
+                    while j < len(window) and window[j][2] and \
+                            all(c in BATCHABLE for c, _ in window[j][2]):
+                        j += 1
+                    out.update(self._apply_batchable_stretch(window[i:j]))
+                    i = j
+                else:
+                    d, ts, reqs = window[i]
+                    out[d] = self.on_batched_write_requests(d, ts, reqs,
+                                                            now=now)
+                    i += 1
+            return out
 
     def _apply_batchable_stretch(self, entries):
         """One engine call for a stretch of batchable decrees; per-op
@@ -489,6 +507,9 @@ class PegasusServer:
                 counters.rate(self._pfx + f"{_OP_NAMES[code]}_qps").increment()
         for op in ops:
             counters.percentile(self._pfx + f"{op}_latency_us").set(elapsed_us)
+        if self.table_ledger is not None:
+            self.table_ledger.charge_write(
+                elapsed_us, n_ops=sum(len(e[2]) for e in entries))
         return resps
 
     def on_batched_write_requests(self, decree: int, timestamp_us: int, requests,
@@ -510,26 +531,30 @@ class PegasusServer:
         t0 = time.perf_counter()
         responses = []
         ws = self.write_service
-        ws.batch_prepare()
-        for code, req in requests:
-            if code == RPC_PUT:
-                ws.batch_put(req, timestamp_us)
-                responses.append(ws._fill(msg.UpdateResponse(), decree))
-                counters.rate(self._pfx + "put_qps").increment()
-            elif code == RPC_REMOVE:
-                ws.batch_remove(req.key)
-                responses.append(ws._fill(msg.UpdateResponse(), decree))
-                counters.rate(self._pfx + "remove_qps").increment()
-            else:
-                ws.batch_abort()
-                raise ValueError(
-                    f"non-batchable code {code} in batched request")
-        ws.batch_commit(decree)
+        with REQUEST_TRACER.span("engine.apply", decree=decree,
+                                 batch=len(requests)):
+            ws.batch_prepare()
+            for code, req in requests:
+                if code == RPC_PUT:
+                    ws.batch_put(req, timestamp_us)
+                    responses.append(ws._fill(msg.UpdateResponse(), decree))
+                    counters.rate(self._pfx + "put_qps").increment()
+                elif code == RPC_REMOVE:
+                    ws.batch_remove(req.key)
+                    responses.append(ws._fill(msg.UpdateResponse(), decree))
+                    counters.rate(self._pfx + "remove_qps").increment()
+                else:
+                    ws.batch_abort()
+                    raise ValueError(
+                        f"non-batchable code {code} in batched request")
+            ws.batch_commit(decree)
         # group-committed put/remove share the batch's engine latency:
         # they hit the engine as ONE write, so that is their apply cost
         elapsed_us = int((time.perf_counter() - t0) * 1e6)
         for op in {_OP_NAMES[code] for code, _ in requests}:
             counters.percentile(self._pfx + f"{op}_latency_us").set(elapsed_us)
+        if self.table_ledger is not None:
+            self.table_ledger.charge_write(elapsed_us, n_ops=len(requests))
         return responses
 
     def _dispatch_single(self, decree, timestamp_us, code, req, now=None):
@@ -539,28 +564,31 @@ class PegasusServer:
         counters.rate(self._pfx + f"{op}_qps").increment()
         ws = self.write_service
         t0 = time.perf_counter()
-        if code == RPC_PUT:
-            resp = ws.put(decree, req, timestamp_us)
-        elif code == RPC_REMOVE:
-            resp = ws.remove(decree, req.key)
-        elif code == RPC_MULTI_PUT:
-            resp = ws.multi_put(decree, req, timestamp_us)
-        elif code == RPC_MULTI_REMOVE:
-            resp = ws.multi_remove(decree, req)
-        elif code == RPC_INCR:
-            resp = ws.incr(decree, req, now=now)
-        elif code == RPC_CHECK_AND_SET:
-            resp = ws.check_and_set(decree, req, now=now)
-        elif code == RPC_CHECK_AND_MUTATE:
-            resp = ws.check_and_mutate(decree, req, now=now)
-        elif code == RPC_DUPLICATE:
-            resp = ws.duplicate(decree, req, now=now)
-        elif code == RPC_TRIGGER_AUDIT:
-            resp = ws.trigger_audit(decree, req)
-        else:
-            resp = ws.ingestion_files(decree, req)
+        with REQUEST_TRACER.span("engine.apply", decree=decree, op=op):
+            if code == RPC_PUT:
+                resp = ws.put(decree, req, timestamp_us)
+            elif code == RPC_REMOVE:
+                resp = ws.remove(decree, req.key)
+            elif code == RPC_MULTI_PUT:
+                resp = ws.multi_put(decree, req, timestamp_us)
+            elif code == RPC_MULTI_REMOVE:
+                resp = ws.multi_remove(decree, req)
+            elif code == RPC_INCR:
+                resp = ws.incr(decree, req, now=now)
+            elif code == RPC_CHECK_AND_SET:
+                resp = ws.check_and_set(decree, req, now=now)
+            elif code == RPC_CHECK_AND_MUTATE:
+                resp = ws.check_and_mutate(decree, req, now=now)
+            elif code == RPC_DUPLICATE:
+                resp = ws.duplicate(decree, req, now=now)
+            elif code == RPC_TRIGGER_AUDIT:
+                resp = ws.trigger_audit(decree, req)
+            else:
+                resp = ws.ingestion_files(decree, req)
         elapsed_us = int((time.perf_counter() - t0) * 1e6)
         counters.percentile(self._pfx + f"{op}_latency_us").set(elapsed_us)
+        if self.table_ledger is not None:
+            self.table_ledger.charge_write(elapsed_us)
         return resp
 
     # ------------------------------------------------------------- read path
@@ -569,9 +597,12 @@ class PegasusServer:
         """src/server/pegasus_server_impl.cpp:265."""
         t0 = time.perf_counter()
         now = epoch_now() if now is None else now
-        resp, hk = self._get_response(key, self._read_coalescer.get(key, now))
+        resp, hk, size = self._get_response(
+            key, self._read_coalescer.get(key, now))
         elapsed_us = int((time.perf_counter() - t0) * 1e6)
         self._c_get_latency.set(elapsed_us)
+        if self.table_ledger is not None:
+            self.table_ledger.charge_read(elapsed_us, size)
         self._check_slow_query("get", hk, elapsed_us)
         return resp
 
@@ -587,8 +618,10 @@ class PegasusServer:
         elapsed_us = int((time.perf_counter() - t0) * 1e6)
         out = []
         for key, raw in zip(keys, raws):
-            resp, hk = self._get_response(key, raw)
+            resp, hk, size = self._get_response(key, raw)
             self._c_get_latency.set(elapsed_us)
+            if self.table_ledger is not None:
+                self.table_ledger.charge_read(elapsed_us, size)
             self._check_slow_query("get", hk, elapsed_us)
             out.append(resp)
         return out
@@ -596,7 +629,7 @@ class PegasusServer:
     def _get_response(self, key: bytes, raw):
         """One get's ReadResponse from its stored value (None = missing),
         with its CU charge, size tracing and qps tick. -> (resp,
-        hash_key)."""
+        hash_key, size)."""
         resp = msg.ReadResponse(app_id=self.app_id, partition_index=self.pidx,
                                 server=self.server)
         if raw is None:
@@ -611,7 +644,7 @@ class PegasusServer:
         size = len(key) + len(resp.value)
         self._check_abnormal_size("get", hk, size, self._abnormal_get_size)
         self._c_get_qps.increment()
-        return resp, hk
+        return resp, hk, size
 
     def _check_abnormal_size(self, op: str, hash_key: bytes, size: int,
                              size_thr: int, rows: int = 0,
@@ -665,6 +698,8 @@ class PegasusServer:
                 rows=len(req.sort_keys),
                 rows_thr=self._abnormal_multi_get_iterate_count)
             elapsed_us = int((time.perf_counter() - t0) * 1e6)
+            if self.table_ledger is not None:
+                self.table_ledger.charge_read(elapsed_us, size)
             self._check_slow_query("multi_get", req.hash_key, elapsed_us)
             return resp
 
@@ -728,6 +763,8 @@ class PegasusServer:
             "multi_get", req.hash_key, size, self._abnormal_multi_get_size,
             rows=iterated, rows_thr=self._abnormal_multi_get_iterate_count)
         elapsed_us = int((time.perf_counter() - t0) * 1e6)
+        if self.table_ledger is not None:
+            self.table_ledger.charge_read(elapsed_us, size)
         self._check_slow_query("multi_get", req.hash_key, elapsed_us)
         resp.kvs = out
         resp.error = Status.OK if complete else Status.INCOMPLETE
@@ -875,9 +912,11 @@ class PegasusServer:
         charges the per-RPC limiter, so sparse-filter scans cannot pin a
         read thread unboundedly (reference scan loop under
         range_read_limiter, pegasus_server_impl.cpp:1000-1150)."""
+        t0 = time.perf_counter()
         batch = max(1, req.batch_size)
         limiter = self._make_limiter()
         n = 0
+        nbytes = 0
         exhausted = True
         filter_free = self._scan_filter_free(req)
         for k, raw, expire in iterator:
@@ -892,12 +931,16 @@ class PegasusServer:
             if req.return_expire_ts:
                 kv.expire_ts_seconds = expire
             limiter.add_size(len(k) + len(data))
+            nbytes += len(k) + len(data)
             resp.kvs.append(kv)
             n += 1
             if n >= batch:
                 exhausted = False
                 break
         self.cu_calculator.add_scan_cu(resp.kvs)
+        if self.table_ledger is not None:
+            self.table_ledger.charge_scan(
+                int((time.perf_counter() - t0) * 1e6), nbytes)
         if exhausted:
             resp.context_id = consts.SCAN_CONTEXT_ID_COMPLETED
         else:

@@ -18,6 +18,7 @@ import zlib
 import numpy as np
 
 from .block import KVBlock
+from ..runtime.fail_points import inject
 from ..runtime.tracing import COMPACT_TRACER
 
 MAGIC = b"PGTS1\n"
@@ -69,17 +70,28 @@ def _bloom_build(hash32: np.ndarray) -> tuple:
 
 
 def write_sst(path: str, block: KVBlock, meta: dict = None,
-              compression: str = "none") -> dict:
+              compression: str = "none", bloom: tuple = None) -> dict:
     """Write atomically (tmp + fsync + rename). Returns the header dict.
     compression="zlib" deflates each section; readers detect it from the
-    header."""
+    header. bloom=(hex, log2m) reuses the bloom SSTable.from_block already
+    built for this exact block. The `engine.sst_write` fail point fires
+    before any byte is written."""
     nbytes = block.key_bytes_total + block.val_bytes_total
     with COMPACT_TRACER.span("sst_write", records=block.n, nbytes=nbytes):
-        return _write_sst_impl(path, block, meta, compression)
+        inject("engine.sst_write")
+        return _write_sst_impl(path, block, meta, compression, bloom)
+
+
+def _bloom_hex(block: KVBlock) -> tuple:
+    """(bloom hex, log2m) of a block's hashkey bloom; ("", 0) when empty."""
+    if not block.n:
+        return "", 0
+    bits, log2m = _bloom_build(block.hash32)
+    return bits.hex(), log2m
 
 
 def _write_sst_impl(path: str, block: KVBlock, meta: dict,
-                    compression: str) -> dict:
+                    compression: str, bloom: tuple = None) -> dict:
     sections = {}
     payload = []
     offset = 0
@@ -95,10 +107,7 @@ def _write_sst_impl(path: str, block: KVBlock, meta: dict,
                           "crc32": zlib.crc32(stored) & 0xFFFFFFFF}
         payload.append(stored)
         offset += len(stored)
-    bloom_hex, bloom_log2m = "", 0
-    if block.n:
-        bloom_bits, bloom_log2m = _bloom_build(block.hash32)
-        bloom_hex = bloom_bits.hex()
+    bloom_hex, bloom_log2m = bloom if bloom is not None else _bloom_hex(block)
     header = {
         "sections": sections,
         "meta": dict(meta or {}),
@@ -223,18 +232,60 @@ class SSTable:
     def __init__(self, path: str):
         self.path = path
         self.header = read_header(path)
+        self._init_runtime_state()
+
+    def _init_runtime_state(self) -> None:
         self._block = None
+        # False while a deferred install has not landed the file yet
+        self._on_disk = True
         self._device_run = None
         self._device_uncacheable = False
         self._values_uncacheable = False
-        # set once a merge consumed this file: its run stops serving
+        # set once a merge consumed this file: its run stops serving, and
+        # a late async prime must not pin device memory for it
         self._device_retired = False
-        # whether _device_run's bytes count against the engine's budget
+        # engine-side prime coordination: _prime_inflight keeps an async
+        # prime and an inline caller from uploading one file twice;
+        # _device_budgeted records whether _device_run's bytes count
+        # against the engine's budget (a release subtracts only then);
+        # _prime_error keeps an async prime's device failure for the next
+        # caller that needs this run; _prime_failed stays set until a
+        # prime succeeds, so reads re-prime it and never walk the host
+        self._prime_inflight = False
         self._device_budgeted = False
+        self._prime_error = None
+        self._prime_failed = False
         self._bloom = None
         if self.header.get("bloom"):
             self._bloom = bytes.fromhex(self.header["bloom"])
         self._bloom_log2m = int(self.header.get("bloom_log2m", 0))
+
+    @classmethod
+    def from_block(cls, path: str, block: KVBlock,
+                   meta: dict = None) -> "SSTable":
+        """In-memory SSTable over a not-yet-written block, for the
+        engine's deferred installs: the header is built from the block so
+        reads, blooms and level bookkeeping work at once, while write_sst
+        lands the file on a pool worker. _on_disk stays False until it
+        does; `sections` is empty because the cached block makes the disk
+        read path unreachable (write_sst writes the real header)."""
+        self = cls.__new__(cls)
+        self.path = path
+        bloom_hex, bloom_log2m = _bloom_hex(block)
+        self.header = {
+            "sections": {},
+            "meta": dict(meta or {}),
+            "n": block.n,
+            "min_key": block.key(0).hex() if block.n else None,
+            "max_key": block.key(block.n - 1).hex() if block.n else None,
+            "data_bytes": block.key_bytes_total + block.val_bytes_total,
+            "bloom": bloom_hex,
+            "bloom_log2m": bloom_log2m,
+        }
+        self._init_runtime_state()
+        self._block = block
+        self._on_disk = False
+        return self
 
     @property
     def n(self) -> int:

@@ -141,8 +141,10 @@ class DebtThrottle:
         self._c_delay_ms_total = counters.rate(
             "engine.throttle.debt_delay_ms_total")
         # per-partition attribution: the monotone ms sum this one
-        # throttle has charged
+        # throttle has charged, and the table ledger the host wires up
+        # (set_table_name), so every delayed ms lands on a tenant too
         self.delay_ms_total = 0.0
+        self.ledger = None
         # flight-recorder edge detection: ONE event per engage/disengage
         # transition, not one per delayed write. Deliberately lock-free
         # (this sits on the per-write admission path); a race can at
@@ -177,5 +179,9 @@ class DebtThrottle:
         self._c_delay.increment()
         self._c_delay_ms.set(delay_ms)
         self._c_delay_ms_total.increment(delay_ms)
+        if self.ledger is not None:
+            # charged here, not by the caller: the global total equals the
+            # sum of the per-table attributions by construction
+            self.ledger.charge_throttle_delay(delay_ms)
         time.sleep(delay_ms / 1000.0)
         return delay_ms

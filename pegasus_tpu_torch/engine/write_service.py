@@ -17,6 +17,7 @@ from ..base.utils import epoch_now
 from ..base.value_schema import SCHEMAS, generate_timetag
 from ..runtime import events
 from ..runtime.perf_counters import counters
+from ..runtime.tracing import REQUEST_TRACER
 from ..rpc import codec, messages as msg, task_codes
 from ..rpc.messages import CasCheckType, MutateOperation, Status
 from .db import LsmEngine, WriteBatch
@@ -69,8 +70,11 @@ class WriteService:
         return key_schema.restore_key(key)[0]
 
     def _engine_write(self, batch, decree: int) -> None:
-        """Every mutation reaches the engine through here."""
-        self.engine.write(batch, decree)
+        """Every mutation reaches the engine through here, so the request
+        trace separates engine-write time from the read-modify-write
+        around it (incr/CAS read the old value first)."""
+        with REQUEST_TRACER.span("engine.write", decree=decree):
+            self.engine.write(batch, decree)
 
     # ----------------------------------------------------------- helpers
 
@@ -417,7 +421,9 @@ class WriteService:
                 rl.append(self._fill(msg.UpdateResponse(), decree))
             pairs.append((wb, decree))
             resps[decree] = rl
-        self.engine.write_batch(pairs)
+        with REQUEST_TRACER.span("engine.write", decree=entries[-1][0],
+                                 records=sum(len(e[2]) for e in entries)):
+            self.engine.write_batch(pairs)
         return resps
 
     def batch_prepare(self):

@@ -41,6 +41,8 @@ import os
 import threading
 import time
 
+from ..runtime.tasking import spawn_thread
+
 
 
 class MetaElection:
@@ -67,8 +69,8 @@ class MetaElection:
         self.epoch = 0  # fencing token: the epoch we claimed under
         self._stop = threading.Event()
         self._started = False
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name=f"meta-election:{my_addr}")
+        self._thread = spawn_thread(self._loop, daemon=True, start=False,
+                                    name=f"meta-election:{my_addr}")
 
     # ------------------------------------------------------------- queries
 

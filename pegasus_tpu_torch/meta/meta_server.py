@@ -27,6 +27,7 @@ import time
 from ..rpc import codec
 from ..rpc.transport import (ConnectionPool, ERR_FORWARD_TO_PRIMARY,
                              ERR_INVALID_STATE, RpcError)
+from ..runtime.tasking import spawn_thread
 from . import messages as mm
 
 RPC_CM_CREATE_APP = "RPC_CM_START_CREATE_APP"
@@ -599,9 +600,8 @@ class MetaServer:
         with self._lock:
             self._bulk_loads[app.app_id] = sess
         if req.async_start:
-            threading.Thread(target=self._bulk_load_worker,
-                             args=(app, sess), daemon=True,
-                             name=f"bulk-load:{app.app_name}").start()
+            spawn_thread(self._bulk_load_worker, app, sess, daemon=True,
+                         name=f"bulk-load:{app.app_name}")
             return codec.encode(mm.StartBulkLoadResponse())
         self._bulk_load_worker(app, sess)
         if sess["status"] != "succeed":
@@ -857,6 +857,20 @@ class MetaServer:
             return codec.encode(mm.ListNodesResponse(nodes=nodes))
 
     # ------------------------------------------------------------------- FD
+
+    def table_stats(self, k: int = 5) -> dict:
+        """The cluster-wide per-table view: the TABLE_STATS fragments the
+        nodes' beacons carry (one per serving process, keyed
+        tables@pid:<pid>), folded (totals sum, percentiles MAX), with the
+        top-k tables on each resource axis."""
+        from ..runtime.table_stats import fold_snapshots, top_k
+
+        with self._lock:
+            frags = [st.get("tables", {})
+                     for tables in self._node_tables.values()
+                     for st in tables.values()]
+        folded = fold_snapshots(frags)
+        return {"tables": folded, "top": top_k(folded, k)}
 
     def _on_beacon(self, header, body) -> bytes:
         req = codec.decode(mm.BeaconRequest, body)

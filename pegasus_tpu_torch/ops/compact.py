@@ -38,6 +38,7 @@ import torch
 
 from ..base.utils import epoch_now
 from ..engine.block import KVBlock
+from ..runtime.fail_points import inject
 from ..runtime.tracing import COMPACT_TRACER as _TRACE
 from .merge_path import merge_two_sorted
 from .packing import (DEFAULT_PREFIX_U32, compute_suffix_ranks,
@@ -362,6 +363,7 @@ def pack_run_device(block, prefix_u32: int = DEFAULT_PREFIX_U32,
     nbytes = sum(a.nbytes for a in host) + (rows.nbytes if rows is not None
                                             else 0)
     with _TRACE.span("h2d", records=n, nbytes=nbytes):
+        inject("compact.h2d")
         t = [torch.from_numpy(a).to(device) for a in host]
         val2d = torch.from_numpy(rows).to(device) if rows is not None \
             else None

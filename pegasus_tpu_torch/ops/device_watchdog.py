@@ -121,16 +121,19 @@ class DeviceHealthWatchdog:
             self._consec_failures += 1
             wedged = self._consec_failures >= self.fail_threshold
             if wedged:
-                self.wedged_at_stage = inner or "idle"
+                self.wedged_at_stage = inner[0] if inner else "idle"
         counters.rate("compact.watchdog.probe_failures").increment()
         if wedged:
             counters.number("compact.watchdog.wedged").set(1)
 
     def state(self) -> dict:
         with self._lock:
-            return {"device": str(self.device), "last_ok": self.last_ok,
-                    "last_error": self.last_error,
-                    "wedged_at_stage": self.wedged_at_stage}
+            out = {"device": str(self.device), "last_ok": self.last_ok,
+                   "last_error": self.last_error,
+                   "wedged_at_stage": self.wedged_at_stage}
+        out["open_stages"] = {str(tid): stages for tid, stages
+                              in self.tracer.open_stages().items()}
+        return out
 
     def start(self) -> "DeviceHealthWatchdog":
         """Arm the background probe loop (idempotent)."""
@@ -156,6 +159,17 @@ class DeviceHealthWatchdog:
 
 _WATCHDOGS = {}   # str(device) -> DeviceHealthWatchdog
 _WATCHDOGS_LOCK = threading.Lock()
+
+
+def health_watchdog() -> DeviceHealthWatchdog:
+    """The watchdog the device-health command reports: the first one this
+    process armed (a node's manual compactions arm their engine device's),
+    else the default device's."""
+    with _WATCHDOGS_LOCK:
+        for wd in _WATCHDOGS.values():
+            if wd._loop_thread is not None:
+                return wd
+    return watchdog_for()
 
 
 def watchdog_for(device=None) -> DeviceHealthWatchdog:

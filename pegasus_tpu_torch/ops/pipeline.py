@@ -25,6 +25,10 @@ thread's waits on workers as `pipeline.stall` spans, and per item the
 seconds its worker stages ran beside other work as `pipeline.overlap`
 events; each CompactPipeline also keeps its run's stall_s and overlap_s.
 
+The engine's deferred installs run on a second pool (install_pool,
+submit_install) that holds only disk work, so a drain never waits
+behind device work; the async device primes run on pipeline_pool.
+
 Streams: a worker thread's device work runs on that thread's current
 stream, by default the legacy default stream, which serialises with the
 calling thread's kernels. A prefetch that should overlap them runs on a
@@ -35,17 +39,22 @@ stream of its own and hands an event to the dispatch to wait on
 import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
+from ..runtime import lockrank
+from ..runtime.fail_points import inject
+from ..runtime.job_trace import JOB_TRACER
+from ..runtime.tasking import tracked_executor
 from ..runtime.tracing import COMPACT_TRACER as _TRACE
 
 _DEPTH_ENV = "PEGASUS_COMPACT_PIPELINE_DEPTH"
 _DEFAULT_DEPTH = 2
 _POOL_WORKERS = 4
+_INSTALL_WORKERS = 2
 _DRAIN_TIMEOUT_S = 5.0  # the bounded wait for in-flight workers on error
 
-_POOL = None
-_POOL_LOCK = threading.Lock()
+_POOL = None          #: guarded_by _POOL_LOCK
+_INSTALL_POOL = None  #: guarded_by _POOL_LOCK
+_POOL_LOCK = lockrank.named_lock("pipeline.pool_global")
 
 
 def pipeline_depth() -> int:
@@ -59,16 +68,42 @@ def pipeline_depth() -> int:
     return max(1, d)
 
 
-def pipeline_pool() -> ThreadPoolExecutor:
-    """The process-wide host worker pool of the pipeline stages, created
-    at first use. Fixed size: deeper pipelines share its workers and
-    queue."""
+def pipeline_pool():
+    """The process-wide host worker pool of the pipeline stages and the
+    engine's async device primes, created at first use. Fixed size:
+    deeper pipelines share its workers and queue. Its stages may touch
+    the device, so never put work a drain must wait on here (that is
+    what install_pool is for)."""
     global _POOL
     with _POOL_LOCK:
         if _POOL is None:
-            _POOL = ThreadPoolExecutor(max_workers=_POOL_WORKERS,
-                                       thread_name_prefix="compact-pipeline")
+            _POOL = tracked_executor(_POOL_WORKERS,
+                                     thread_name_prefix="compact-pipeline")
         return _POOL
+
+
+def install_pool():
+    """The engine's deferred-install pool: disk-only jobs (write_sst,
+    manifest, unlinks) that drains wait on. Kept apart from
+    pipeline_pool so device work queued there can never starve an
+    install job and hang flush, compact or close."""
+    global _INSTALL_POOL
+    with _POOL_LOCK:
+        if _INSTALL_POOL is None:
+            _INSTALL_POOL = tracked_executor(
+                _INSTALL_WORKERS, thread_name_prefix="compact-install")
+        return _INSTALL_POOL
+
+
+def stop_pools() -> None:
+    """Shut both pools down (a test module's teardown); the next submit
+    creates them anew."""
+    global _POOL, _INSTALL_POOL
+    with _POOL_LOCK:
+        pools, _POOL, _INSTALL_POOL = (_POOL, _INSTALL_POOL), None, None
+    for p in pools:
+        if p is not None:
+            p.shutdown(wait=True)
 
 
 class PipelineFuture:
@@ -100,24 +135,34 @@ class PipelineFuture:
         return max(0.0, self.ended - self.started)
 
 
-def submit(fn, *args) -> PipelineFuture:
-    """Run fn(*args) on the pipeline pool -> PipelineFuture. The tracer's
-    sessions are process-wide, so the worker's spans land in the caller's
-    sessions."""
+def submit(fn, *args, pool=None) -> PipelineFuture:
+    """Run fn(*args) on the pipeline pool (or an explicit pool) ->
+    PipelineFuture. The worker adopts the submitting thread's active job
+    for the task, so a deferred install's hop lands in the compaction
+    job that queued it. The tracer's sessions are process-wide, so the
+    worker's spans land in the caller's sessions without a hand-off."""
     fut = PipelineFuture()
+    job_id = JOB_TRACER.current()
 
     def run():
         fut.started = time.perf_counter()
         try:
-            fut.value = fn(*args)
+            with JOB_TRACER.adopt(job_id):
+                inject("compact.pipeline")  # fires in every pool task
+                fut.value = fn(*args)
         except BaseException as e:  # noqa: BLE001 - crosses the thread boundary
             fut.error = e
         finally:
             fut.ended = time.perf_counter()
             fut._ev.set()
 
-    pipeline_pool().submit(run)
+    (pool or pipeline_pool()).submit(run)
     return fut
+
+
+def submit_install(fn, *args) -> PipelineFuture:
+    """submit() onto the disk-only install pool (see install_pool)."""
+    return submit(fn, *args, pool=install_pool())
 
 
 def _fut_interval(f):

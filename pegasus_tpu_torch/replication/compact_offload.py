@@ -34,7 +34,6 @@ import hashlib
 import json
 import os
 import shutil
-import threading
 import time
 import zlib
 from dataclasses import replace
@@ -44,7 +43,8 @@ from ..ops.packing import pack_run_bytes, unpack_run_bytes
 from ..rpc import codec
 from ..rpc import messages as rpc_msg
 from ..rpc.transport import ConnectionPool, RpcError, RpcServer
-from ..runtime import events
+from ..runtime import events, lockrank
+from ..runtime.job_trace import JOB_TRACER
 from ..runtime.perf_counters import counters
 from ..runtime.remote_command import RemoteCommandService
 from ..runtime.tracing import COMPACT_TRACER as _TRACE
@@ -149,7 +149,7 @@ class CompactOffloadService:
         os.makedirs(self._jobs_dir, exist_ok=True)
         # leaf lock over job/staging state; never held across a merge, a
         # disk write or an RPC
-        self._lock = threading.Lock()
+        self._lock = lockrank.named_lock("offload.service")
         self._jobs = {}       #: guarded_by self._lock
         self._next_job = 0    #: guarded_by self._lock
         self._running = 0     #: guarded_by self._lock
@@ -605,24 +605,42 @@ def offload_compact_blocks(blocks, opts: CompactOptions, addr: str,
     payloads = [pack_run_bytes(b) for b in runs]
     entries = [rpc_msg.LearnBlockEntry(f"run.{i}", len(p), _md5(p))
                for i, p in enumerate(payloads)]
+    # the job-trace id crosses the wire: the service records its own hops
+    # and returns them on merge, and they are stitched into this job
+    trace_job = JOB_TRACER.current() or ""
     with _TRACE.span("offload.ship", records=sum(b.n for b in runs),
-                     nbytes=sum(len(p) for p in payloads)):
+                     nbytes=sum(len(p) for p in payloads)), \
+            JOB_TRACER.hop("offload.ship", service=addr,
+                           nbytes=sum(len(p) for p in payloads)) as jh:
         begin = _call(addr, RPC_COMPACT_OFFLOAD_BEGIN,
                       rpc_msg.OffloadBeginRequest(
                           tenant=tenant, gpid=f"{opts.pidx}",
-                          runs=entries, opts_json=wire_opts(opts)),
+                          runs=entries, opts_json=wire_opts(opts),
+                          job=trace_job),
                       rpc_msg.OffloadBeginResponse)
         ship = _ship_runs(addr, begin.job_id, entries, payloads,
                           set(begin.staged))
+        jh.update(ship)
     del payloads
     try:
-        with _TRACE.span("offload.merge", records=sum(b.n for b in runs)):
+        with _TRACE.span("offload.merge", records=sum(b.n for b in runs)), \
+                JOB_TRACER.hop("offload.merge", service=addr):
             m = _call(addr, RPC_COMPACT_OFFLOAD_MERGE,
                       rpc_msg.OffloadMergeRequest(job_id=begin.job_id),
                       rpc_msg.OffloadMergeResponse,
                       timeout=merge_timeout_s())
+        if trace_job and m.spans_json:
+            # one timeline, two hosts: the service's view comes home in
+            # the response and lands origin-tagged beside our own hops
+            try:
+                JOB_TRACER.stitch(trace_job, json.loads(m.spans_json),
+                                  origin=addr)
+            except ValueError:
+                pass  # a torn spans payload: the stats parse below raises
         with _TRACE.span("offload.fetch",
-                         nbytes=sum(e.size for e in m.outputs)) as sp:
+                         nbytes=sum(e.size for e in m.outputs)) as sp, \
+                JOB_TRACER.hop("offload.fetch", service=addr,
+                               nbytes=sum(e.size for e in m.outputs)):
             out_parts = [_fetch_output(addr, begin.job_id, e)
                          for e in m.outputs]
             out = unpack_run_bytes(out_parts[0]) if out_parts \

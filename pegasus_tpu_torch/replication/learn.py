@@ -34,6 +34,7 @@ from ..rpc import codec
 from ..rpc import messages as rpc_msg
 from ..rpc.transport import RpcError
 from ..runtime.fail_points import inject
+from ..runtime.job_trace import JOB_TRACER
 from ..runtime.perf_counters import counters
 
 # the arrival-proof counters exist (at zero) before the first learn
@@ -342,7 +343,10 @@ class RemoteLearnSource:
             app_id=self.app_id, pidx=self.pidx,
             delta=delta_enabled() if delta is None else bool(delta),
             have=[rpc_msg.LearnBlockEntry(e["name"], e["size"], e["digest"])
-                  for e in (have or [])])
+                  for e in (have or [])],
+            # the learn job's trace id: the serving primary attributes its
+            # checkpoint pin to this learn's timeline
+            job=JOB_TRACER.current() or "")
         resp = self._call(RPC_LEARN_PREPARE, req,
                           rpc_msg.LearnPrepareResponse)
         return {

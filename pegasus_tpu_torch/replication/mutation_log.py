@@ -31,15 +31,16 @@ only once its group is durable. Group sizes export as
 
 import os
 import struct
-import threading
 import time
 import zlib
 from dataclasses import dataclass, field
 from typing import List
 
 from ..rpc import codec
+from ..runtime import lockrank
 from ..runtime.fail_points import inject
 from ..runtime.perf_counters import counters
+from ..runtime.tracing import REQUEST_TRACER
 
 _FRAME = struct.Struct("<II")
 
@@ -84,8 +85,8 @@ class MutationLog:
             int(os.environ.get("PEGASUS_PLOG_GROUP_US", 500))
         self._stall_s = float(
             os.environ.get("PEGASUS_PLOG_GROUP_STALL_MS", 500)) / 1e3
-        self._lock = threading.Lock()
-        self._gcv = threading.Condition()
+        self._lock = lockrank.named_lock("plog.file")
+        self._gcv = lockrank.named_condition("plog.group")
         self._gbuf = []            #: guarded_by self._gcv
         self._gleader = False      #: guarded_by self._gcv
         self._degraded_until = 0.0  #: guarded_by self._gcv
@@ -123,12 +124,14 @@ class MutationLog:
     def _submit(self, entry: _GroupEntry) -> None:
         t0 = time.perf_counter()
         nbytes = sum(len(f) for f in entry.frames)
-        if time.monotonic() < self._degraded_until:
-            # a recent group leader wedged: per-append landing keeps the
-            # partition moving until the cooldown ends
-            self._write_group([entry])
-        else:
-            self._group_commit(entry)
+        with REQUEST_TRACER.span("plog.append", decree=entry.decrees[-1],
+                                 bytes=nbytes, batch=len(entry.frames)):
+            if time.monotonic() < self._degraded_until:
+                # a recent group leader wedged: per-append landing keeps the
+                # partition moving until the cooldown ends
+                self._write_group([entry])
+            else:
+                self._group_commit(entry)
         if entry.err is not None:
             raise entry.err
         counters.rate("plog.append.count").increment(len(entry.frames))

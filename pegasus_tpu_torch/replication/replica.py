@@ -37,17 +37,18 @@ hooks (commit hooks, duplicators and their log-GC floor).
 """
 
 import os
-import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from ..engine.db import EngineOptions
 from ..engine.replica_service import WRITE_CODES
 from ..engine.server_impl import PegasusServer
 from ..rpc import codec
-from ..runtime import events
+from ..runtime import events, lockrank
+from ..runtime.job_trace import JOB_TRACER
 from ..runtime.perf_counters import counters
+from ..runtime.tasking import tracked_executor
+from ..runtime.tracing import REQUEST_TRACER
 from . import learn as learn_mod
 from .mutation_log import LogMutation, MutationLog
 
@@ -115,7 +116,7 @@ class Replica:
         self.quorum = quorum
         self.peers = peers or (lambda n: (_ for _ in ()).throw(
             ConnectionError(n)))
-        self._lock = threading.RLock()
+        self._lock = lockrank.named_rlock("replica.lock")
         self.status = INACTIVE  #: guarded_by self._lock
         self.ballot = 0         #: guarded_by self._lock
         self.view = None        #: guarded_by self._lock
@@ -126,12 +127,12 @@ class Replica:
         # primary-side learn pins: learn_id -> pin record. While pinned,
         # plog GC floors at the pinned checkpoint decree and the engine
         # holds the checkpoint out of its own GC. A leaf lock.
-        self._learn_lock = threading.Lock()
+        self._learn_lock = lockrank.named_lock("replica.learn_pins")
         self._learn_pins = {}   #: guarded_by self._learn_lock
         self._learn_next_id = 0  #: guarded_by self._learn_lock
         # one learn at a time on the learner side (the transfer runs with
         # self._lock released)
-        self._learn_serial = threading.Lock()
+        self._learn_serial = lockrank.named_lock("replica.learn_serial")
         self.server = PegasusServer(os.path.join(path, "data"), app_id=app_id,
                                     pidx=pidx, options=options, server=name,
                                     cluster_id=cluster_id)
@@ -141,7 +142,7 @@ class Replica:
         self.plog = MutationLog(os.path.join(path, "plog"), fsync=fsync)
         # decree -> LogMutation (prepared, not applied)
         self._uncommitted = {}   #: guarded_by self._lock
-        self._batch_cv = threading.Condition()
+        self._batch_cv = lockrank.named_condition("replica.batch")
         self._batch_pending = []  #: guarded_by self._batch_cv
         self._batch_leader_active = False  #: guarded_by self._batch_cv
         self.last_committed = self.server.engine.last_committed_decree()  #: guarded_by self._lock
@@ -161,7 +162,7 @@ class Replica:
 
     def _prepare_pool(self):
         if self._prep_pool is None:
-            self._prep_pool = ThreadPoolExecutor(
+            self._prep_pool = tracked_executor(
                 4, thread_name_prefix=f"prep-{self.name}")
         return self._prep_pool
 
@@ -249,18 +250,28 @@ class Replica:
               for i, s in enumerate(slots)]
         dk = ms[-1].decree
         t0 = time.perf_counter()
-        self.plog.append_window(ms)
-        self.last_prepared = dk
-        for m in ms:
-            self._uncommitted[m.decree] = m
-        secs = list(self.view.secondaries)
-        if len(secs) > 1 and _parallel_prepare():
-            # wait for all, so per-peer prepare order stays monotonic
-            futs = [self._prepare_pool().submit(
-                self._send_prepare_window, s, ms) for s in secs]
-            peer_lps = [f.result() for f in futs]
-        else:
-            peer_lps = [self._send_prepare_window(s, ms) for s in secs]
+        with REQUEST_TRACER.span("replica.prepare", decree=dk,
+                                 batch=len(ms)):
+            self.plog.append_window(ms)
+            self.last_prepared = dk
+            for m in ms:
+                self._uncommitted[m.decree] = m
+            secs = list(self.view.secondaries)
+            if len(secs) > 1 and _parallel_prepare():
+                # wait for all, so per-peer prepare order stays
+                # monotonic; the trace context is thread-local, so each
+                # worker adopts it and the peers' prepare spans (and the
+                # trace_id on the wire) survive the pool hop
+                ctx = REQUEST_TRACER.current()
+
+                def send(s):
+                    with REQUEST_TRACER.adopt(ctx):
+                        return self._send_prepare_window(s, ms)
+
+                futs = [self._prepare_pool().submit(send, s) for s in secs]
+                peer_lps = [f.result() for f in futs]
+            else:
+                peer_lps = [self._send_prepare_window(s, ms) for s in secs]
         counters.percentile("replica.prepare_latency_us").set(
             int((time.perf_counter() - t0) * 1e6))
         self._export_gauges()
@@ -280,7 +291,8 @@ class Replica:
                 f"quorum lost: {1 + len(acks)}/{self.quorum} "
                 f"for decrees [{d0}..{dk}]")
         t1 = time.perf_counter()
-        resps = self._apply_up_to(commit_d, now=now)
+        with REQUEST_TRACER.span("replica.commit", decree=commit_d):
+            resps = self._apply_up_to(commit_d, now=now)
         counters.percentile("replica.commit_latency_us").set(
             int((time.perf_counter() - t1) * 1e6))
         self._export_gauges()
@@ -354,7 +366,10 @@ class Replica:
         """Windowed prepare: stage a contiguous decree window with one
         plog group append and ack the highest contiguous prepared decree.
         An empty window is a pure commit-point broadcast."""
-        with self._lock:
+        with REQUEST_TRACER.span("replica.on_prepare",
+                                 decree=ms[-1].decree if ms
+                                 else committed_decree,
+                                 batch=len(ms)), self._lock:
             if self._learning:
                 # mid-learn the staged state is about to replace this
                 # replica wholesale: the primary counts a missing ack and
@@ -408,7 +423,8 @@ class Replica:
         return n
 
     def on_prepare(self, ballot: int, m: LogMutation, committed_decree: int):
-        with self._lock:
+        with REQUEST_TRACER.span("replica.on_prepare", decree=m.decree), \
+                self._lock:
             if self._learning:
                 raise PrepareRejected("learning", self.last_prepared)
             if ballot < self.ballot:
@@ -500,7 +516,15 @@ class Replica:
         streaming into learn_ckpt/ with both locks released (the primary
         serves pinned immutable files, this replica rejects prepares),
         the decree-anchored digest proof of the staged state, then a
-        short swap critical section."""
+        short swap critical section. Each learn is ONE traced job:
+        prepare, fetch, tail, digest proof and swap are its hops, and the
+        job id rides the prepare RPC, so the serving primary attributes
+        its checkpoint pin to this learn's timeline."""
+        with JOB_TRACER.job("learn", gpid=f"{self.app_id}.{self.pidx}",
+                            learner=self.name):
+            self._learn_streamed_traced(primary)
+
+    def _learn_streamed_traced(self, primary):
         import shutil
 
         t0 = time.perf_counter()
@@ -512,13 +536,20 @@ class Replica:
         delta_on = learn_mod.delta_enabled()
         live = learn_mod.dir_manifest(data_dir) if delta_on else []
         have = (learn_mod.dir_manifest(ckpt_dir) + live) if delta_on else []
-        st = primary.prepare_learn_state(have=have, delta=delta_on)
+        with JOB_TRACER.hop("learn.prepare", have=len(have)) as jh:
+            st = primary.prepare_learn_state(have=have, delta=delta_on)
+            jh["blocks"] = len(st["blocks"])
+            jh["missing"] = len(st["missing"])
         try:
-            stats = learn_mod.stage_blocks(
-                primary, st, ckpt_dir, delta=delta_on,
-                reuse={e["digest"]: os.path.join(data_dir, e["name"])
-                       for e in live})
-            tail_state = primary.fetch_learn_tail(st["learn_id"])
+            with JOB_TRACER.hop("learn.fetch") as jh:
+                stats = learn_mod.stage_blocks(
+                    primary, st, ckpt_dir, delta=delta_on,
+                    reuse={e["digest"]: os.path.join(data_dir, e["name"])
+                           for e in live})
+                jh.update({k: stats[k] for k in
+                           ("fetched", "bytes", "skipped", "resumed")})
+            with JOB_TRACER.hop("learn.tail"):
+                tail_state = primary.fetch_learn_tail(st["learn_id"])
         finally:
             primary.finish_learn(st["learn_id"])
         verify = ""
@@ -526,31 +557,36 @@ class Replica:
             # the shipped state proves itself before it may serve: a delta
             # learn through the fold over the blocks it verified, a learn
             # that reused nothing through the full rescan
-            if learn_mod.incremental_digest_enabled() \
-                    and stats["skipped"] + stats["resumed"] > 0 \
-                    and stats.get("fold") \
-                    and stats["fold"] == learn_mod.manifest_fold(
-                        st["blocks"]):
-                verify = "incremental"
-                counters.rate("learn.verify.incremental_count").increment()
-            else:
-                verify = "rescan"
-                counters.rate("learn.verify.rescan_count").increment()
-                from ..engine.db import LsmEngine
+            with JOB_TRACER.hop("learn.digest_proof") as jh:
+                if learn_mod.incremental_digest_enabled() \
+                        and stats["skipped"] + stats["resumed"] > 0 \
+                        and stats.get("fold") \
+                        and stats["fold"] == learn_mod.manifest_fold(
+                            st["blocks"]):
+                    verify = "incremental"
+                    counters.rate(
+                        "learn.verify.incremental_count").increment()
+                else:
+                    verify = "rescan"
+                    counters.rate("learn.verify.rescan_count").increment()
+                    from ..engine.db import LsmEngine
 
-                ver = LsmEngine(ckpt_dir, EngineOptions(
-                    backend="cpu", pidx=self.pidx))
-                try:
-                    d = ver.state_digest(now=st["digest_now"],
-                                         pmask=st["digest_pmask"])
-                finally:
-                    ver.close()
-                if d["digest"] != st["digest"]:
-                    raise ReplicaError(
-                        f"{self.name}: shipped state digest mismatch at "
-                        f"checkpoint decree {st['ckpt_decree']}: "
-                        f"{d['digest']} != primary {st['digest']}")
-        replayed = self._swap_learned_state(ckpt_dir, tail_state)
+                    ver = LsmEngine(ckpt_dir, EngineOptions(
+                        backend="cpu", pidx=self.pidx))
+                    try:
+                        d = ver.state_digest(now=st["digest_now"],
+                                             pmask=st["digest_pmask"])
+                    finally:
+                        ver.close()
+                    if d["digest"] != st["digest"]:
+                        raise ReplicaError(
+                            f"{self.name}: shipped state digest mismatch "
+                            f"at checkpoint decree {st['ckpt_decree']}: "
+                            f"{d['digest']} != primary {st['digest']}")
+                jh["mode"] = verify
+        with JOB_TRACER.hop("learn.swap") as jh:
+            replayed = self._swap_learned_state(ckpt_dir, tail_state)
+            jh["replayed"] = replayed
         # staged blocks are hard-linked into data/ now; keeping them would
         # feed stale names into the next learn's have-set
         shutil.rmtree(ckpt_dir, ignore_errors=True)

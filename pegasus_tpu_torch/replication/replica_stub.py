@@ -44,8 +44,12 @@ from ..rpc import messages as rpc_msg
 from ..rpc.transport import (ConnectionPool, ERR_INVALID_STATE,
                              ERR_OBJECT_NOT_FOUND, RpcError, RpcServer)
 from ..runtime import events
+from ..runtime.job_trace import JOB_TRACER
+from ..runtime.metric_history import HISTORY
 from ..runtime.perf_counters import counters
 from ..runtime.remote_command import RemoteCommandService
+from ..runtime.table_stats import TABLE_STATS
+from ..runtime.tasking import spawn_thread
 from .mutation_log import LogMutation
 from .replica import GroupView, PRIMARY, PrepareRejected, Replica, ReplicaError
 
@@ -215,11 +219,11 @@ class ReplicaStub:
         self.address = f"{self.rpc.address[0]}:{self.rpc.address[1]}"
         self._stop = threading.Event()
         self._beacon_threads = {}  # meta addr -> in-flight ping thread
-        self._beacon_thread = threading.Thread(
-            target=self._beacon_loop, daemon=True,
+        self._beacon_thread = spawn_thread(
+            self._beacon_loop, daemon=True, start=False,
             name=f"beacon:{self.address}")
-        self._maint_thread = threading.Thread(
-            target=self._maintenance_loop, daemon=True,
+        self._maint_thread = spawn_thread(
+            self._maintenance_loop, daemon=True, start=False,
             name=f"maintenance:{self.address}")
 
     def start(self, beacon_interval: float = 1.0,
@@ -229,6 +233,9 @@ class ReplicaStub:
         self.send_beacon()
         self._beacon_thread.start()
         self._maint_thread.start()
+        # every serving process samples its counter registry into the
+        # history ring (a refcounted process-wide sampler)
+        HISTORY.start()
         return self
 
     # ------------------------------------------------------- maintenance
@@ -270,7 +277,32 @@ class ReplicaStub:
                                "decree": la.get("decree", 0),
                                "digest": la.get("digest", "")}
             states.append(json.dumps(st))
+        frag = self._table_stats_fragment_locked()
+        if frag is not None:
+            states.append(frag)
         return alive, states
+
+    def _table_stats_fragment_locked(self):  #: requires self._lock
+        """A beacon entry (JSON) carrying TABLE_STATS.snapshot(), or None
+        when no table is wired in this process. The meta diverts status
+        TABLE_STATS into its tables-only map (_node_tables), so consumers
+        of the replica states never iterate over it. Before the snapshot
+        each table's device-resident bytes and its compact jobs' device
+        seconds and offload bytes are folded in."""
+        if not TABLE_STATS.tables():
+            return None
+        resident = {}
+        for (a, p), rep in self._replicas.items():
+            name = TABLE_STATS.table_for_gpid(f"{a}.{p}")
+            if name:
+                resident[name] = (resident.get(name, 0)
+                                  + rep.server.engine.device_resident_bytes())
+        for name, nbytes in resident.items():
+            TABLE_STATS.ledger(name).set_hbm_resident(nbytes)
+        TABLE_STATS.attribute_jobs(JOB_TRACER.window(None))
+        return json.dumps({"gpid": f"tables@pid:{os.getpid()}",
+                           "status": "TABLE_STATS",
+                           "tables": TABLE_STATS.snapshot()})
 
     def _beacon_loop(self):
         while not self._stop.wait(self._beacon_interval):
@@ -306,8 +338,8 @@ class ReplicaStub:
             prev = self._beacon_threads.get(m)
             if prev is not None and prev.is_alive():
                 continue
-            t = threading.Thread(target=ping, args=(m,), daemon=True,
-                                 name=f"beacon:{self.address}->{m}")
+            t = spawn_thread(ping, m, daemon=True, start=False,
+                             name=f"beacon:{self.address}->{m}")
             self._beacon_threads[m] = t
             threads.append(t)
         for t in threads:
@@ -518,6 +550,14 @@ class ReplicaStub:
         except Exception as e:  # noqa: BLE001 - the learner retries
             return codec.encode(rpc_msg.LearnPrepareResponse(
                 error=1, error_text=repr(e)))
+        if req.job:
+            # attribute this primary's checkpoint pin to the learner's
+            # traced job: opens a remote-view record here; in a onebox
+            # the note lands straight in the learn timeline
+            JOB_TRACER.note("learn.serve_prepare", job_id=req.job,
+                            gpid=f"{req.app_id}.{req.pidx}",
+                            blocks=len(st["blocks"]),
+                            missing=len(st["missing"]))
         return codec.encode(rpc_msg.LearnPrepareResponse(
             learn_id=st["learn_id"], ckpt_decree=st["ckpt_decree"],
             ballot=st["ballot"], last_committed=st["last_committed"],
@@ -643,10 +683,19 @@ class ReplicaStub:
         replica runs its own manual_compact. Every participating engine's
         compaction lock is held from the file-set snapshot through the
         output install (taken in stable key order), so flush-triggered
-        compactions cannot double-merge."""
+        compactions cannot double-merge. One traced "compact" job
+        (trigger=batched): an engine.merge hop per group, carrying the
+        kernel calls counted during it, and an engine.install hop per
+        replica."""
+        with JOB_TRACER.job("compact", node=self.address, trigger="batched",
+                            app_id=app_id):
+            return self._batched_manual_compact_traced(app_id, now)
+
+    def _batched_manual_compact_traced(self, app_id, now) -> dict:
         from ..engine.block import KVBlock
         from ..engine.db import META_LAST_MANUAL_COMPACT_FINISH_TIME
         from ..ops.batched_compact import compact_partition_batch
+        from ..ops.merge_path import LAUNCHES
 
         def mark_done(eng):
             with eng._lock:
@@ -715,12 +764,18 @@ class ReplicaStub:
                         pidx=eng.opts.pidx, partition_mask=pmask,
                         default_ttl=eng.opts.default_ttl,
                         user_ops=tuple(eng.opts.user_ops)))
-                outs = compact_partition_batch(jobs, opts,
-                                               post_opts=post_opts)
+                with JOB_TRACER.hop("engine.merge", where="batched",
+                                    partitions=len(group)) as jh:
+                    l0 = LAUNCHES["merge_path"]
+                    outs = compact_partition_batch(jobs, opts,
+                                                   post_opts=post_opts)
+                    # the kernel calls this process counted during the hop
+                    jh["launches"] = LAUNCHES["merge_path"] - l0
                 for (eng, all_inputs, inputs, _), out in zip(group, outs):
                     n_in = sum(s.n for s in inputs)
-                    eng._install_merge_output(all_inputs, [], out,
-                                              eng.opts.max_levels)
+                    with JOB_TRACER.hop("engine.install", pidx=eng.opts.pidx):
+                        eng._install_merge_output(all_inputs, [], out,
+                                                  eng.opts.max_levels)
                     mark_done(eng)
                     release(eng)
                     stats["input_records"] += n_in
@@ -892,6 +947,10 @@ class ReplicaStub:
     # -------------------------------------------------------------- control
 
     def stop(self):
+        if not self._stop.is_set():
+            # drop the refcounted sampler reference once: a node kill and
+            # a harness teardown may both call stop()
+            HISTORY.stop()
         self._stop.set()
         self.rpc.stop()
         for t in (self._beacon_thread, self._maint_thread):

@@ -447,7 +447,7 @@ class OffloadBeginRequest:
     gpid: str = ""
     runs: List[LearnBlockEntry] = field(default_factory=list)
     opts_json: str = ""
-    # trailing: the tenant's job-trace id (the port sends "")
+    # trailing: the tenant's job-trace id ("" untraced)
     job: str = ""
 
 

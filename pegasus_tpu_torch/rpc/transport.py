@@ -7,7 +7,17 @@ other on one socket. Serverlets register their per-frame handlers
 (app_id, partition_index, partition_hash) and, on a sharded connection,
 the `sharded` flag. Pure Python: the JAX package's native frame reader
 and vectored writer send the same bytes and are not ported (their
-pure-Python twins are), nor is its request tracing.
+pure-Python twins are).
+
+Request tracing: a call made inside an active trace
+(runtime/tracing.py REQUEST_TRACER) carries its trace_id and
+trace_sampled in the header and records an `rpc.<code>` span; the
+server serves a traced frame inside REQUEST_TRACER.serve, so the
+handler's spans join the caller's trace. The header is the JAX
+package's, so a trace crosses between the packages in both directions.
+
+Middlewares (add_middleware; the toollets of runtime/toollets.py) wrap
+every per-frame handler.
 
 Priority codes: requests beyond the 16-worker pool queue, except the
 replication and lifecycle codes of RpcServer.PRIORITY_CODES, which get a
@@ -21,9 +31,9 @@ by task code (_FrameReader.wave_batched), and a binned batch of one code
 is ONE pool task, ONE handler call and ONE coalesced reply write. Its
 responses are byte-identical to the per-frame path's, and it ticks the
 same counters per frame. A batch goes back to per-frame dispatch where
-the JAX package's does: when the `serve.native` fail point triggers, and
-when a frame carries a trace context (the port has no middlewares, the
-JAX package's third reason).
+the JAX package's does: when the `serve.native` fail point triggers,
+when a frame carries a trace context (its spans attach per request),
+and when middlewares are installed (they wrap per-frame handlers).
 
 Frame: u32 LE payload length | payload. Payload = u32 LE header length |
 codec-encoded RpcHeader | body bytes. Requests and responses share the
@@ -37,12 +47,15 @@ import socketserver
 import struct
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 from . import codec
 from ..runtime.fail_points import FailPointError, fail_point
 from ..runtime.perf_counters import counters
+from ..runtime.table_stats import TABLE_STATS
+from ..runtime.tasking import spawn_thread, tracked_executor
+from ..runtime.tracing import REQUEST_TRACER, TraceContext
 
 # RPC-layer error codes (a handler's own status rides in its response
 # body's `error` field)
@@ -60,8 +73,8 @@ ERR_FORWARD_TO_PRIMARY = 8
 @dataclass
 class RpcHeader:
     """Every field of the JAX package's header, in its order, so frames
-    decode on both sides. The port sends trace_id 0 (untraced); `sharded`
-    marks a connection that carries one partition's traffic."""
+    decode on both sides. trace_id 0 is an untraced call; `sharded` marks
+    a connection that carries one partition's traffic."""
 
     seq: int = 0
     code: str = ""
@@ -214,12 +227,15 @@ class RpcServer:
         # hot read codes with a batch handler: fn(headers, bodies) -> one
         # result per frame (bytes | RpcError | Exception)
         self._batch_handlers = {}
-        self._pool = ThreadPoolExecutor(self.POOL_WORKERS,
-                                        thread_name_prefix="rpc-serve")
+        self._middlewares = []   # fn(code, header, body, next) -> body
+        self._pool = tracked_executor(self.POOL_WORKERS,
+                                      thread_name_prefix="rpc-serve")
         # pool tasks submitted and not yet finished: at POOL_WORKERS a
-        # priority frame takes its own thread instead of queueing
+        # priority frame takes its own thread instead of queueing, and
+        # the excess over POOL_WORKERS is the dispatch queue's depth
         self._busy_lock = threading.Lock()
         self._busy = 0  #: guarded_by self._busy_lock
+        self._depth_gauge = counters.number("rpc.server.dispatch_queue_depth")
         # live accepted connections: stop() shuts them down so a stopped
         # server looks like a killed one to its peers (in-flight calls
         # fail at once instead of waiting out the client timeout)
@@ -242,9 +258,9 @@ class RpcServer:
         self.address = self._srv.server_address  # (host, actual_port)
         # a short poll: stop() waits out at most one poll of the accept
         # loop (socketserver's default half second made every stop slow)
-        self._thread = threading.Thread(
-            target=self._srv.serve_forever, kwargs={"poll_interval": 0.05},
-            name="rpc-accept", daemon=True)
+        self._thread = spawn_thread(
+            self._srv.serve_forever, poll_interval=0.05, name="rpc-accept",
+            daemon=True, start=False)
 
     def serve_connection(self, sock) -> None:
         """Serve one connection to exhaustion: read pipelined frame waves,
@@ -292,6 +308,12 @@ class RpcServer:
                                 dict)().items():
             self.register_batch(code, fn)
 
+    def add_middleware(self, mw) -> None:
+        """mw(code, header, body, next_fn) -> response body: wraps every
+        per-frame handler (the toollet seam). A server with a middleware
+        serves every frame on the per-frame path."""
+        self._middlewares.append(mw)
+
     def start(self) -> "RpcServer":
         self._thread.start()
         return self
@@ -319,6 +341,10 @@ class RpcServer:
             fail_point("serve.dispatch")
         except FailPointError as e:
             self._c_err.increment()
+            if header.app_id:
+                # a rejected dispatch is an error the TABLE saw, although
+                # no replica handler ran (no-op for an unmapped app_id)
+                TABLE_STATS.charge_app_error(header.app_id)
             try:
                 _send_frame(sock, RpcHeader(
                     seq=header.seq, code=header.code, is_response=True,
@@ -330,9 +356,8 @@ class RpcServer:
             with self._busy_lock:
                 overflow = self._busy >= self.POOL_WORKERS
             if overflow:
-                threading.Thread(target=self._serve_one,
-                                 args=(sock, wlock, header, body),
-                                 name="rpc-priority", daemon=True).start()
+                spawn_thread(self._serve_one, sock, wlock, header, body,
+                             name="rpc-priority", daemon=True)
                 return
         self._submit(self._serve_one, sock, wlock, header, body)
 
@@ -340,6 +365,9 @@ class RpcServer:
         """One task to the pool, counted busy until it finishes."""
         with self._busy_lock:
             self._busy += 1
+            depth = self._busy - self.POOL_WORKERS
+        if depth > 0:
+            self._depth_gauge.set(depth)
         try:
             self._pool.submit(self._run_pooled, fn, *args)
         except RuntimeError:   # stopping: the pool is shut down
@@ -353,22 +381,34 @@ class RpcServer:
         finally:
             with self._busy_lock:
                 self._busy -= 1
+                depth = self._busy - self.POOL_WORKERS
+            self._depth_gauge.set(max(0, depth))
 
     def _serve_one(self, sock, wlock, header: RpcHeader, body: bytes) -> None:
         resp = RpcHeader(seq=header.seq, code=header.code, is_response=True)
         out = b""
         t0 = time.perf_counter()
-        try:
-            fn = self._handlers.get(header.code)
-            if fn is None:
-                resp.error = ERR_HANDLER_NOT_FOUND
-                resp.error_text = header.code
-            else:
-                out = fn(header, body)
-        except RpcError as e:
-            resp.error, resp.error_text = e.err, e.text
-        except Exception as e:  # handler failure -> error, not a dead connection
-            resp.error, resp.error_text = ERR_INVALID_DATA, repr(e)
+        # a traced frame: the handler's whole stack (replication, plog,
+        # engine spans) records into the caller's trace
+        scope = (REQUEST_TRACER.serve(
+            TraceContext(header.trace_id, header.trace_sampled, remote=True),
+            header.code) if header.trace_id else nullcontext())
+        with scope:
+            try:
+                fn = self._handlers.get(header.code)
+                if fn is None:
+                    resp.error = ERR_HANDLER_NOT_FOUND
+                    resp.error_text = header.code
+                else:
+                    call = fn
+                    for mw in reversed(self._middlewares):
+                        call = (lambda h, b, _mw=mw, _next=call:
+                                _mw(h.code, h, b, _next))
+                    out = call(header, body)
+            except RpcError as e:
+                resp.error, resp.error_text = e.err, e.text
+            except Exception as e:  # handler failure -> error, not a dead conn
+                resp.error, resp.error_text = ERR_INVALID_DATA, repr(e)
         self._c_qps.increment()
         self._c_lat.set(int((time.perf_counter() - t0) * 1e6))
         if resp.error:
@@ -381,16 +421,17 @@ class RpcServer:
     def _dispatch_batch(self, sock, wlock, code: str, frames) -> None:
         """Dispatch a hot-code batch the reader coalesced: ONE pool task,
         ONE handler call, ONE coalesced reply write. Per-frame dispatch
-        instead when the serve.native fail point triggers or when any
-        frame carries a trace context; the per-frame twin writes
-        byte-identical responses."""
+        instead when the serve.native fail point triggers, when any frame
+        carries a trace context, or when middlewares are installed; the
+        per-frame twin writes byte-identical responses."""
         batch_ok = True
         try:
             if fail_point("serve.native") is not None:
                 batch_ok = False
         except FailPointError:
             batch_ok = False
-        if not batch_ok or any(h.trace_id for h, _ in frames):
+        if (not batch_ok or self._middlewares
+                or any(h.trace_id for h, _ in frames)):
             for header, body in frames:
                 self._dispatch(sock, wlock, header, body)
             return
@@ -399,6 +440,9 @@ class RpcServer:
             fail_point("serve.dispatch")
         except FailPointError as e:
             self._c_err.increment(len(frames))
+            for h, _ in frames:
+                if h.app_id:
+                    TABLE_STATS.charge_app_error(h.app_id)
             try:
                 _send_frames(sock, [(RpcHeader(
                     seq=h.seq, code=h.code, is_response=True,
@@ -466,9 +510,8 @@ class RpcConnection:
         self._pending = {}   # seq -> (event, slot)  #: guarded_by self._plock
         self._seq = 0        #: guarded_by self._plock
         self._dead = None
-        self._reader = threading.Thread(target=self._read_loop,
-                                        name="rpc-conn-reader", daemon=True)
-        self._reader.start()
+        self._reader = spawn_thread(self._read_loop, name="rpc-conn-reader",
+                                    daemon=True)
 
     def _read_loop(self):
         try:
@@ -494,15 +537,19 @@ class RpcConnection:
 
     def _register(self, code: str, app_id: int = 0, pidx: int = 0,
                   phash: int = 0):
-        """-> (seq, event, slot, header) of one new pending call."""
+        """-> (seq, event, slot, header) of one new pending call; the
+        header carries the thread's active trace context."""
         with self._plock:
             self._seq += 1
             seq = self._seq
             ev, slot = threading.Event(), []
             self._pending[seq] = (ev, slot)
+        ctx = REQUEST_TRACER.current()
         return seq, ev, slot, RpcHeader(
             seq=seq, code=code, app_id=app_id, partition_index=pidx,
-            partition_hash=phash, sharded=self.shard is not None)
+            partition_hash=phash, trace_id=ctx.trace_id if ctx else 0,
+            trace_sampled=bool(ctx and ctx.sampled),
+            sharded=self.shard is not None)
 
     def _result(self, slot):
         if not slot or slot[0] is None:
@@ -521,16 +568,17 @@ class RpcConnection:
             raise RpcError(ERR_NETWORK_FAILURE, str(self._dead))
         seq, ev, slot, header = self._register(code, app_id, partition_index,
                                                partition_hash)
-        try:
-            _send_frame(self._sock, header, body, lock=self._wlock)
-        except (ConnectionError, OSError) as e:
-            with self._plock:
-                self._pending.pop(seq, None)
-            raise RpcError(ERR_NETWORK_FAILURE, str(e))
-        if not ev.wait(timeout):
-            with self._plock:
-                self._pending.pop(seq, None)
-            raise RpcError(ERR_TIMEOUT, f"{code} after {timeout}s")
+        with REQUEST_TRACER.span(f"rpc.{code}", bytes=len(body)):
+            try:
+                _send_frame(self._sock, header, body, lock=self._wlock)
+            except (ConnectionError, OSError) as e:
+                with self._plock:
+                    self._pending.pop(seq, None)
+                raise RpcError(ERR_NETWORK_FAILURE, str(e))
+            if not ev.wait(timeout):
+                with self._plock:
+                    self._pending.pop(seq, None)
+                raise RpcError(ERR_TIMEOUT, f"{code} after {timeout}s")
         return self._result(slot)
 
     def call_many(self, calls, timeout: float = 10.0):
@@ -561,8 +609,10 @@ class RpcConnection:
             buf += h
             buf += body
         try:
-            with self._wlock:
-                self._sock.sendall(buf)
+            with REQUEST_TRACER.span("rpc.call_many", bytes=len(buf),
+                                     records=len(calls)):
+                with self._wlock:
+                    self._sock.sendall(buf)
         except (ConnectionError, OSError) as e:
             with self._plock:
                 for seq, _, _ in pend:

@@ -4,7 +4,10 @@ Port of pegasus_tpu/runtime/remote_command.py. A server registers its
 commands and serves them on the RPC_CLI_CLI_CALL task code; the request
 and response messages are the JAX package's, so its shell and
 collectors query a port service as they query their own. Only the
-commands whose machinery the port has are registered by default.
+commands whose machinery the port has are registered by default: the
+JAX package's defaults except `slo-status` (its evaluator is the
+collector, not ported yet). The structural commands answer JSON keyed
+by this process's pid, as the JAX package's do.
 """
 
 import json
@@ -52,10 +55,104 @@ class RemoteCommandService:
         self.register("perf-counters-by-substr",
                       lambda a: self._dump_counters(
                           lambda n: any(p in n for p in a)))
+        self.register("set-fail-point", self._cmd_set_fail_point)
         self.register("events-dump", self._cmd_events_dump)
+        self.register("metrics-history", self._cmd_metrics_history)
+        self.register("compact-trace-dump", self._cmd_compact_trace_dump)
+        self.register("device-health", self._cmd_device_health)
+        self.register("request-trace-dump", self._cmd_request_trace_dump)
+        self.register("slow-requests", self._cmd_slow_requests)
+        self.register("job-trace", self._cmd_job_trace)
+        self.register("table-stats", self._cmd_table_stats)
         if describe is not None:
             self.register("describe",
                           lambda a: json.dumps(describe(), indent=1))
+
+    @staticmethod
+    def _cmd_set_fail_point(args) -> str:
+        """set-fail-point <name> <action>: arm (or heal, with 'off()') a
+        fail point in THIS server process at runtime, in the action
+        language the tests use (`sleep(ms)`, `raise(msg)`, `return(v)`,
+        `N%`/`K*` modifiers). Arming never clears other armed points."""
+        from . import fail_points
+
+        if len(args) < 2:
+            return "usage: set-fail-point <name> <action>"
+        name, action = args[0], " ".join(args[1:])
+        try:
+            fail_points.arm(name, action)
+        except ValueError as e:
+            return str(e)
+        return json.dumps({f"pid:{os.getpid()}": f"{name}={action}"})
+
+    @staticmethod
+    def _cmd_metrics_history(args) -> str:
+        """metrics-history [seconds] [prefix]: this process's metric
+        history window (runtime/metric_history.py)."""
+        from .metric_history import HISTORY
+
+        seconds = float(args[0]) if args else None
+        prefix = args[1] if len(args) > 1 else None
+        return json.dumps({f"pid:{os.getpid()}":
+                           HISTORY.window(seconds=seconds, prefix=prefix)})
+
+    @staticmethod
+    def _cmd_compact_trace_dump(args) -> str:
+        """compact-trace-dump [last]: recent stage spans from the
+        process-wide ring (runtime/tracing.py COMPACT_TRACER)."""
+        from .tracing import COMPACT_TRACER
+
+        return COMPACT_TRACER.dump(int(args[0]) if args else 100)
+
+    @staticmethod
+    def _cmd_device_health(args) -> str:
+        """device-health: the device watchdog's liveness and wedge state
+        (ops/device_watchdog.py)."""
+        from ..ops.device_watchdog import health_watchdog
+
+        return json.dumps(health_watchdog().state(), indent=1)
+
+    @staticmethod
+    def _cmd_request_trace_dump(args) -> str:
+        """request-trace-dump [last]: recent sampled request traces
+        (runtime/tracing.py REQUEST_TRACER)."""
+        from .tracing import REQUEST_TRACER
+
+        return json.dumps(
+            REQUEST_TRACER.trace(int(args[0]) if args else 50), indent=1)
+
+    @staticmethod
+    def _cmd_slow_requests(args) -> str:
+        """slow-requests [last]: the slow-request ledger, full stage
+        timelines of every request over the slow threshold."""
+        from .tracing import REQUEST_TRACER
+
+        return json.dumps(
+            REQUEST_TRACER.slow_requests(int(args[0]) if args else 50),
+            indent=1)
+
+    @staticmethod
+    def _cmd_job_trace(args) -> str:
+        """job-trace [last | <job-id>]: this process's background-job
+        timelines (runtime/job_trace.py), completed and still open, or
+        ONE timeline when a j-prefixed id is given."""
+        from .job_trace import JOB_TRACER
+
+        if args and args[0].startswith("j"):
+            found = JOB_TRACER.find(args[0])
+            return json.dumps({f"pid:{os.getpid()}":
+                               [found] if found else []})
+        last = int(args[0]) if args else 50
+        return json.dumps({f"pid:{os.getpid()}": JOB_TRACER.jobs(last=last)})
+
+    @staticmethod
+    def _cmd_table_stats(args) -> str:
+        """table-stats: this process's per-table ledger totals
+        (runtime/table_stats.py); callers fold the fragments with
+        table_stats.fold_snapshots."""
+        from .table_stats import TABLE_STATS
+
+        return json.dumps({f"pid:{os.getpid()}": TABLE_STATS.snapshot()})
 
     @staticmethod
     def _cmd_events_dump(args) -> str:

@@ -18,22 +18,28 @@ CompactOffloadApp: each reads its [apps.<name>] section (and the shared
     meta_servers = 127.0.0.1:34601
     compaction_backend = cuda         ; cuda (default) | cpu
 
-Not ported yet (ROADMAP Queue 1): the toollets of [core], http_port
-reporters, the metric history, serve groups and the collector role. A
-config that asks for one of them raises, naming it.
+    [core]
+    toollets = tracer, profiler       ; RPC middlewares on every app
+
+Every role samples the process's counters into the metric history
+(runtime/metric_history.py; refcounted, one sampler per process).
+
+Not ported yet (ROADMAP Queue 1): http_port reporters, serve groups,
+sharded compaction and the collector role. A config that asks for one
+of them raises, naming it.
 """
 
 import os
 import threading
 
 from .config import Config
+from .metric_history import HISTORY
+from .toollets import install_toollets
 
 
 def _refuse_unported(config: Config, section: str) -> None:
     """Raise when the config asks for a plane the port does not have."""
     asked = []
-    if config.get_list("core", "toollets", ()):
-        asked.append("[core] toollets")
     if config.get_int(section, "http_port", -1) >= 0:
         asked.append(f"[{section}] http_port")
     if config.get_int(section, "serve_groups", 1) > 1 or int(
@@ -89,9 +95,11 @@ class MetaApp:
             election=self.election)
         for code, fn in self.meta.rpc_handlers().items():
             self.rpc.register(code, fn)
+        install_toollets(self.rpc, config.get_list("core", "toollets", ()))
         self._fd_timer = None
         self._policy_timer = None
         self._stopped = False
+        self._history_ref = False
         self._fd_interval = config.get_float("failure_detector",
                                              "check_interval_seconds", 5.0)
 
@@ -106,6 +114,8 @@ class MetaApp:
             self.election.start()
         self._arm_fd()
         self._arm_policy()
+        HISTORY.start()
+        self._history_ref = True
         return self
 
     def _is_leader(self) -> bool:
@@ -151,6 +161,9 @@ class MetaApp:
         if self.election is not None:
             self.election.stop()
         self.rpc.stop()
+        if self._history_ref:
+            self._history_ref = False
+            HISTORY.stop()
 
 
 class ReplicaApp:
@@ -192,6 +205,10 @@ class ReplicaApp:
             cluster_id=config.get_int("pegasus.server", "cluster_id", 1))
         self._beacon = config.get_float("failure_detector",
                                         "beacon_interval_seconds", 1.0)
+        # the stub starts and stops the metric history itself
+        install_toollets(self.stub.rpc,
+                         config.get_list("core", "toollets", ()),
+                         command_service=self.stub.commands)
 
     @property
     def address(self):
@@ -239,12 +256,17 @@ class CompactOffloadApp:
 
     def start(self):
         self.svc.start()
+        HISTORY.start()
+        self._history_ref = True
         print(f"[pegasus-tpu] compaction offload service on "
               f"{self.svc.address} (backend {self.svc.backend})", flush=True)
         return self
 
     def stop(self):
         self.svc.stop()
+        if getattr(self, "_history_ref", False):
+            self._history_ref = False
+            HISTORY.stop()
 
 
 APP_TYPES = {"meta": MetaApp, "replica": ReplicaApp,

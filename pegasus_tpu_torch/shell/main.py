@@ -32,6 +32,7 @@ from ..meta.meta_server import (RPC_CM_CREATE_APP, RPC_CM_DROP_APP,
 from ..rpc import codec
 from ..rpc.transport import ConnectionPool, RpcError
 from ..runtime.remote_command import RemoteCommandRequest, RemoteCommandResponse
+from ..runtime.table_stats import fold_snapshots, top_k
 
 
 # commands whose plane is not ported yet -> the module they need
@@ -40,24 +41,16 @@ NOT_PORTED = {
               "(meta/meta_server.py RPC_CM_RECALL_APP)",
     "compact_sched": "the compaction scheduler "
                      "(collector/compact_scheduler.py)",
-    "compact_trace": "the compaction stage traces "
-                     "(runtime/tracing.py compact-trace-dump)",
-    "device_health": "the device-health lane guard (runtime/lane_guard.py)",
     "quarantine_status": "quarantine and scrub "
                          "(replication/replica_stub.py quarantine-status)",
     "scrub_replica": "quarantine and scrub "
                      "(replication/replica_stub.py scrub-replica)",
-    "request_trace": "the request traces (runtime/tracing.py RequestTracer)",
-    "slow_requests": "the request traces (runtime/tracing.py slow-requests)",
-    "job_trace": "the job tracer (runtime/job_trace.py)",
     "flight_recorder": "the flight recorder (collector/flight_recorder.py)",
     "cluster_doctor": "the cluster doctor (collector/cluster_doctor.py)",
-    "tables": "table stats (runtime/table_stats.py)",
-    "slo": "table stats (runtime/table_stats.py slo-status)",
+    "slo": "the collector's SLO evaluation "
+           "(collector/info_collector.py slo-status)",
     "detect_hotkey": "hotkey detection "
                      "(replication/replica_stub.py detect_hotkey)",
-    "set_fail_point": "remote fail points "
-                      "(runtime/remote_command.py set-fail-point)",
     "cross_cluster_audit": "duplication (replication/duplicator.py)",
     "propose": "balance (meta/meta_server.py RPC_CM_PROPOSE_BALANCER)",
     "balance": "balance (meta/meta_server.py RPC_CM_START_BALANCE)",
@@ -146,14 +139,14 @@ class Shell:
             "server_stat": (self.cmd_server_stat, "server-stat on every node"),
             "perf_counters": (self.cmd_perf_counters,
                               "perf_counters <node> [prefix]"),
-            "compact_trace": (self._not_ported("compact_trace"),
+            "compact_trace": (self.cmd_compact_trace,
                               "compact_trace [node] [last] — recent "
                               "compaction stage spans (pack/h2d/device/"
                               "gather) from the tracing ring buffer"),
-            "device_health": (self._not_ported("device_health"),
-                              "device-health watchdog + lane-guard state on "
-                              "every node (last_ok / wedged_at_stage / "
-                              "breaker / cpu-fallback totals)"),
+            "device_health": (self.cmd_device_health,
+                              "device-health watchdog state on every node "
+                              "(last_ok / last_error / wedged_at_stage / "
+                              "open stages)"),
             "quarantine_status": (self._not_ported("quarantine_status"),
                                   "quarantine_status [node] — replicas "
                                   "fenced for on-disk corruption (reason, "
@@ -163,15 +156,14 @@ class Shell:
                               "integrity scrub pass now (checksum-verify "
                               "live SSTs off the serving path; corrupt "
                               "replicas quarantine themselves)"),
-            "request_trace": (self._not_ported("request_trace"),
+            "request_trace": (self.cmd_request_trace,
                               "request_trace [node] [last] — recent sampled "
                               "request traces (client/rpc/replication/engine "
                               "stage timelines)"),
-            "slow_requests": (self._not_ported("slow_requests"),
-                              "slow_requests [node|--cluster] [last] — the "
-                              "slow-request ledger; --cluster merges every "
-                              "node's ledger into one worst-first top-N"),
-            "job_trace": (self._not_ported("job_trace"),
+            "slow_requests": (self.cmd_slow_requests,
+                              "slow_requests [node] [last] — the "
+                              "slow-request ledger"),
+            "job_trace": (self.cmd_job_trace,
                           "job_trace [node] [last|<job-id>] — background-"
                           "job timelines (compaction/offload/learn/dup "
                           "hops, one causal id across nodes)"),
@@ -194,7 +186,7 @@ class Shell:
                                "cluster_doctor [last] — ONE cluster health "
                                "verdict (healthy|degraded|critical) with "
                                "named causes + evidence"),
-            "tables": (self._not_ported("tables"),
+            "tables": (self.cmd_tables,
                        "tables [k] — cluster-folded per-table tenant "
                        "ledgers (ops/latency/bytes/throttle/device/HBM) "
                        "+ top-k capacity attribution, from every alive "
@@ -205,7 +197,7 @@ class Shell:
                     "node's slo-status (the collector evaluates)"),
             "detect_hotkey": (self._not_ported("detect_hotkey"),
                               "detect_hotkey <node> <app_id.pidx> <read|write> <start|stop|query>"),
-            "set_fail_point": (self._not_ported("set_fail_point"),
+            "set_fail_point": (self.cmd_set_fail_point,
                                "set_fail_point <node|all> <name> <action> — "
                                "arm/heal a fail point in live server "
                                "processes (chaos harness; action e.g. "
@@ -648,6 +640,66 @@ class Shell:
         node = args[0]
         cmd = "perf-counters-by-prefix" if len(args) > 1 else "perf-counters"
         self.p(self._node_command(node, cmd, args[1:]))
+
+    def cmd_compact_trace(self, args):
+        if args:
+            self.p(self._node_command(args[0], "compact-trace-dump",
+                                      args[1:]))
+        else:
+            self.cmd_remote_command(["all", "compact-trace-dump"])
+
+    def cmd_device_health(self, args):
+        self.cmd_remote_command(["all", "device-health"])
+
+    def cmd_request_trace(self, args):
+        if args:
+            self.p(self._node_command(args[0], "request-trace-dump",
+                                      args[1:]))
+        else:
+            self.cmd_remote_command(["all", "request-trace-dump"])
+
+    def cmd_job_trace(self, args):
+        if args:
+            self.p(self._node_command(args[0], "job-trace", args[1:]))
+        else:
+            self.cmd_remote_command(["all", "job-trace"])
+
+    def cmd_slow_requests(self, args):
+        if args and args[0] == "--cluster":
+            raise NotPorted("slow_requests --cluster: not ported to "
+                            "pegasus_tpu_torch yet (needs the collector's "
+                            "rollup, collector/info_collector.py)")
+        if args:
+            self.p(self._node_command(args[0], "slow-requests", args[1:]))
+        else:
+            self.cmd_remote_command(["all", "slow-requests"])
+
+    def cmd_tables(self, args):
+        k = int(args[0]) if args else 5
+        frags = []
+        for node in [n.address for n in self._nodes() if n.alive]:
+            try:
+                reply = json.loads(
+                    self._node_command(node, "table-stats", []))
+            except ValueError:
+                continue
+            if isinstance(reply, dict):
+                frags.extend(v for v in reply.values()
+                             if isinstance(v, dict))
+        folded = fold_snapshots(frags)
+        self.p(json.dumps({"tables": folded, "top": top_k(folded, k)},
+                          indent=1))
+
+    def cmd_set_fail_point(self, args):
+        if len(args) < 3:
+            self.p("usage: set_fail_point <node|all> <name> <action>")
+            return
+        target, rest = args[0], args[1:]
+        nodes = ([n.address for n in self._nodes() if n.alive]
+                 if target == "all" else [target])
+        for node in nodes:
+            self.p(f"[{node}] "
+                   + self._node_command(node, "set-fail-point", rest))
 
     def cmd_events(self, args):
         if args:

@@ -102,6 +102,7 @@ def engines(tmp_path):
     port = _port_engine(str(tmp_path / "port"))
     _drive(ref, RefBatch)
     _drive(port, WriteBatch)
+    port.wait_primes()  # flush outputs prime on a pool thread
     yield ref, port, tmp_path
     ref.close()
     port.close()

@@ -74,7 +74,10 @@ def test_source_walk_covers_the_package():
                 "ops/fence_lookup.py", "meta/messages.py",
                 "meta/election.py", "meta/meta_server.py",
                 "replication/replica_stub.py", "client/meta_resolver.py",
-                "client/factory.py"):
+                "client/factory.py", "runtime/lockrank.py",
+                "runtime/tasking.py", "runtime/job_trace.py",
+                "runtime/table_stats.py", "runtime/metric_history.py",
+                "runtime/toollets.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
 
 

@@ -54,6 +54,57 @@ def test_engine_phases_at_tiny_size(tmp_path):
         eng.close()
 
 
+def test_levels_phase_at_tiny_size(tmp_path):
+    """The L0 + cascade phase at depths 1 and 2 on device="cpu", in two
+    rounds: each level's files digest-equal to the cpu backend engine's
+    after each round; depth 2 defers its installs into the compaction's
+    job timeline."""
+    opts = dict(chip_smoke.LEVELS_OPTS, target_file_size_bytes=48 << 10,
+                level_base_bytes=192 << 10)
+    rep = chip_smoke.run_levels(chip_smoke.fill(24000), "cpu",
+                                str(tmp_path / "levels"), opts)
+    assert rep["files"][1]["l0"] == 0 and set(rep["files"][1]) >= {"1", "2"}
+    for d in (1, 2):
+        rounds = rep[f"depth{d}"]["rounds"]
+        # the second round's merge takes in the L1 files it overlaps
+        assert rounds[0]["l0_records"] < rounds[1]["l0_records"]
+        assert all(r["merges"] > 1 for r in rounds), "the cascade must run"
+        assert rep[f"depth{d}"]["merge_launches"] == 0  # no card here
+    one, two = rep["depth1"]["rounds"], rep["depth2"]["rounds"]
+    assert [r["merges"] for r in one] == [r["merges"] for r in two]
+    assert all(r["installs"] == 0 for r in one)
+    assert all(r["installs"] == r["merges"] for r in two)
+    assert rep["depth1"]["sst_write_s"] > 0
+
+
+def test_check_lockrank_needs_an_armed_graph(tmp_path):
+    """No violation file is not enough: every node must show recorded
+    edges, and neither the file nor a node may hold a violation."""
+    sink = tmp_path / "lockrank.jsonl"
+    armed = {"replica1": {"lockrank.edges": 7, "lockrank.violations": 0}}
+    assert chip_smoke.check_lockrank(str(sink), armed) == {
+        "violations": 0, "edges": {"replica1": 7}}
+    with pytest.raises(AssertionError, match="not armed"):
+        chip_smoke.check_lockrank(str(sink), {})
+    with pytest.raises(AssertionError, match="not armed"):
+        chip_smoke.check_lockrank(str(sink), {
+            **armed, "replica2": {"lockrank.edges": 0}})
+    with pytest.raises(AssertionError, match="violations"):
+        chip_smoke.check_lockrank(str(sink), {
+            "replica1": {"lockrank.edges": 7, "lockrank.violations": 1}})
+    sink.write_text('{"cycle": ["a", "b", "a"]}\n')
+    with pytest.raises(AssertionError, match="violations"):
+        chip_smoke.check_lockrank(str(sink), armed)
+
+
+@pytest.mark.parametrize("argv", [[], ["fence-ab"], ["level-ab", "t"],
+                                  ["serve-measure", "a", "b"],
+                                  ["serve-run", "t"]])
+def test_ab_modes_refuse_bad_arguments(argv, capsys):
+    assert chip_smoke.ab_main(argv) == 2
+    assert "usage" in capsys.readouterr().err
+
+
 def test_value_residency_phase_at_tiny_size(tmp_path):
     runs = chip_smoke.fill(8000)
     want, _ = chip_smoke.cpu_digest(runs)
@@ -342,6 +393,15 @@ def test_cluster_phase_at_tiny_size(tmp_path):
     assert rep["read_back"]["sampled_keys"] == 300
     assert rep["audit"]["replicas"] == 12
     assert set(rep["stop_rcs"].values()) == {0}
+    # the runtime planes through the port's shell, lock order checked
+    assert rep["traces"]["slow_stage"] == "plog.append"
+    assert len(rep["traces"]["spans_by_node"]) == 3
+    assert rep["tables"]["write_qps"] >= run["keys_updated"]
+    assert all("device" in st for st in
+               rep["compaction"]["planes"]["compact_trace_stages"].values())
+    assert rep["lockrank"]["violations"] == 0
+    assert len(rep["lockrank"]["edges"]) == 3
+    assert min(rep["lockrank"]["edges"].values()) > 0
 
 
 def test_cluster_lifecycle_at_tiny_size(tmp_path):
