@@ -693,16 +693,9 @@ def check_kernel(device) -> dict:
                                           BENCH_HEADS, pad_rows=1_000_000,
                                           prio=1, idx_base=la)).to(device)
     timed["large_shared_prefix"] = _time_merge(ta, tb, nk)
-    # the final merge of a 4-run compaction: two merged 8388608-row runs
-    del ta, tb
-    ta = torch.from_numpy(_sorted_operand(rng, 2 * la - 2_000_000, nk, 0,
-                                          1 << 31,
-                                          pad_rows=2_000_000)).to(device)
-    tb = torch.from_numpy(_sorted_operand(rng, 2 * lb - 2_000_000, nk, 0,
-                                          1 << 31, pad_rows=2_000_000,
-                                          prio=2, idx_base=2 * la)).to(device)
-    timed["final"] = _time_merge(ta, tb, nk)
-    return {"cases": len(cases) + 3, "max_abs_err": max_err, **timed}
+    # (a 4-run compaction's final merge is timed on its own operands in
+    # the device_stage phase)
+    return {"cases": len(cases) + 2, "max_abs_err": max_err, **timed}
 
 
 def _time_merge(ta, tb, nk) -> dict:
@@ -1959,8 +1952,9 @@ def run_blockwise(runs, device, want: dict, budget: int) -> dict:
 
 # ------------------------------------------------ compaction offload
 
-OFFLOAD_PARTS = 16   # the two-tenant rounds ship one partition each of a
-                     # 16-way split of the fill
+OFFLOAD_PARTS = 16   # every round ships one partition of a 16-way split
+                     # of the fill (the whole fill until the clock cut)
+OFFLOAD_JOB_PART = 2  # the partition of the first job and its local merge
 
 
 def _offload_ini(work: str, device) -> str:
@@ -2012,21 +2006,23 @@ def _spans(sess, rnd: dict) -> dict:
             / spans["offload.fetch"]}
 
 
-def run_offload(runs, device, want: dict, work: str) -> dict:
+def run_offload(runs, device, work: str) -> dict:
     """The compaction offload service in-process (CompactOffloadApp from
     an ini: backend = cuda, max_concurrent 2, root under `work`), its
-    tenants the port's client in this process:
+    tenants the port's client in this process, each round one partition
+    of a 16-way split of `runs`:
 
-      1. the 10M-record job (`runs`, the cpu_digest options): digest equal
-         to `want`, offloaded, one merge done; its merge-kernel launches
-         counted on the service; under torch.profiler for the device's
-         busy time over the service's merge, and the peak device memory;
-      2. two tenants at once, each one partition of a 16-way split, one
-         with a default_ttl, one with user rules: each digest equal to
-         its own cpu merge, neither refused;
+      1. partition OFFLOAD_JOB_PART's job (the cpu_digest options): digest
+         equal to its cpu merge, offloaded, one merge done; its
+         merge-kernel launches counted on the service; under
+         torch.profiler for the device's busy time over the service's
+         merge, and the peak device memory;
+      2. two tenants at once, partitions 0 and 1, one with a default_ttl,
+         one with user rules: each digest equal to its own cpu merge,
+         neither refused;
       3. the first tenant's job again: nothing shipped, the same digest;
 
-    plus the same runs through compact_blocks(backend="cuda") locally,
+    plus round 1's runs through compact_blocks(backend="cuda") locally,
     for the wire's share."""
     import threading
 
@@ -2040,9 +2036,16 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
     from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
 
     on_card = torch.device(device).type == "cuda"
+    split = partition_runs(runs, OFFLOAD_PARTS)
+    job_runs = split[OFFLOAD_JOB_PART]
+    want, _ = cpu_digest(job_runs)
     app = CompactOffloadApp("offload", Config(text=_offload_ini(work, device)),
                             "apps.offload").start()
-    out = {}
+    out = {"job_partition": f"{OFFLOAD_JOB_PART} of {OFFLOAD_PARTS}",
+           "job_records": sum(r.n for r in job_runs),
+           "reduced": {"job": "the 10 M-record fill -> one partition of its "
+                       "16-way split: the wire's share of a round (85-87 %"
+                       ") has stood since the whole fill's rounds"}}
     try:
         status = app.svc.status()
         if status["backend"] != "cuda" or status["max_concurrent"] != 2:
@@ -2059,7 +2062,7 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
         LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
         with COMPACT_TRACER.session() as sess, \
                 profile(activities=activities) as prof:
-            first = _round(runs, opts, app.address, "bench")
+            first = _round(job_runs, opts, app.address, "bench")
         launches = LAUNCHES["merge_path"]
         first.update(_spans(sess, first))
         events = _device_events(prof)
@@ -2086,14 +2089,14 @@ def run_offload(runs, device, want: dict, work: str) -> dict:
         local_opts = CompactOptions(backend="cuda", device=device, now=NOW,
                                     bottommost=True, runs_sorted=True)
         t0 = time.perf_counter()
-        local = compact_blocks(runs, local_opts)
+        local = compact_blocks(job_runs, local_opts)
         _sync(device)
         out["local_s"] = time.perf_counter() - t0
         if block_digest([local.block]) != want:
             raise AssertionError("local cuda compaction digest != cpu backend")
         del local
 
-        parts = partition_runs(runs, OFFLOAD_PARTS)[:2]
+        parts = split[:2]
         tenants = [CompactOptions(backend="cpu", now=NOW, bottommost=True,
                                   runs_sorted=True, default_ttl=DEFAULT_TTL),
                    CompactOptions(backend="cpu", now=NOW, bottommost=True,
@@ -2206,7 +2209,7 @@ def run_server(runs, device, work: str) -> dict:
         status = json.loads(_remote_command(addr, "offload-status"))
         if status["backend"] != "cuda" or status["free_slots"] != 2:
             raise AssertionError(f"server offload-status {status}")
-        part = partition_runs(runs, OFFLOAD_PARTS)[2]
+        part = partition_runs(runs, OFFLOAD_PARTS)[OFFLOAD_JOB_PART]
         opts = CompactOptions(backend="cpu", now=NOW, bottommost=True,
                               runs_sorted=True)
         with COMPACT_TRACER.session() as sess:
@@ -2239,8 +2242,9 @@ def run_server(runs, device, work: str) -> dict:
 SERVE_PARTITIONS = 32
 SERVE_RECORDS = 10_000_000
 SERVE_FILES = 4            # raw-set files per partition
-SERVE_OPS = 100_000        # 200 000 until the cluster phase took on the
-                           # table lifecycle: cut for the clock
+SERVE_OPS = 50_000         # 200 000 until the cluster phase took on the
+                           # table lifecycle, 100 000 until the doctor and
+                           # scheduler legs: cut for the clock
 SERVE_THREADS = 8
 SERVE_SAMPLE = 50_000      # untouched keys read back (100 000 until the
                            # levels phase and the cluster's lock-order
@@ -2764,7 +2768,8 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
            "reduced": {"fields": "YCSB core fieldcount 10 -> 1 "
                        "(field0, fieldlength 100), as tools/ycsb_bench.py",
                        "replicas": "3 -> 1 (the cluster phase runs "
-                                   "this table with its 3)"}}
+                                   "this table with its 3)",
+                       "ops": f"{n_ops} (200 000 before the clock cuts)"}}
     t0 = time.perf_counter()
     provider = os.path.join(work, "provider")
     counts = write_provider(provider, "usertable", n_records, n_parts,
@@ -3329,7 +3334,10 @@ CLUSTER_RESTART_AT = 25_000
 CLUSTER_APP = "usertable"
 CLUSTER_RESTORED = "usertable_r"
 CLUSTER_OP_DEADLINE_S = 180.0  # one op's retries, a failover included
-CLUSTER_AUDIT_ID = 7007
+SCHED_URGENT_PER_NODE = 4      # the scheduler leg's urgent cap per node
+SCHED_TTL_S = 300.0            # its first tick's lease, over the rounds
+SCHED_ROUNDS = 8               # its flush rounds at most
+SCHED_TRIGGER = 4              # the replicas' L0 trigger (EngineOptions)
 CLUSTER_SPLIT_THREADS = 2      # YCSB-A writers while the split runs
 CLUSTER_SPLIT_MARGIN_S = 2.0   # writers' time before and after the split
 CLUSTER_DDL_TIMEOUT_S = 1800.0  # one shell DDL over every partition
@@ -3873,6 +3881,247 @@ def check_node_compaction_jobs(meta: str, addrs: list, calls: dict) -> dict:
     return out
 
 
+def _caller(meta: str):
+    from pegasus_tpu_torch.collector.cluster_doctor import ClusterCaller
+
+    return ClusterCaller([meta], timeout=CLUSTER_CHECK_S)
+
+
+def check_doctor_down(meta: str, victim: str) -> dict:
+    """The port's cluster doctor while `victim` is dead and failed over,
+    before it restarts: a verdict other than healthy, a cause naming the
+    victim's address."""
+    from pegasus_tpu_torch.collector.cluster_doctor import run_cluster_doctor
+
+    t0 = time.perf_counter()
+    caller = _caller(meta)
+    try:
+        v = run_cluster_doctor([meta], slow_last=0, caller=caller)
+    finally:
+        caller.close()
+    causes = [c["cause"] for c in v["causes"]]
+    if v["verdict"] == "healthy" or not any(victim in c for c in causes):
+        raise AssertionError(f"doctor with {victim} down: {v['verdict']}, "
+                             f"{causes[:8]}")
+    return {"seconds": time.perf_counter() - t0, "verdict": v["verdict"],
+            "dead": v["evidence"]["nodes"]["dead"], "causes": len(causes),
+            "first_causes": causes[:4]}
+
+
+def check_doctor_healthy(meta: str, app_id: int, parts: int) -> dict:
+    """After full redundancy and the audit: the port's doctor names no
+    dead node, no unserved or under-replicated partition and no audit
+    mismatch, and its beacon-folded audit evidence covers every
+    partition of the table (polled until the beacons carry the audit);
+    the shell's cluster_doctor prints the same verdict line."""
+    from pegasus_tpu_torch.collector.cluster_doctor import run_cluster_doctor
+
+    t0 = time.perf_counter()
+    want = {f"{app_id}.{p}" for p in range(parts)}
+    caller = _caller(meta)
+    try:
+        while True:
+            v = run_cluster_doctor([meta], slow_last=0, caller=caller)
+            ev = v["evidence"]
+            bad = (ev["nodes"]["dead"] or ev["partitions"]["unserved"]
+                   or ev["partitions"]["under_replicated"]
+                   or ev["audit"]["mismatches"])
+            if bad:
+                raise AssertionError(f"doctor after the audit: {v}")
+            if want <= set(ev["audit"]["checked"]):
+                break
+            if time.perf_counter() - t0 > CLUSTER_CHECK_S:
+                raise AssertionError(f"the doctor's audit evidence never "
+                                     f"covered {sorted(want)}: {ev['audit']}")
+            time.sleep(0.5)
+    finally:
+        caller.close()
+    line = f"cluster verdict: {v['verdict'].upper()}" + (
+        f" ({len(v['causes'])} cause(s))" if v["causes"] else "")
+    shown = _shell(meta, "cluster_doctor 0").strip().splitlines()[-1]
+    if shown != line:
+        raise AssertionError(f"shell cluster_doctor printed {shown!r}, "
+                             f"the doctor {line!r}")
+    return {"seconds": time.perf_counter() - t0, "verdict": v["verdict"],
+            "causes": [c["cause"] for c in v["causes"]][:8],
+            "audit_checked": len(set(ev["audit"]["checked"]) & want),
+            "shell": shown}
+
+
+def _sched_status(node: str, gpid: str) -> dict:
+    return json.loads(_remote_command(node, "compact-sched-status",
+                                      [gpid]))[gpid]
+
+
+def _await_rate(node: str, name: str, deadline_s: float = 10.0) -> float:
+    """A rate counter of `node` read until it shows events (a window
+    holding them rolls at a read one second after it opened)."""
+    end = time.monotonic() + deadline_s
+    while True:
+        v = json.loads(_remote_command(node, "perf-counters-by-prefix",
+                                       [name])).get(name, 0)
+        if v > 0:
+            return v
+        if time.monotonic() > end:
+            raise AssertionError(f"{node}: {name} shows no event")
+        time.sleep(0.2)
+
+
+def _trigger_jobs(node: str, job_ids: set) -> dict:
+    """{trigger: [compact jobs]} among `node`'s traced compactions whose
+    id a scheduler tick minted."""
+    out = {}
+    for rs in json.loads(_remote_command(node, "job-trace",
+                                         ["1000"])).values():
+        for r in rs:
+            if r["kind"] != "compact" or r["job_id"] not in job_ids:
+                continue
+            for h in r["hops"]:
+                if h["name"] == "engine.trigger":
+                    out.setdefault(h.get("trigger"), []).append(r)
+    return out
+
+
+def check_scheduler(meta: str, addrs: list, names: dict, app_id: int,
+                    markers: dict, client, on_card: bool) -> dict:
+    """The compaction scheduler's leg, run in this process as the
+    collector role would (run_scheduler_tick), on a table whose replicas
+    hold their ingested run and the run's flushes in L0:
+
+      1. a tick with knobs urgent_l0 1 and SCHED_URGENT_PER_NODE urgent
+         tokens per node, partition 0 named hot: partition 0 deferred on
+         its primary only (its secondaries `normal`, defer_primary_only),
+         the partitions with the most debt urgent, delivered to every
+         node with no error; the shell's `compact_sched all` shows each
+         node's delivered tokens;
+      2. flush rounds (a marker write to each target partition, then
+         flush-memtable of those partitions on every node) until every
+         urgent replica compacted at trigger // 2 (its L0 empty; its
+         node's urgent_count and merge-kernel launches rose; its job
+         carries the tick's id) and the hot primary holds its L0 at the
+         trigger (deferred_count rose);
+      3. a second tick without the hot set lifts the defer: the next
+         flush compacts that primary.
+
+    The marker writes rewrite existing keys, so the table's records do
+    not change. On the card every node's merge-kernel launches rise.
+    -> the leg's record."""
+    from pegasus_tpu_torch.collector.compact_scheduler import \
+        run_scheduler_tick
+
+    t_leg = time.perf_counter()
+    hot = f"{app_id}.0"
+    before = _kernel_counts(addrs)
+    knobs = {"urgent_l0": 1, "max_urgent_per_node": SCHED_URGENT_PER_NODE,
+             "ttl_s": SCHED_TTL_S, "max_device": 0}
+    caller = _caller(meta)
+    try:
+        t0 = time.perf_counter()
+        rep = run_scheduler_tick([meta], hot_gpids=[hot], knobs=knobs,
+                                 caller=caller)
+        tick_s = time.perf_counter() - t0
+        dec, got = rep["decisions"], rep["delivered"]
+        if rep["errors"] or set(got) != set(addrs):
+            raise AssertionError(f"scheduler tick: errors {rep['errors']}, "
+                                 f"delivered to {sorted(got)}")
+        prim = dec[hot]["node"]
+        urgent = {a: sorted(g for g, pol in got[a].items()
+                            if pol == "urgent") for a in addrs}
+        if dec[hot]["policy"] != "defer" or got[prim][hot] != "defer" or \
+                any(got[a][hot] != "normal" for a in addrs if a != prim) \
+                or not all(urgent.values()):
+            raise AssertionError(f"scheduler decisions: hot {dec[hot]}, "
+                                 f"delivered {got}")
+        shown = {}
+        node = None
+        for ln in _shell(meta, "compact_sched all").splitlines():
+            if ln.startswith("["):
+                node = ln.strip("[]")
+            elif ln.startswith("  ") and ":" in ln:
+                gpid, rest = ln.strip().split(":", 1)
+                shown.setdefault(node, {})[gpid] = rest.split()[0]
+        for a in addrs:
+            if any(shown.get(a, {}).get(g) != pol
+                   for g, pol in got[a].items()):
+                raise AssertionError(f"compact_sched on {a}: "
+                                     f"{shown.get(a)} != {got[a]}")
+        job_ids = {d["job"] for d in dec.values()}
+
+        pending = {(a, g) for a in addrs for g in urgent[a]}
+        rounds, urgent_rate, hot_l0 = 0, {}, 0
+        while pending or hot_l0 < SCHED_TRIGGER:
+            if rounds == SCHED_ROUNDS:
+                raise AssertionError(f"after {rounds} flush rounds: urgent "
+                                     f"replicas not compacted {pending}, "
+                                     f"hot primary L0 {hot_l0}")
+            targets = sorted({g for _, g in pending} | {hot})
+            for g in targets:
+                client.set(markers[int(g.split(".")[1])], b"m", b"1")
+            _parallel(lambda a: _remote_command(
+                a, "flush-memtable", targets, timeout=CLUSTER_CHECK_S), addrs)
+            rounds += 1
+            done = {(a, g) for a, g in pending
+                    if _sched_status(a, g)["l0_files"] == 0}
+            for a in {a for a, _ in done}:
+                urgent_rate[names[a]] = _await_rate(
+                    a, "engine.compact.sched.urgent_count")
+            pending -= done
+            hot_l0 = _sched_status(prim, hot)["l0_files"]
+        deferred_rate = _await_rate(prim,
+                                    "engine.compact.sched.deferred_count")
+        if _sched_status(prim, hot)["policy"] != "defer":
+            raise AssertionError("the hot primary lost its defer token")
+        held_s = time.perf_counter() - t_leg
+
+        # the defer lifted: a tick without the hot set, then a flush
+        rep2 = run_scheduler_tick([meta], knobs=dict(
+            knobs, urgent_l0=SCHED_TRIGGER, ttl_s=30.0), caller=caller)
+        if rep2["errors"] or rep2["delivered"][prim].get(hot) == "defer":
+            raise AssertionError(f"second tick: {rep2['errors']}, "
+                                 f"{rep2['delivered'].get(prim, {})}")
+        client.set(markers[0], b"m", b"1")
+        _parallel(lambda a: _remote_command(
+            a, "flush-memtable", [hot], timeout=CLUSTER_CHECK_S), addrs)
+        lifted = _sched_status(prim, hot)
+        if lifted["l0_files"] != 0:
+            raise AssertionError(f"the lifted primary did not compact: "
+                                 f"{lifted}")
+        job_ids |= {d["job"] for d in rep2["decisions"].values()}
+    finally:
+        caller.close()
+    after = _kernel_counts(addrs)
+    launches = _delta(after, before, "kernel.merge_path.launches")
+    jobs = {a: _trigger_jobs(a, job_ids) for a in addrs}
+    for a in addrs:
+        n = len(jobs[a].get("urgent", []))
+        if n < len(urgent[a]):
+            raise AssertionError(f"{a}: {n} urgent compactions carry the "
+                                 f"tick's ids, {len(urgent[a])} were due")
+        if on_card and launches[a] <= 0:
+            raise AssertionError(f"{a}: the urgent compactions launched no "
+                                 f"merge kernel")
+    policies = {}
+    for d in dec.values():
+        policies[d["policy"]] = policies.get(d["policy"], 0) + 1
+    return {"seconds": time.perf_counter() - t_leg, "tick_s": tick_s,
+            "held_s": held_s, "rounds": rounds, "hot": hot,
+            "hot_primary": names[prim], "hot_l0_held": hot_l0,
+            "decisions": policies,
+            "urgent_tokens": {names[a]: len(urgent[a]) for a in addrs},
+            "urgent_jobs": {names[a]: {t: len(v) for t, v in jobs[a].items()}
+                            for a in addrs},
+            "urgent_rate": urgent_rate, "deferred_rate": deferred_rate,
+            "merge_launches": {names[a]: v for a, v in launches.items()},
+            "urgent_merge_launches": {
+                names[a]: sum(h.get("launches", 0)
+                              for r in jobs[a].get("urgent", [])
+                              for h in r["hops"]
+                              if h["name"] == "engine.merge")
+                for a in addrs},
+            "lift": {"policy": rep2["delivered"][prim][hot],
+                     "l0_after": lifted["l0_files"]}}
+
+
 def check_lockrank(path: str, graphs: dict) -> dict:
     """The cluster's processes ran with PEGASUS_LOCKRANK=1 and appended
     any lock-order violation to `path`: none may be there. `graphs`
@@ -3913,9 +4162,12 @@ def run_cluster(device, work: str, provider: str, counts: list,
     every replica's run held to the cpu backend (ingest_want). The YCSB-A
     run from a client process, the node that leads the most partitions
     SIGKILLed at op kill_at and restarted after the meta failed it over
-    and at op restart_at (the meta re-adds it; it relearns); every
+    and at op restart_at (the meta re-adds it; it relearns), the port's
+    cluster doctor naming it between the two (check_doctor_down); every
     acknowledged update and a sample of untouched keys read back with
-    batch_get.
+    batch_get. Then the compaction scheduler's leg (check_scheduler):
+    ticks in this process whose tokens make urgent replicas compact on
+    the card and hold the hot primary's L0 until a second tick lifts it.
 
     With `lifecycle`, then: a cold backup (`backup_app`); the split to
     2 * n_parts partitions (RPC_CM_START_PARTITION_SPLIT) while
@@ -3926,8 +4178,12 @@ def run_cluster(device, work: str, provider: str, counts: list,
     with the table's ownership mask (after a split: only owned keys
     survive, and the primaries' records sum to the table's); with
     `lifecycle`, the read-back again through the doubled partitions;
-    trigger-audit on every primary and query-audit on every replica:
-    equal digests at an equal decree. With `lifecycle`, last: the backup
+    the consistency audit (run_cluster_audit: trigger-audit on every
+    primary, query-audit on every replica): equal digests at an equal
+    decree; then the doctor names no dead node, no under-replicated
+    partition and no mismatch, its audit evidence covering every
+    partition, and the shell prints its verdict (check_doctor_healthy).
+    With `lifecycle`, last: the backup
     restored into usertable_r (`restore_app`, followed with
     query_restore_status to ok), the read-back keys read from it with
     their values at backup time, and `batched-manual-compact <app_id>` on
@@ -3942,6 +4198,7 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
     from pegasus_tpu_torch.base import consts
     from pegasus_tpu_torch.client import MetaResolver, PegasusClient
+    from pegasus_tpu_torch.collector.cluster_doctor import run_cluster_audit
     from pegasus_tpu_torch.meta import messages as mm
     from pegasus_tpu_torch.meta.meta_server import (RPC_CM_LIST_NODES,
                                                     RPC_CM_SET_APP_ENVS,
@@ -4130,6 +4387,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 if all(node_addr[victim] not in [pc.primary] + pc.secondaries
                        for pc in cfg.partitions):
                     t_failed_over = time.time()
+                    out["doctor_down"] = check_doctor_down(meta,
+                                                           node_addr[victim])
                     apps[victim].start()
                     apps[victim].wait_started(time.monotonic() + 300)
                     t_restart = time.time()
@@ -4185,6 +4444,9 @@ def run_cluster(device, work: str, provider: str, counts: list,
         out["traces"] = check_traces(meta, addrs, CLUSTER_APP, n_parts)
         out["tables"] = check_tables(meta, CLUSTER_APP, run["ops_done"])
         step("traces and tables checked")
+        out["sched"] = check_scheduler(meta, addrs, names, app_id, markers,
+                                       loader, on_card)
+        step("scheduler leg")
 
         parts, life = n_parts, {}
         if lifecycle:
@@ -4297,48 +4559,33 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
         # ---- the audit: every replica's digest at one decree
         t0 = time.perf_counter()
-        primary = {pc.pidx: pc.primary for pc in cfg.partitions}
-
-        def trigger(p):
-            return json.loads(_remote_command(
-                primary[p], "trigger-audit",
-                [f"{app_id}.{p}", str(CLUSTER_AUDIT_ID)],
-                timeout=CLUSTER_CHECK_S))
-
-        with ThreadPoolExecutor(parts) as ex:
-            trig = list(ex.map(trigger, range(parts)))
-        trigger_s = time.perf_counter() - t0
-        step("audits triggered")
-        bad = [t for t in trig if "error" in t]
-        if bad:
-            raise AssertionError(f"trigger-audit failed: {bad[:3]}")
-        while True:
-            audits = {}
-            for a in addrs:
-                for g, ent in json.loads(
-                        _remote_command(a, "query-audit", timeout=300)).items():
-                    au = ent.get("audit") or {}
-                    if g.startswith(f"{app_id}.") and \
-                            au.get("audit_id") == CLUSTER_AUDIT_ID:
-                        audits.setdefault(g, []).append(
-                            (au["decree"], au["digest"], au.get("records")))
-            if len(audits) == parts and all(
-                    len(v) == 3 for v in audits.values()):
-                break
-            if time.perf_counter() - t0 > CLUSTER_CHECK_S:
-                raise AssertionError(f"audits incomplete: {audits}")
-            time.sleep(0.5)
-        diverged = {g: v for g, v in audits.items() if len(set(v)) != 1}
-        if diverged:
-            raise AssertionError(f"replicas diverged: {diverged}")
+        caller = _caller(meta)
+        try:
+            report = run_cluster_audit([meta], apps=[CLUSTER_APP],
+                                       wait_s=CLUSTER_CHECK_S, caller=caller)
+        finally:
+            caller.close()
+        digests = report["digests"]
+        if (report["mismatches"] or report["inconclusive"]
+                or report["partitions"] != parts
+                or sorted(report["ok"]) != sorted(digests)
+                or any(len(d) != 3 or len({(x["decree"], x["digest"])
+                                           for x in d.values()}) != 1
+                       for d in digests.values())):
+            raise AssertionError(f"audit: mismatches {report['mismatches']}"
+                                 f", inconclusive {report['inconclusive']}"
+                                 f", ok {len(report['ok'])} of {parts}")
         out["audit"] = {"seconds": time.perf_counter() - t0,
-                        "trigger_s": trigger_s,
                         "digest_us": {names[a]: json.loads(_remote_command(
                             a, "perf-counters-by-prefix", ["audit."]))
                             for a in addrs},
-                        "partitions": len(audits), "replicas": 3 * len(audits),
-                        "records": sum(v[0][2] for v in audits.values())}
+                        "partitions": len(digests),
+                        "replicas": sum(len(d) for d in digests.values()),
+                        "records": sum(p["records"] for p in
+                                       report["primaries"].values())}
         step("audited")
+        out["doctor"] = check_doctor_healthy(meta, app_id, parts)
+        step("doctor healthy")
         checked = checking.result()
         checker.shutdown()
         shutil.rmtree(snap)
@@ -4644,8 +4891,7 @@ def main(argv=()) -> int:
 
     os.makedirs(work, exist_ok=True)
     try:
-        offload = run_offload(runs, device, want,
-                              os.path.join(work, "offload"))
+        offload = run_offload(runs, device, os.path.join(work, "offload"))
         if offload["job"]["merge_launches"] < N_RUNS - 1:
             raise AssertionError(f"the offloaded job launched "
                                  f"{offload['job']['merge_launches']} merge "
@@ -4741,6 +4987,7 @@ def main(argv=()) -> int:
                       ["merge_launches"]},
         "cluster": {"bulk_load_session": sum(
             cluster["load"]["merge_launches"].values()),
+            "scheduler_leg": sum(cluster["sched"]["merge_launches"].values()),
             "split_gc_compaction": sum(
                 cluster["compaction"]["merge_launches"].values())}}
     batched_launches = {

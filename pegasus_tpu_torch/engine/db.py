@@ -30,6 +30,14 @@ outputs into the levels at once and writes them on the install pool, so
 the next merge overlaps the last one's write_sst; compact() drains them
 before it returns, and the manifest only ever names files on disk.
 
+Compaction scheduling: the cluster compaction scheduler's policy token
+(set_compact_policy, a lease) holds the elective L0 trigger ('defer',
+below the hard debt ceiling) or fires it at half the threshold
+('urgent'); a lapsed token reads 'normal', the engine-local triggers.
+SCHED_GATE caps the node's concurrent device compactions for elective
+triggers while the scheduler's cap lease lives; with no token and the
+cap at its default (0) the triggers are the plain L0 thresholds.
+
 Compaction offload: a backend="cpu" engine holding a live placement
 lease (set_offload_target) ships its merges to that compaction service
 (replication/compact_offload.py) instead of merging locally. A failed
@@ -49,6 +57,7 @@ checksums re-verified off the serving path).
 """
 
 import bisect
+import contextlib
 import heapq
 import json
 import os
@@ -92,6 +101,75 @@ DEVICE_READ_MIN_BATCH = 2
 # state_digest's array path: the most rows the sources newer than the
 # base run may hold (each is looked up in the base one at a time)
 DIGEST_OVERLAY_MAX = 4096
+
+
+class _SchedGate:
+    """Per-node cap on concurrent device compactions: the cluster
+    compaction scheduler bounds how many device merges run at once in
+    one process, so the card never convoys behind a burst of L0
+    triggers. Elective (trigger-path) compactions defer at the cap;
+    urgent and ceiling compactions and manual compactions always
+    proceed: the cap shapes timing, never availability. max 0 (the
+    default, knob PEGASUS_SCHED_MAX_DEVICE_COMPACT) disables the gate.
+    A set cap is a lease (PEGASUS_SCHED_TTL_S): its expiry reverts to
+    the default, so a dead scheduler never leaves a node capped. Leaf
+    lock: never takes an engine lock (callers hold theirs)."""
+
+    def __init__(self):
+        self._lock = lockrank.named_lock("engine.sched_gate")
+        # resolved once: enter/exit run under self._lock on every device
+        # compaction, and a per-call registry lookup would nest the
+        # registry lock under the gate lock each time
+        self._c_running = counters.number(
+            "engine.compact.sched.device_running")
+        self._default = int(os.environ.get(
+            "PEGASUS_SCHED_MAX_DEVICE_COMPACT", "0"))
+        self._ttl_default = float(os.environ.get("PEGASUS_SCHED_TTL_S",
+                                                 "30"))
+        self._max = self._default      #: guarded_by self._lock
+        self._max_expire = None        #: guarded_by self._lock
+        self._running = 0              #: guarded_by self._lock
+
+    def set_max(self, n, ttl_s: float = None) -> None:
+        """Install a cap lease (ttl_s default PEGASUS_SCHED_TTL_S; every
+        set expires, only the env default is permanent)."""
+        with self._lock:
+            changed = self._max != max(0, int(n))
+            self._max = max(0, int(n))
+            self._max_expire = time.monotonic() + (
+                self._ttl_default if ttl_s is None else float(ttl_s))
+            cap = self._max
+        if changed:
+            events.emit("sched.device_cap", cap=cap)
+
+    def _max_locked(self) -> int:  #: requires self._lock
+        if self._max_expire is not None \
+                and time.monotonic() >= self._max_expire:
+            self._max, self._max_expire = self._default, None
+        return self._max
+
+    def at_cap(self) -> bool:
+        with self._lock:
+            m = self._max_locked()
+            return m > 0 and self._running >= m
+
+    def enter(self) -> None:
+        with self._lock:
+            self._running += 1
+            self._c_running.set(self._running)
+
+    def exit(self) -> None:
+        with self._lock:
+            self._running -= 1
+            self._c_running.set(self._running)
+
+    def state(self) -> dict:
+        with self._lock:
+            return {"max": self._max_locked(), "default": self._default,
+                    "running": self._running}
+
+
+SCHED_GATE = _SchedGate()
 
 
 @dataclass
@@ -187,16 +265,36 @@ class LsmEngine:
         self._pending_installs = []    #: guarded_by self._lock
         self._pending_unlinks = []     #: guarded_by self._lock
         self._manifest_dirty = False   #: guarded_by self._lock
+        # the cluster compaction scheduler's policy token, a lease that
+        # expires back to "normal" (the engine-local triggers), and the
+        # job-trace id it carries: the compaction the token triggers
+        # adopts it; cleared on adoption and on expiry
+        self._sched_policy = "normal"  #: guarded_by self._lock
+        self._sched_reasons = ()       #: guarded_by self._lock
+        self._sched_expire = 0.0       #: guarded_by self._lock
+        self._sched_job = ""           #: guarded_by self._lock
         # compaction-offload placement: a service address this cpu engine
         # ships its merges to while the lease lives
         self._offload_addr = ""        #: guarded_by self._lock
         self._offload_expire = 0.0     #: guarded_by self._lock
-        self._offload_ttl_s = float(os.environ.get("PEGASUS_SCHED_TTL_S",
-                                                   "30"))
+        self._sched_ttl_s = float(os.environ.get("PEGASUS_SCHED_TTL_S",
+                                                 "30"))
+        # hard L0 debt ceiling (files) at which the engine-local trigger
+        # always fires, defer token or not; 0 = 3x the L0 trigger
+        ceil = int(os.environ.get("PEGASUS_SCHED_DEBT_CEILING_FILES", "0"))
+        self._sched_ceiling = ceil if ceil > 0 else max(
+            1, self.opts.l0_compaction_trigger * 3)
+        # trigger-path counters, resolved once (the L0 gate runs on every
+        # flush drain and maintenance poke)
+        self._c_sched_ceiling = counters.rate(
+            "engine.compact.sched.ceiling_override_count")
+        self._c_sched_deferred = counters.rate(
+            "engine.compact.sched.deferred_count")
+        self._c_sched_urgent = counters.rate(
+            "engine.compact.sched.urgent_count")
+        self._c_sched_gate_deferred = counters.rate(
+            "engine.compact.sched.gate_deferred_count")
         self._c_offload = counters.rate("engine.compact.offload_count")
-        # hard L0 debt ceiling the admission throttle measures against:
-        # 3x the L0 trigger, the reference's default
-        self._sched_ceiling = max(1, self.opts.l0_compaction_trigger * 3)
         # serializes checkpoint create/rename/GC (the shared checkpoint.tmp
         # dir would race otherwise); an RLock so callers can hold it across
         # create + consume
@@ -237,11 +335,57 @@ class LsmEngine:
 
     # ------------------------------------------------- compaction scheduling
 
+    def set_compact_policy(self, policy: str, reasons=(),
+                           ttl_s: float = None, job: str = "") -> None:
+        """Install the cluster scheduler's policy token: 'defer' holds
+        the elective L0 trigger (below the hard debt ceiling), 'urgent'
+        fires it at half the threshold and lets manual compactions jump
+        the concurrency queue, 'normal' is the engine-local behaviour.
+        The token expires after ttl_s (default PEGASUS_SCHED_TTL_S) back
+        to 'normal'. `job` is the job-trace id the triggered compaction
+        adopts."""
+        if policy not in ("defer", "normal", "urgent"):
+            raise ValueError(f"bad compaction policy {policy!r}")
+        with self._lock:
+            changed = self._sched_policy != policy
+            self._sched_policy = policy
+            self._sched_reasons = tuple(reasons)
+            self._sched_expire = time.monotonic() + (
+                self._sched_ttl_s if ttl_s is None else float(ttl_s))
+            if job:
+                self._sched_job = job
+        if changed:
+            # transitions only: a re-delivery every tick would be noise
+            events.emit("sched.token_apply", policy=policy,
+                        reasons=",".join(reasons), engine=self.path)
+
     def compact_policy(self) -> tuple:
-        """-> (policy, reasons, expires_in_s). The port has no cluster
-        compaction scheduler yet, so no token is ever delivered and the
-        policy reads ('normal', [], 0.0): the engine-local triggers."""
-        return "normal", [], 0.0
+        """-> (policy, reasons, expires_in_s); an expired token reads,
+        and resets, as ('normal', [], 0.0)."""
+        expired = None
+        with self._lock:
+            now = time.monotonic()
+            if self._sched_policy != "normal" and now >= self._sched_expire:
+                expired = self._sched_policy
+                self._sched_policy, self._sched_reasons = "normal", ()
+                self._sched_job = ""
+            out = (self._sched_policy, list(self._sched_reasons),
+                   max(0.0, self._sched_expire - now)
+                   if self._sched_policy != "normal" else 0.0)
+        if expired is not None:
+            # a lease running out (not replaced) means the scheduler
+            # stopped delivering
+            events.emit("sched.token_expired", severity="warn",
+                        was=expired, engine=self.path)
+        return out
+
+    def compact_policy_fast(self) -> str:
+        """Lock-free policy peek for the per-write admission path (the
+        debt throttle's slope depends on a defer token). Expiry is not
+        checked: a just-lapsed defer reads as defer until the next
+        compact_policy() resets it, one lenient admission window at
+        most."""
+        return self._sched_policy  #: unguarded_ok racy admission peek of an atomically-assigned str; compact_policy() under the lock is authoritative
 
     def compaction_debt(self) -> dict:
         """L0 file count, debt bytes (L0 bytes plus every level's
@@ -275,7 +419,7 @@ class LsmEngine:
             changed = self._offload_addr != (addr or "")
             self._offload_addr = addr or ""
             self._offload_expire = time.monotonic() + (
-                self._offload_ttl_s if ttl_s is None else float(ttl_s))
+                self._sched_ttl_s if ttl_s is None else float(ttl_s))
         if changed:
             events.emit("offload.placement", engine=self.path,
                         service=addr or "")
@@ -1084,13 +1228,16 @@ class LsmEngine:
 
     def _traced_compact(self, trigger: str) -> dict:
         """compact() as ONE traced background job: the merge and install
-        hops (the install's on the install pool) land in its timeline.
-        compact() is synchronous through its install drain, so the job
-        finishes with the installed files."""
+        hops (the install's on the install pool) land in its timeline. It
+        adopts the id the scheduler's token delivered (the decision, the
+        token and this merge share one timeline) or mints one for an
+        engine-local trigger. compact() is synchronous through its
+        install drain, so the job finishes with the installed files."""
         with self._lock:
             l0 = len(self._l0)
-        jid = JOB_TRACER.begin("compact", engine=self.path,
-                               pidx=self.opts.pidx)
+            token_job, self._sched_job = self._sched_job, ""
+        jid = JOB_TRACER.begin("compact", job_id=token_job or None,
+                               engine=self.path, pidx=self.opts.pidx)
         JOB_TRACER.note("engine.trigger", job_id=jid, trigger=trigger,
                         l0_files=l0)
         try:
@@ -1104,16 +1251,52 @@ class LsmEngine:
         return stats
 
     def _maybe_trigger_l0(self) -> bool:
-        """Post-flush/ingest L0 trigger. -> True when a compaction ran."""
+        """Post-flush/ingest L0 trigger behind the scheduler's token.
+        With no (or an expired) token this is `len(l0) >= trigger ->
+        compact()`, the engine-local trigger a dead scheduler degrades
+        to. A 'defer' token holds the elective trigger until the hard
+        debt ceiling, where the engine-local trigger always wins; an
+        'urgent' token fires at half the threshold; an elective trigger
+        of a cuda engine defers while the node's device gate is at its
+        cap. -> True when a compaction ran."""
         with self._lock:
             l0 = len(self._l0)
+        policy, _, _ = self.compact_policy()
         if l0 >= self._sched_ceiling:
+            # the availability floor: a wedged or dead scheduler can
+            # never stall compaction into a write cliff
+            if policy == "defer":
+                self._c_sched_ceiling.increment()
             self._traced_compact("ceiling")
             return True
+        if policy == "defer":
+            if l0 >= self.opts.l0_compaction_trigger:
+                self._c_sched_deferred.increment()
+            return False
+        if policy == "urgent":
+            if l0 >= max(1, self.opts.l0_compaction_trigger // 2):
+                self._c_sched_urgent.increment()
+                self._traced_compact("urgent")
+                return True
+            return False
         if l0 >= self.opts.l0_compaction_trigger:
+            if self.opts.backend == "cuda" and SCHED_GATE.at_cap():
+                # the node's device merges are at the cap: hold this
+                # elective merge (the debt stays; the next flush, the
+                # maintenance poke or the ceiling retries it)
+                self._c_sched_gate_deferred.increment()
+                return False
             self._traced_compact("trigger")
             return True
         return False
+
+    def poke_compaction(self) -> bool:
+        """Idle retry of the L0 trigger (the replica stub's maintenance
+        loop calls it): debt that a since-expired defer token or a
+        since-freed device gate left above the trigger compacts without
+        waiting for the next flush. -> True when a compaction ran (the
+        caller bounds its pokes per tick on this)."""
+        return self._maybe_trigger_l0()
 
     def _bottommost(self, target_level: int) -> bool:
         """Tombstones may only drop when no lower level could hold the key."""
@@ -1139,12 +1322,26 @@ class LsmEngine:
                 hi = max(s.max_key for s in nonzero)
                 overlap = self._overlapping_locked(1, lo, hi)
             bm = self._bottommost(1) if bottommost is None else bottommost
-            stats = self._merge_to_level(inputs, overlap, target_level=1,
-                                         bottommost=bm, now=now,
-                                         deferred=True)
-            self._maybe_cascade(now)
+            with self._device_gate():
+                stats = self._merge_to_level(inputs, overlap,
+                                             target_level=1, bottommost=bm,
+                                             now=now, deferred=True)
+                self._maybe_cascade(now)
             self._drain_pending_installs()
             return stats
+
+    @contextlib.contextmanager
+    def _device_gate(self):
+        """Count a cuda engine's merge as one running device compaction
+        of this node (SCHED_GATE) while it runs."""
+        gated = self.opts.backend == "cuda"
+        if gated:
+            SCHED_GATE.enter()
+        try:
+            yield
+        finally:
+            if gated:
+                SCHED_GATE.exit()
 
     def _overlapping_locked(self, level: int, lo: bytes, hi: bytes):
         out = []
@@ -1437,7 +1634,7 @@ class LsmEngine:
                         newer.extend(self._levels.get(lv, []))
                 older = list(self._levels.get(tl, []))
             if newer or older:
-                with COMPACT_TRACER.session() as sess:
+                with self._device_gate(), COMPACT_TRACER.session() as sess:
                     stats = self._merge_to_level(newer, older,
                                                  target_level=tl,
                                                  bottommost=bottommost,

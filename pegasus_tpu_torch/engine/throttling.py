@@ -23,6 +23,7 @@ thread (the stall cliff), writes pick up a graduated, metric-visible
 delay so the cliff becomes a measured slope instead of an accident.
 """
 
+import os
 import threading
 import time
 
@@ -113,29 +114,38 @@ class DebtThrottle:
     graduated backpressure BEFORE the engine hits the stall cliff where
     the ceiling trigger compacts inline on the writer thread:
 
-      ratio < SOFT                 free
-      SOFT <= ratio                delay scaling linearly up to MAX_MS
-                                   at the ceiling
+      ratio < soft                 free
+      soft <= ratio < 1.0          delay scaling linearly up to max_ms
+      ratio >= reject (if set)     ThrottleReject -> ERR_BUSY
 
-    SOFT and MAX_MS are the reference's defaults; the port has no
-    cluster compaction scheduler yet, so no scheduler token changes the
-    slope and no setting rejects. Counters:
-    engine.throttle.debt_delay_count rate + the
-    engine.throttle.debt_delay_ms percentile, plus the monotone
-    engine.throttle.debt_delay_ms_total rate whose .total() is the
-    process-global delay-ms sum."""
-
-    SOFT = 0.5       # ratio where the delay starts
-    MAX_MS = 50.0    # delay at the ceiling edge
+    Knobs (resolved once at construction): PEGASUS_SCHED_THROTTLE
+    (``0`` disables — byte-identical admission to the pre-throttle
+    engine), PEGASUS_SCHED_THROTTLE_SOFT (ratio where delay starts),
+    PEGASUS_SCHED_THROTTLE_MAX_MS (delay at the ceiling edge),
+    PEGASUS_SCHED_THROTTLE_REJECT (ratio that rejects; 0 = never).
+    Counters: engine.throttle.debt_delay_count / debt_reject_count
+    rates + the engine.throttle.debt_delay_ms percentile, plus the
+    monotone engine.throttle.debt_delay_ms_total rate whose .total() is
+    the process-global delay-ms sum (it equals the sum of the per-table
+    ledger attributions)."""
 
     def __init__(self, engine):
         from ..runtime.perf_counters import counters
 
         self.engine = engine
-        # plain monotone counter for tests; the registry rates are the
+        self.enabled = os.environ.get("PEGASUS_SCHED_THROTTLE", "1") != "0"
+        self.soft = float(os.environ.get("PEGASUS_SCHED_THROTTLE_SOFT",
+                                         "0.5"))
+        self.max_ms = float(os.environ.get("PEGASUS_SCHED_THROTTLE_MAX_MS",
+                                           "50"))
+        self.reject_ratio = float(os.environ.get(
+            "PEGASUS_SCHED_THROTTLE_REJECT", "0"))
+        # plain monotone counters for tests; the registry rates are the
         # operator surface (resolved once — the admission path is per-write)
         self.delayed_count = 0
+        self.rejected_count = 0
         self._c_delay = counters.rate("engine.throttle.debt_delay_count")
+        self._c_reject = counters.rate("engine.throttle.debt_reject_count")
         self._c_delay_ms = counters.percentile(
             "engine.throttle.debt_delay_ms")
         self._c_delay_ms_total = counters.rate(
@@ -151,13 +161,30 @@ class DebtThrottle:
         # worst duplicate a transition event, never lose a delay.
         self._engaged = False
 
+    # a DEFER token means the scheduler is deliberately accumulating
+    # this debt (a read-hot partition holding its compaction): charging
+    # the normal slope there would collapse write throughput as a side
+    # effect of a read-side optimization. The throttle instead engages
+    # only in the last eighth before the ceiling cliff (the same 7/8
+    # convention as the HBM read-hot headroom) — close enough that the
+    # imminent ceiling-override compaction still gets its measured
+    # slowdown, far enough that the defer window itself is free.
+    DEFER_SOFT = 0.875
+
     def consume(self) -> float:
-        """Charge one write; sleeps for the graduated delay. Called
-        OUTSIDE any engine lock (the sleep must never convoy other
-        writers). Returns the delay in ms (0.0 on the free path) so
-        callers can attribute the stall to the partition that paid it."""
+        """Charge one write; sleeps for the graduated delay, raises
+        ThrottleReject past the reject ratio. Called OUTSIDE any engine
+        lock (the sleep must never convoy other writers). Returns the
+        delay in ms (0.0 on the free paths) so callers can attribute the
+        stall to the partition that paid it."""
+        if not self.enabled:
+            return 0.0
         ratio = self.engine.compact_debt_ratio()
-        if ratio < self.SOFT:
+        soft = self.soft
+        if ratio >= soft \
+                and self.engine.compact_policy_fast() == "defer":
+            soft = max(soft, self.DEFER_SOFT)
+        if ratio < soft:
             if self._engaged:
                 self._engaged = False
                 from ..runtime import events
@@ -170,8 +197,14 @@ class DebtThrottle:
 
             events.emit("throttle.engage", severity="warn",
                         ratio=round(ratio, 3))
-        frac = min(1.0, (ratio - self.SOFT) / (1.0 - self.SOFT))
-        delay_ms = self.MAX_MS * frac
+        if self.reject_ratio and ratio >= self.reject_ratio:
+            self.rejected_count += 1
+            self._c_reject.increment()
+            raise ThrottleReject(
+                f"write throttled: compaction debt {ratio:.2f}x of the "
+                f"ceiling >= reject ratio {self.reject_ratio:.2f}")
+        frac = min(1.0, (ratio - self.soft) / max(1e-9, 1.0 - self.soft))
+        delay_ms = self.max_ms * frac
         if delay_ms <= 0:
             return 0.0
         self.delayed_count += 1
@@ -180,8 +213,8 @@ class DebtThrottle:
         self._c_delay_ms.set(delay_ms)
         self._c_delay_ms_total.increment(delay_ms)
         if self.ledger is not None:
-            # charged here, not by the caller: the global total equals the
-            # sum of the per-table attributions by construction
+            # charged HERE, not by the caller: global total == sum of
+            # per-table attributions holds structurally
             self.ledger.charge_throttle_delay(delay_ms)
         time.sleep(delay_ms / 1000.0)
         return delay_ms

@@ -16,6 +16,7 @@ from ..base import key_schema
 from ..base.utils import epoch_now
 from ..base.value_schema import SCHEMAS, generate_timetag
 from ..runtime import events
+from ..runtime.fail_points import fail_point
 from ..runtime.perf_counters import counters
 from ..runtime.tracing import REQUEST_TRACER
 from ..rpc import codec, messages as msg, task_codes
@@ -364,7 +365,12 @@ class WriteService:
         (engine.state_digest: a commutative per-record combine over the
         recency-merged logical contents). The fold is O(live records) and
         runs in the apply path: the partition's writes wait for it.
-        `audit.digest_us` records what each one cost."""
+        `audit.digest_us` records what each one cost.
+
+        The `audit.digest` fail point corrupts THIS replica's digest when
+        armed as return(<node>) or return(<node>@<app_id>.<pidx>) (node ""
+        matches every replica): a silent divergence for the doctor's and
+        the audit's tests, with the data untouched."""
         resp = self._fill(msg.TriggerAuditResponse(), decree)
         self.empty_put(decree)  # the decree itself advances like any write
         t0 = time.perf_counter()
@@ -380,16 +386,23 @@ class WriteService:
                                "digest": "", "error": repr(e),
                                "ts": time.time()}
             return resp
+        digest = dig["digest"]
+        fp = fail_point("audit.digest")
+        if fp is not None and fp[0] == "return":
+            node, _, gpid = fp[1].partition("@")
+            if (not node or node == self.server) and \
+                    (not gpid or gpid == f"{self.app_id}.{self.pidx}"):
+                digest = "deadbeef" + digest[8:]
         counters.rate("audit.trigger_count").increment()
         counters.percentile("audit.digest_us").set(
             int((time.perf_counter() - t0) * 1e6))
         events.emit("audit.applied", gpid=f"{self.app_id}.{self.pidx}",
                     decree=decree, node=self.server)
         self.last_audit = {"audit_id": req.audit_id, "decree": decree,
-                           "digest": dig["digest"], "records": dig["records"],
+                           "digest": digest, "records": dig["records"],
                            "now": dig["now"], "ts": time.time()}
         resp.decree = decree
-        resp.digest = dig["digest"]
+        resp.digest = digest
         resp.records = dig["records"]
         return resp
 

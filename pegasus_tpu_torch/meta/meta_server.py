@@ -9,12 +9,13 @@ promote the surviving secondary with the longest prepared log, then
 rebuild the replica count by seeding a learner on an under-loaded node.
 
 Served: create, drop, list and query-config of apps, app envs, list
-nodes, the meta level, the beacon, and the table lifecycle: partition
+nodes, the meta level, the beacon, the cluster-state snapshot the doctor
+and the compaction scheduler fold, and the table lifecycle: partition
 split, cold backup and restore, meta-driven bulk-load sessions and
 backup policies (run by the meta app's policy timer). Not ported yet, so
 their codes stay unregistered and answer ERR_HANDLER_NOT_FOUND:
 duplication, recall and purge of dropped apps, recover, ddd_diagnose,
-query_cluster_state, the quarantine repair, balance and propose. The
+the quarantine repair, balance and propose. The
 state file's entries for those planes (duplications, soft-dropped apps)
 are kept as loaded and written back unchanged.
 """
@@ -171,6 +172,7 @@ class MetaServer:
             RPC_CM_DROP_APP: self._on_drop_app,
             RPC_CM_LIST_APPS: self._on_list_apps,
             RPC_CM_QUERY_CONFIG: self._on_query_config,
+            RPC_CM_QUERY_CLUSTER_STATE: self._on_query_cluster_state,
             RPC_CM_SET_APP_ENVS: self._on_set_app_envs,
             RPC_CM_LIST_NODES: self._on_list_nodes,
             RPC_CM_SPLIT_APP: self._on_split_app,
@@ -283,6 +285,36 @@ class MetaServer:
                     error=1, error_text=f"no app {req.app_name}"))
             return codec.encode(mm.QueryConfigResponse(
                 app=app, partitions=list(self._parts[app.app_id])))
+
+    def _on_query_cluster_state(self, header, body) -> bytes:
+        """One-RPC cluster snapshot: node liveness, every app's partition
+        config and the beacon-folded per-replica lag, audit and compaction
+        debt states; what the cluster doctor and the compaction scheduler
+        fold. Served at level `blind` too (a pure query). `dups` stays {}
+        until duplication is ported."""
+        with self._lock:
+            now = time.monotonic()
+            nodes = {addr: {"alive": (now - last) < self.fd_grace,
+                            "last_beacon_ago_s": round(now - last, 3)}
+                     for addr, last in self._nodes.items()}
+            apps = {}
+            for app in self._apps.values():
+                apps[app.app_name] = {
+                    "app_id": app.app_id,
+                    "partition_count": app.partition_count,
+                    "replica_count": app.replica_count,
+                    "partitions": [{
+                        "pidx": pc.pidx, "ballot": pc.ballot,
+                        "primary": pc.primary,
+                        "secondaries": list(pc.secondaries)}
+                        for pc in self._parts[app.app_id]]}
+            state = {"nodes": nodes, "apps": apps,
+                     "replica_states": {n: dict(s) for n, s
+                                        in self._node_states.items()},
+                     "dups": {},
+                     "meta_level": self.level}
+        return codec.encode(mm.QueryClusterStateResponse(
+            state_json=json.dumps(state)))
 
     def _on_set_app_envs(self, header, body) -> bytes:
         req = codec.decode(mm.SetAppEnvsRequest, body)

@@ -20,11 +20,15 @@ before the child serves), restore at open from a backup through the
 block service (runtime/block_service.py), RPC_COLD_BACKUP and
 RPC_BULK_LOAD.
 
+The compaction scheduler's delivery surface: `compact-sched-policy`
+installs its policy tokens, placements and the node's device-compaction
+cap; `compact-sched-status` reads them back with each replica's debt;
+the maintenance loop pokes at most one held L0 trigger per tick.
+
 Not ported yet (ROADMAP Queue 1): partition groups (a group_spec raises,
-naming the module; the socket adoption loop), duplication, quarantine
-and scrub-replica, the scheduler commands, set-read-residency,
-detect_hotkey, the table-stats beacon fragment, the job tracer and the
-metric history.
+naming the module; the socket adoption loop, and with it the scheduler's
+per-group split of the device cap), duplication, quarantine and
+scrub-replica, set-read-residency and detect_hotkey.
 """
 
 import json
@@ -214,6 +218,10 @@ class ReplicaStub:
         self.commands.register("trigger-audit", self._cmd_trigger_audit)
         self.commands.register("query-audit", self._cmd_query_audit)
         self.commands.register("learn-status", self._cmd_learn_status)
+        self.commands.register("compact-sched-policy",
+                               self._cmd_compact_sched_policy)
+        self.commands.register("compact-sched-status",
+                               self._cmd_compact_sched_status)
         self.rpc.register(RPC_REMOTE_COMMAND, self.commands.rpc_handler)
         self.rpc.start()
         self.address = f"{self.rpc.address[0]}:{self.rpc.address[1]}"
@@ -243,8 +251,9 @@ class ReplicaStub:
     def _maintenance_loop(self):
         """Per-replica timers (the reference's replica-level checkpoint
         timer and manual-compact trigger checks): periodic async
-        checkpoint, plog GC behind the durable decree, and env-driven
-        periodic manual compaction."""
+        checkpoint, plog GC behind the durable decree, env-driven
+        periodic manual compaction, then the idle retry of a held L0
+        trigger."""
         while not self._stop.wait(self._maint_interval):
             with self._lock:
                 reps = list(self._replicas.values())
@@ -255,6 +264,16 @@ class ReplicaStub:
                     rep.server.manual_compact_service \
                         .start_manual_compact_if_needed(rep.server.app_envs)
                 except Exception as e:  # keep the timer alive
+                    print(f"[maintenance] {rep.name}: {e!r}", flush=True)
+            # debt a lapsed defer token or a freed device gate left above
+            # the trigger compacts without waiting for the next flush;
+            # after the light per-replica work, and at most ONE compaction
+            # per tick, so one merge never stalls every sibling's timers
+            for rep in reps:
+                try:
+                    if rep.server.engine.poke_compaction():
+                        break
+                except Exception as e:
                     print(f"[maintenance] {rep.name}: {e!r}", flush=True)
 
     # ------------------------------------------------------------- beacons
@@ -914,6 +933,76 @@ class ReplicaStub:
         for rep in reps:
             rep.plog.flush()
         return f"flushed {len(reps)} logs"
+
+    def _cmd_compact_sched_policy(self, args: list) -> str:
+        """compact-sched-policy <json>: the compaction scheduler's
+        delivery surface. The body is ``{"ttl_s": s, "decisions":
+        {"<app>.<pidx>": {"policy": defer|normal|urgent, "reasons": [...],
+        "where": addr?, "job": id?}}, "max_device": n?}``: each hosted
+        partition named installs the policy token (and, with "where", the
+        offload placement) on its engine, both expiring after ttl_s;
+        max_device caps this node's concurrent device compactions under
+        the same lease. -> {gpid: policy} for what applied."""
+        if not args:
+            return "usage: compact-sched-policy <json>"
+        try:
+            req = json.loads(" ".join(args))
+        except ValueError as e:
+            return f"bad policy json: {e}"
+        ttl = req.get("ttl_s")
+        if "max_device" in req:
+            from ..engine.db import SCHED_GATE
+
+            SCHED_GATE.set_max(max(0, int(req["max_device"])), ttl_s=ttl)
+        with self._lock:
+            reps = dict(self._replicas)
+        applied = {}
+        for gpid, dec in sorted((req.get("decisions") or {}).items()):
+            a, _, p = gpid.partition(".")
+            try:
+                rep = reps.get((int(a), int(p)))
+            except ValueError:
+                continue
+            if rep is None:
+                continue
+            policy = dec.get("policy", "normal")
+            try:
+                rep.server.engine.set_compact_policy(
+                    policy, reasons=dec.get("reasons", ()), ttl_s=ttl,
+                    job=dec.get("job", ""))
+            except ValueError as e:
+                applied[gpid] = f"error: {e}"
+                continue
+            if "where" in dec:
+                rep.server.engine.set_offload_target(dec.get("where") or "",
+                                                     ttl_s=ttl)
+            applied[gpid] = policy
+        return json.dumps(applied)
+
+    def _cmd_compact_sched_status(self, args: list) -> str:
+        """compact-sched-status [gpid]: each hosted (or the named)
+        partition's live scheduler token (policy, reasons, seconds to
+        expiry), its offload placement and its compaction debt, keyed by
+        gpid."""
+        with self._lock:
+            targets = list(self._replicas.items())
+        out = {}
+        for (a, p), rep in targets:
+            gpid = f"{a}.{p}"
+            if args and args[0] != gpid:
+                continue
+            engine = rep.server.engine
+            policy, reasons, expires_in = engine.compact_policy()
+            debt = engine.compaction_debt()
+            out[gpid] = {"policy": policy, "reasons": reasons,
+                         "expires_in_s": round(expires_in, 3),
+                         "offload": engine.offload_target() or "",
+                         "l0_files": debt["l0_files"],
+                         "debt_bytes": debt["debt_bytes"],
+                         "pending_installs": debt["pending_installs"],
+                         "ceiling_files": debt["ceiling_files"],
+                         "node": self.address}
+        return json.dumps(out)
 
     def _cmd_flush_memtable(self, args: list) -> str:
         """flush-memtable [app_id.pidx ...]: flush every hosted (or each

@@ -4,8 +4,9 @@ Port of pegasus_tpu/runtime/fail_points.py, whole: the same registry, the
 same action mini-language and the same point names, so a test arms one
 point in both packages with one string. Call sites in the port: the batch
 dispatch (`serve.native`, `serve.dispatch`), the mutation log's group
-commit (`plog.group`), the block-shipped learn (`learn.ship`) and the
-engine scrub (`scrub.verify`).
+commit (`plog.group`), the block-shipped learn (`learn.ship`), the
+engine scrub (`scrub.verify`), the audit's digest (`audit.digest`) and
+the compaction scheduler's tick (`compact.sched`).
 
     "return()"     -> hook returns the given (or default) injected value
     "return(v)"    -> hook returns v (string)

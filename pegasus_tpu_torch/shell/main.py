@@ -7,12 +7,15 @@ pegasus_tpu_torch.shell --meta host:port`) or one-shot (`... --meta
 host:port -- app ls`). Every command prints the reference shell's lines:
 cluster info, table DDL, nodes, data ops (set/get/del/multi_*/ttl/incr/
 scans/count_data/copy_data), app envs and manual compaction, remote
-commands and counters, the consistency audit, backup and restore, backup
-policies, bulk-load sessions, the meta level and the offline debuggers.
+commands and counters, the traces, jobs and table ledgers, the
+consistency audit, the cluster doctor, the compaction scheduler's tokens,
+backup and restore, backup policies, bulk-load sessions, the meta level
+and the offline debuggers. The shell runs the audit and the doctor in its
+own process (collector/cluster_doctor.py), as the reference's does.
 
-A command whose plane the port does not have yet (the collector, table
-stats, the flight recorder, duplication, balance, recover, ddd_diagnose,
-the traces, ...) prints one error line naming the missing module and, in
+A command whose plane the port does not have yet (the collector's SLOs
+and hotkeys, the flight recorder, duplication, balance, recover,
+ddd_diagnose, ...) prints one error line naming the missing module and, in
 one-shot mode, exits non-zero. The reference shell has no split command:
 a split is the RPC_CM_START_PARTITION_SPLIT DDL.
 """
@@ -39,14 +42,11 @@ from ..runtime.table_stats import fold_snapshots, top_k
 NOT_PORTED = {
     "recall": "the meta's recall of soft-dropped apps "
               "(meta/meta_server.py RPC_CM_RECALL_APP)",
-    "compact_sched": "the compaction scheduler "
-                     "(collector/compact_scheduler.py)",
     "quarantine_status": "quarantine and scrub "
                          "(replication/replica_stub.py quarantine-status)",
     "scrub_replica": "quarantine and scrub "
                      "(replication/replica_stub.py scrub-replica)",
     "flight_recorder": "the flight recorder (collector/flight_recorder.py)",
-    "cluster_doctor": "the cluster doctor (collector/cluster_doctor.py)",
     "slo": "the collector's SLO evaluation "
            "(collector/info_collector.py slo-status)",
     "detect_hotkey": "hotkey detection "
@@ -123,7 +123,7 @@ class Shell:
                                "trigger once manual compaction via app envs"),
             "query_compact_state": (self.cmd_query_compact,
                                     "query manual compact state on nodes"),
-            "compact_sched": (self._not_ported("compact_sched"),
+            "compact_sched": (self.cmd_compact_sched,
                               "compact_sched [node|all] [gpid] — per-"
                               "partition compaction-scheduler decisions "
                               "(defer/normal/urgent + the reasons that "
@@ -182,7 +182,7 @@ class Shell:
                               "consistency audit: every replica digests its "
                               "state at the same applied decree; mismatches "
                               "name the exact (app, pidx, node)"),
-            "cluster_doctor": (self._not_ported("cluster_doctor"),
+            "cluster_doctor": (self.cmd_cluster_doctor,
                                "cluster_doctor [last] — ONE cluster health "
                                "verdict (healthy|degraded|critical) with "
                                "named causes + evidence"),
@@ -613,6 +613,39 @@ class Shell:
                 self.p(f"[{n.address}]")
                 self.p(self._node_command(n.address, "query-compact-state", []))
 
+    def cmd_compact_sched(self, args):
+        """Per-partition compaction-scheduler decisions, one line per
+        gpid: the policy token, the reasons that drove it and the live
+        debt behind it, from each node's compact-sched-status."""
+        target = args[0] if args else "all"
+        rest = args[1:]
+        nodes = ([n.address for n in self._nodes() if n.alive]
+                 if target == "all" else [target])
+        for node in nodes:
+            try:
+                out = self._node_command(node, "compact-sched-status", rest)
+                doc = json.loads(out)
+            except (RpcError, OSError, ValueError) as e:
+                self.p(f"[{node}] unreachable/bad reply: {e}")
+                continue
+            self.p(f"[{node}]")
+            if not isinstance(doc, dict) or not doc:
+                self.p("  no partitions")
+                continue
+            for gpid, d in sorted(doc.items()):
+                if not isinstance(d, dict) or "policy" not in d:
+                    self.p(f"  {gpid}: {d}")
+                    continue
+                reasons = ",".join(d.get("reasons", [])) or "-"
+                where = d.get("offload") or "local"
+                self.p(f"  {gpid}: {d['policy']:<7} where={where} "
+                       f"reasons={reasons} "
+                       f"l0={d.get('l0_files', 0)}"
+                       f"/{d.get('ceiling_files', '?')} "
+                       f"debt_bytes={d.get('debt_bytes', 0)} "
+                       f"pending={d.get('pending_installs', 0)} "
+                       f"expires_in={d.get('expires_in_s', 0)}s")
+
     def cmd_offload_status(self, args):
         """One compaction-offload service's live state: free merge
         budget (what the scheduler's placement fold consumes), running
@@ -708,9 +741,12 @@ class Shell:
             self.cmd_remote_command(["all", "events-dump"])
 
     def cmd_trigger_audit(self, args):
+        from ..collector.cluster_doctor import run_cluster_audit
+
         apps = [args[0]] if args else (
             [self.current_app] if self.current_app else None)
-        report = self._cluster_audit(apps)
+        report = run_cluster_audit(self.meta_addrs, pool=self.pool,
+                                   apps=apps)
         self.p(json.dumps(report, indent=1))
         if report["mismatches"]:
             self.p(f"AUDIT FAILED: {len(report['mismatches'])} digest "
@@ -722,97 +758,16 @@ class Shell:
             self.p(f"audit OK: {len(report['ok'])} partition(s), all "
                    "replicas identical at identical decrees")
 
-    def _cluster_audit(self, apps=None, wait_s: float = 5.0) -> dict:
-        """The reference's run_cluster_audit (collector/cluster_doctor.py)
-        with the same report: trigger-audit on each partition's primary,
-        then each secondary's query-audit at the primary's decree. The
-        partitions come from list-apps and query-config, since the
-        port's meta does not serve the cluster-state snapshot."""
-        report = {"partitions": 0, "ok": [], "mismatches": [],
-                  "inconclusive": [], "digests": {}, "primaries": {}}
-        listed = self._meta_call(RPC_CM_LIST_APPS, mm.ListAppsRequest(),
-                                 mm.ListAppsResponse).apps
-        for app in sorted(listed, key=lambda a: a.app_name):
-            if apps and app.app_name not in apps:
-                continue
-            cfg = self._meta_call(RPC_CM_QUERY_CONFIG,
-                                  mm.QueryConfigRequest(app.app_name),
-                                  mm.QueryConfigResponse)
-            for pc in cfg.partitions:
-                report["partitions"] += 1
-                self._audit_partition(report, app.app_name, app.app_id, pc,
-                                      wait_s)
-        return report
+    def cmd_cluster_doctor(self, args):
+        from ..collector.cluster_doctor import run_cluster_doctor
 
-    def _audit_partition(self, report, app_name, app_id, pc, wait_s):
-        gpid = f"{app_id}.{pc.pidx}"
-        if not pc.primary:
-            report["inconclusive"].append(
-                {"gpid": gpid, "reason": "no primary assigned"})
-            return
-        try:
-            out = self._node_command(pc.primary, "trigger-audit", [gpid])
-        except (RpcError, OSError) as e:
-            report["inconclusive"].append(
-                {"gpid": gpid, "node": pc.primary,
-                 "reason": f"primary unreachable: {e}"})
-            return
-        try:
-            primary_audit = json.loads(out) if out else {}
-        except ValueError:
-            primary_audit = {}
-        if not primary_audit or primary_audit.get("error"):
-            report["inconclusive"].append(
-                {"gpid": gpid, "node": pc.primary,
-                 "reason": primary_audit.get("error",
-                                             "no trigger-audit reply")})
-            return
-        decree = primary_audit["decree"]
-        expected = primary_audit["digest"]
-        digests = {pc.primary: {"decree": decree, "digest": expected}}
-        report["digests"][gpid] = digests
-        report["primaries"][gpid] = {
-            "node": pc.primary, "decree": decree, "digest": expected,
-            "records": primary_audit.get("records", 0)}
-        clean = True
-        for node in pc.secondaries:
-            got = self._poll_secondary_audit(node, gpid, decree, wait_s)
-            if got is None:
-                report["inconclusive"].append(
-                    {"gpid": gpid, "node": node,
-                     "reason": f"no digest at decree {decree} within "
-                               f"{wait_s:.1f}s (dead / reconfiguring / "
-                               "superseded)"})
-                clean = False
-                continue
-            digests[node] = got
-            if got["digest"] != expected:
-                report["mismatches"].append(
-                    {"app": app_name, "app_id": app_id, "pidx": pc.pidx,
-                     "gpid": gpid, "node": node, "decree": decree,
-                     "digest": got["digest"], "expected": expected})
-                clean = False
-        if clean:
-            report["ok"].append(gpid)
-
-    def _poll_secondary_audit(self, node, gpid, decree, wait_s):
-        """-> {"decree", "digest"} once the node reports an audit at
-        `decree`, or None on timeout, unreachable or superseded."""
-        deadline = time.monotonic() + wait_s
-        while True:
-            try:
-                out = self._node_command(node, "query-audit", [gpid])
-                audit = json.loads(out).get(gpid, {}).get("audit")
-                if audit and audit.get("decree", 0) >= decree:
-                    if audit["decree"] != decree or not audit.get("digest"):
-                        return None
-                    return {"decree": audit["decree"],
-                            "digest": audit["digest"]}
-            except (RpcError, OSError, ValueError):
-                pass
-            if time.monotonic() >= deadline:
-                return None
-            time.sleep(0.05)
+        last = int(args[0]) if args else 10
+        verdict = run_cluster_doctor(self.meta_addrs, pool=self.pool,
+                                     slow_last=last)
+        self.p(json.dumps(verdict, indent=1))
+        self.p(f"cluster verdict: {verdict['verdict'].upper()}"
+               + (f" ({len(verdict['causes'])} cause(s))"
+                  if verdict["causes"] else ""))
 
     # backup / restore ----------------------------------------------------
     # (reference src/shell/commands/cold_backup.cpp incl. policy surface)

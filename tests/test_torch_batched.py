@@ -209,13 +209,3 @@ def test_batched_merge_rejects_bad_operands():
         merge_two_sorted(a, torch.zeros((3, 5), dtype=torch.int64), 2)
     with pytest.raises(ValueError, match="nk"):
         merge_two_sorted(a, a, 4)
-
-
-@pytest.mark.cuda
-def test_batched_merge_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card with "
-                    "python -m pytest -m cuda tests/test_torch_*.py)")
-    for name, a, b, nk in chip_smoke.batched_kernel_cases():
-        chip_smoke._check_batched(torch.from_numpy(a).cuda(),
-                                  torch.from_numpy(b).cuda(), nk, name)

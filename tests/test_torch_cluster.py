@@ -41,28 +41,33 @@ from pegasus_tpu_torch.rpc.transport import RpcConnection, RpcServer
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _port_stub(root, meta_addr, port=0):
+def _port_stub(root, meta_addr, port=0, **opts):
     return ReplicaStub(str(root), [meta_addr], port=port,
-                       options_factory=lambda: EngineOptions(device="cpu")
+                       options_factory=lambda: EngineOptions(device="cpu",
+                                                             **opts)
                        ).start(beacon_interval=0.2)
 
 
-def _ref_stub(root, meta_addr, port=0):
+def _ref_stub(root, meta_addr, port=0, **opts):
     from pegasus_tpu.engine import EngineOptions as RefOptions
     from pegasus_tpu.replication.replica_stub import ReplicaStub as RefStub
 
     return RefStub(str(root), [meta_addr], port=port,
-                   options_factory=lambda: RefOptions(backend="cpu")
+                   options_factory=lambda: RefOptions(backend="cpu", **opts)
                    ).start(beacon_interval=0.2)
 
 
 class Cluster:
     """A meta (the port's, or pegasus_tpu's with ref_meta=True) and
-    replica nodes; `kinds` names each node's package."""
+    replica nodes; `kinds` names each node's package, `options` the
+    EngineOptions fields every node's engines take."""
+
+    options = {}
 
     def __init__(self, root, kinds=("port",) * 3, ref_meta=False,
-                 fd_grace=60.0):
+                 fd_grace=60.0, options=None):
         self.root = root
+        self.options = dict(options or {})
         if ref_meta:
             from pegasus_tpu.meta import MetaServer as RefMeta
             from pegasus_tpu.rpc.transport import RpcServer as RefRpc
@@ -88,7 +93,7 @@ class Cluster:
 
     def start_node(self, path, kind, port=0):
         make = _ref_stub if kind == "reference" else _port_stub
-        stub = make(path, self.meta_addr, port)
+        stub = make(path, self.meta_addr, port, **self.options)
         self.nodes[stub.address] = stub
         self.kinds[stub.address] = kind
         self.dirs[stub.address] = path

@@ -77,7 +77,10 @@ def test_source_walk_covers_the_package():
                 "client/factory.py", "runtime/lockrank.py",
                 "runtime/tasking.py", "runtime/job_trace.py",
                 "runtime/table_stats.py", "runtime/metric_history.py",
-                "runtime/toollets.py"):
+                "runtime/toollets.py", "collector/__init__.py",
+                "collector/cluster_doctor.py",
+                "collector/compact_scheduler.py",
+                "collector/info_collector.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
 
 

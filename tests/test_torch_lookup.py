@@ -187,24 +187,6 @@ def test_cpu_runs_take_the_plain_version():
     assert fence_lookup.LAUNCHES["fence_lookup"] == before
 
 
-@pytest.mark.cuda
-def test_fence_kernel_matches_plain_on_card():
-    import torch
-
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the GPU: "
-                    "python -m pytest -m cuda tests/test_torch_*.py)")
-    import chip_smoke
-
-    from pegasus_tpu_torch.ops.fence_lookup import GROUPS
-
-    for name, dr, points, ranges, _, _ in chip_smoke.lookup_probe_cases(
-            torch.device("cuda")):
-        for group in (None,) + GROUPS:
-            chip_smoke._check_fence(dr, points, name, group)
-            chip_smoke._check_fence(dr, ranges, name, group)
-
-
 # ------------------------------- Pegasus keys and the kernel's search
 
 def _pegasus_keys(n: int = 4000) -> list:

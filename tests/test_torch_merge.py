@@ -9,8 +9,8 @@ cases aimed at the tiled CUDA kernel (chip_smoke.edge_cases). The plain
 partition pass, merge_path_splits_plain, must equal the splits of the
 plain merge's output at every tile boundary and the reference's
 _diagonal_splits at its CHUNK boundaries. The CUDA kernels themselves are
-held against the plain versions on the card (the `cuda` marked test, and
-chip_smoke.py).
+held against the plain versions on the card by tests/test_torch_cuda.py
+and chip_smoke.py.
 """
 
 import functools
@@ -201,25 +201,6 @@ def test_cpu_operands_do_not_launch_the_kernel():
     rng = np.random.default_rng(3)
     port_merge(make_sorted(rng, 50), make_sorted(rng, 60))
     assert merge_path.LAUNCHES["merge_path"] == before
-
-
-@pytest.mark.cuda
-def test_merge_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the GPU: "
-                    "python -m pytest -m cuda tests/test_torch_*.py)")
-    import chip_smoke
-
-    for name, a, b, nk in chip_smoke.kernel_cases():
-        ta = torch.from_numpy(a).cuda()
-        tb = torch.from_numpy(b).cuda()
-        before = merge_path.LAUNCHES["merge_path"]
-        got = merge_path.merge_two_sorted(ta, tb, nk)
-        assert merge_path.LAUNCHES["merge_path"] == before + 1
-        torch.cuda.synchronize()
-        assert torch.equal(got, merge_two_sorted_plain(ta, tb, nk)), name
-        # and the partition pass against the plain splits
-        chip_smoke._check_merge(ta, tb, nk, name)
 
 
 def test_concurrent_builds_make_one_library(tmp_path, monkeypatch):

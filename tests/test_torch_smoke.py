@@ -231,13 +231,16 @@ def test_device_stage_phase_keeps_each_merge_as_two_d_operands(monkeypatch):
 
 
 def test_offload_phase_at_tiny_size(tmp_path):
-    """The service from its ini on device="cpu": the whole job
-    digest-equal to the cpu backend, the repeat shipping nothing, two
-    concurrent tenants each equal to their own cpu merge (run_offload
-    raises otherwise)."""
+    """The service from its ini on device="cpu": the first job (one
+    partition of the 16-way split) digest-equal to the cpu backend, the
+    repeat shipping nothing, two concurrent tenants each equal to their
+    own cpu merge (run_offload raises otherwise)."""
     runs = chip_smoke.fill(8000)
-    want, _ = chip_smoke.cpu_digest(runs)
-    rep = chip_smoke.run_offload(runs, "cpu", want, str(tmp_path))
+    part = chip_smoke.partition_runs(runs, chip_smoke.OFFLOAD_PARTS)[
+        chip_smoke.OFFLOAD_JOB_PART]
+    want, _ = chip_smoke.cpu_digest(part)
+    rep = chip_smoke.run_offload(runs, "cpu", str(tmp_path))
+    assert rep["job_records"] == sum(r.n for r in part) < 8000
     job = rep["job"]
     assert job["digest"] == want and job["shipped_runs"] == 4
     assert job["shipped_bytes"] > 0 and job["fetched_bytes"] > 0
@@ -402,6 +405,23 @@ def test_cluster_phase_at_tiny_size(tmp_path):
     assert rep["lockrank"]["violations"] == 0
     assert len(rep["lockrank"]["edges"]) == 3
     assert min(rep["lockrank"]["edges"].values()) > 0
+    # the doctor named the killed node; healthy after the audit, its
+    # audit evidence over every partition (run_cluster raises otherwise)
+    assert rep["doctor_down"]["verdict"] != "healthy"
+    assert rep["doctor_down"]["dead"] == [
+        n for n in rep["doctor_down"]["dead"] if n.startswith("127.0.0.1:")]
+    assert len(rep["doctor_down"]["dead"]) == 1
+    assert rep["doctor"]["audit_checked"] == 4
+    assert rep["doctor"]["shell"].startswith("cluster verdict: ")
+    # the scheduler's tokens: partition 0 deferred on its primary past
+    # the trigger, then lifted; urgent replicas compacted on every node
+    sched = rep["sched"]
+    assert sched["decisions"]["defer"] == 1 and sched["decisions"]["urgent"]
+    assert sched["hot_l0_held"] >= chip_smoke.SCHED_TRIGGER
+    assert sched["lift"]["l0_after"] == 0
+    assert all(n > 0 for n in sched["urgent_tokens"].values())
+    assert all(j["urgent"] >= sched["urgent_tokens"][n]
+               for n, j in sched["urgent_jobs"].items())
 
 
 def test_cluster_lifecycle_at_tiny_size(tmp_path):
@@ -436,6 +456,8 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     assert rep["compaction"]["gc_dropped_rows"] > 0
     assert life["split_read_back"]["sampled_keys"] > 0
     assert rep["audit"]["replicas"] == 24
+    assert rep["doctor"]["audit_checked"] == 8
+    assert rep["sched"]["lift"]["l0_after"] == 0
     assert life["restore"]["read_back"]["sampled_keys"] > 0
     assert sum(s["batched"] for s in
                life["node_compaction"]["stats"].values()) == 12
