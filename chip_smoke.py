@@ -67,7 +67,12 @@ exits non-zero before printing any result. Phases, one JSON line each:
               equal to the host walk (get / scan), through the
               fence-lookup kernel (its launches counted); the kernel then
               checked and timed on the 10M-record compaction output
-              (time_fence);
+              (time_fence); then read residency's headroom
+              (check_headroom): 16 equal runs on an engine whose budget
+              is one byte above their bytes prime a run short of them at
+              7/8 of it unpinned and all of them after
+              set_read_residency(True), the pinned reads equal to the cpu
+              backend's through the fence kernel;
   6. blockwise  the 10M runs through compact_blocks(backend="cuda",
               max_device_records=2^22): at least 3 key ranges, at
               PEGASUS_COMPACT_PIPELINE_DEPTH 1 and 2, each digest equal to
@@ -119,7 +124,8 @@ exits non-zero before printing any result. Phases, one JSON line each:
               compaction of every partition through update_app_envs
               (>= 32 launches) under torch.profiler, each output
               digest-equal to the cpu backend's compaction of the
-              partition's runs from just before; the read-back again.
+              partition's runs from just before; the updated keys read
+              back again (the untouched sample only once, after the run).
               Then (`fence_probe`) time_fence on the serve partition's
               run at the read-backs' batch size (read.batch.size p50).
  11. replicate  PacificA at BASELINE #3's per-partition scale: partition
@@ -136,9 +142,12 @@ exits non-zero before printing any result. Phases, one JSON line each:
               the cpu backend's compaction of its runs.
  12. cluster  BASELINE #3 with its three replicas as processes: an ini
               derived from onebox.ini (cluster_ini: one meta, replica1..3
-              on fixed ports, compaction_backend = cuda, onebox's failure
-              detector), each app a `python -m pegasus_tpu_torch.server`
-              subprocess on the card. Through the port's shell
+              on fixed ports, replica1's http_port, compaction_backend =
+              cuda, onebox's failure detector, and the collector, its
+              round every second and its canary on onebox's `test`
+              table), each app a `python -m pegasus_tpu_torch.server`
+              subprocess on the card, the collector started once every
+              node is alive. Through the port's shell
               (Shell.run_line; an error line raises): `create usertable
               -p 32 -r 3` and a bulk-load session (`start_bulk_load -a`,
               query_bulk_load_status to succeed: every replica ingests,
@@ -149,7 +158,22 @@ exits non-zero before printing any result. Phases, one JSON line each:
               (the meta re-adds it, it relearns over RPC_LEARN_*), no op
               failing for good; every acknowledged update and a 50k
               sample read back (fence-lookup launches scraped from the
-              processes). Then the runtime planes through the shell: a
+              processes). Then the residency leg (check_residency): 256
+              rows under one new hash key flushed into a run on each of
+              its partition's replicas, read back in one batch over and
+              over from the client process until the collector flags the
+              partition, names that hash key by detect_hotkey on the
+              primary and pins it (set-read-residency on); every SST of
+              the primary's node then resident on the card and
+              engine.hbm.resident_bytes grown; the hot reads launching
+              the fence kernel on the primary, every answer the
+              acknowledged value; reads of the other partitions then
+              calm it and the pin is released. The collector's surfaces
+              (check_collector): the canary's samples at the kill, after
+              the restart and now; GET /metrics on replica1's http_port
+              listing engine_hbm_resident_bytes; the shell's `slo
+              <collector>`, `app_stat` and `slow_requests --cluster`.
+              Then the runtime planes through the shell: a
               traced set's spans under one trace_id in every node's
               `request_trace`; `set_fail_point` arming a one-shot sleep on
               a secondary's plog group commit, its `slow_requests` naming
@@ -165,8 +189,8 @@ exits non-zero before printing any result. Phases, one JSON line each:
               `compact_trace` shows the device stages, `device_health`
               not wedged with a fresh last_ok, `job_trace` the manual
               compaction jobs); every
-              acknowledged write (the run's and the split's) and the
-              sample read back through 64 partitions; trigger-audit on
+              acknowledged write (the run's and the split's) read back
+              through 64 partitions; trigger-audit on
               every primary, query-audit on every replica: equal digests
               at an equal decree on all 192; `restore_app` into
               usertable_r (query_restore_status to ok), its read-back
@@ -1527,6 +1551,110 @@ def run_reads(eng, runs, n_puts: int, n_gets: int, n_ranges: int,
                                                      "read.range")}}
 
 
+HEADROOM_RUNS = 16        # equal flushed runs of the headroom check
+HEADROOM_ROWS = 20_000    # rows in each
+
+
+def check_headroom(device, work: str, n_runs: int = HEADROOM_RUNS,
+                   rows: int = HEADROOM_ROWS) -> dict:
+    """Read residency's budget headroom on one cuda engine: n_runs equal
+    flushed runs (each primed at the default budget, their bytes
+    measured), the engine reopened with device_cache_bytes one byte above
+    those bytes. Unpinned, its primes (prime_resident_runs) stop at 7/8
+    of the budget, a run short; after set_read_residency(True) and
+    wait_primes() every run is resident, the whole budget but a byte in
+    use. Then get_batch over written keys and misses, equal to a cpu
+    backend engine's given the same writes, through the fence-lookup
+    kernel (its launches counted)."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.engine.db import EngineOptions, LsmEngine, \
+        WriteBatch
+    from pegasus_tpu_torch.ops.fence_lookup import LAUNCHES as FENCE
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    opts = dict(l0_compaction_trigger=1 << 30)
+    paths = {b: os.path.join(work, b) for b in ("cuda", "cpu")}
+    engs = {"cuda": LsmEngine(paths["cuda"],
+                              EngineOptions(device=device, **opts)),
+            "cpu": LsmEngine(paths["cpu"],
+                             EngineOptions(backend="cpu", **opts))}
+    rng = np.random.default_rng(21)
+    ids = rng.permutation(n_runs * rows)
+    for r in range(n_runs):
+        wb = WriteBatch()
+        for j in ids[r * rows: (r + 1) * rows]:
+            wb.put(generate_key(b"headroom%08d" % j, b"s"),
+                   b"\x82" + b"\x00" * 12 + b"h%d" % j)
+        for e in engs.values():
+            e.write_batch([(wb, r + 1)])
+            e.flush()
+    engs["cuda"].wait_primes()
+    full = engs["cuda"].stats()
+    if full["device_resident_ssts"] != n_runs:
+        raise AssertionError(f"default budget: {full['device_resident_ssts']}"
+                             f" of {n_runs} runs resident")
+    total = full["device_resident_bytes"]
+    engs["cuda"].close()
+    budget = total + 1
+    cap = budget - (budget >> 3)
+    eng = LsmEngine(paths["cuda"], EngineOptions(
+        device=device, device_cache_bytes=budget, **opts))
+    try:
+        t0 = time.perf_counter()
+        eng.prime_resident_runs()
+        cold = eng.stats()
+        cold_s = time.perf_counter() - t0
+        if not (cold["device_resident_ssts"] < n_runs
+                and cap <= cold["device_resident_bytes"] < budget):
+            raise AssertionError(f"unpinned primes past 7/8 of {budget}: "
+                                 f"{cold['device_resident_ssts']} runs, "
+                                 f"{cold['device_resident_bytes']} bytes")
+        t0 = time.perf_counter()
+        eng.set_read_residency(True)
+        eng.wait_primes()
+        hot = eng.stats()
+        pin_s = time.perf_counter() - t0
+        if not (hot["read_hot"] and hot["device_resident_ssts"] == n_runs
+                and hot["device_resident_bytes"] == total):
+            raise AssertionError(f"pinned: {hot['device_resident_ssts']} of "
+                                 f"{n_runs} runs, "
+                                 f"{hot['device_resident_bytes']} bytes")
+        q = [generate_key(b"headroom%08d" % j, b"s")
+             for j in rng.integers(0, n_runs * rows, size=4096)]
+        q += [generate_key(b"headroom%08d" % (n_runs * rows + j), b"s")
+              for j in range(512)]
+        FENCE["fence_lookup"] = 0
+        with COMPACT_TRACER.session() as sess:
+            t0 = time.perf_counter()
+            got = eng.get_batch(q, now=NOW)
+            get_s = time.perf_counter() - t0
+        launches = FENCE["fence_lookup"]
+        lookups = sess.summary().get("read.lookup", {}).get("calls", 0)
+        if got != engs["cpu"].get_batch(q, now=NOW):
+            raise AssertionError("pinned get_batch != the cpu backend's")
+        if lookups < n_runs:
+            raise AssertionError(f"{lookups} device lookups over {n_runs} "
+                                 f"pinned runs")
+        if torch.device(device).type == "cuda" and launches == 0:
+            raise AssertionError("the pinned reads launched no fence kernel")
+    finally:
+        eng.close()
+        engs["cpu"].close()
+    return {"runs": n_runs, "rows_per_run": rows, "budget_bytes": budget,
+            "cap_bytes": cap,
+            "unpinned": {"runs": cold["device_resident_ssts"],
+                         "bytes": cold["device_resident_bytes"],
+                         "seconds": cold_s},
+            "pinned": {"runs": hot["device_resident_ssts"],
+                       "bytes": hot["device_resident_bytes"],
+                       "seconds": pin_s},
+            "gets": len(q), "get_hits": sum(v is not None for v in got),
+            "get_batch_s": get_s, "device_lookups": lookups,
+            "fence_launches": launches}
+
+
 # ------------------------------------------- L0 + cascade, deferred installs
 
 LEVELS_RECORDS = 1_000_000   # the levels phase's fill (4 runs)
@@ -2687,11 +2815,12 @@ def _client_absorb(acked: dict) -> int:
 
 
 def _client_read_back(what: str, chunk: int = 4000, app: str = None,
-                      at_backup: bool = False) -> dict:
+                      at_backup: bool = False, sample: bool = True) -> dict:
     """In the client process: batch_get every updated key (its last
-    acknowledged value) and every sampled untouched key (its loaded
-    value); any other answer raises. With `app`, from that table of the
-    same meta; with at_backup, the values _client_snapshot kept."""
+    acknowledged value) and, with `sample`, every sampled untouched key
+    (its loaded value); any other answer raises. With `app`, from that
+    table of the same meta; with at_backup, the values _client_snapshot
+    kept."""
     from pegasus_tpu_torch.client import MetaResolver, PegasusClient
 
     resolver = (MetaResolver([_CLIENT["meta"]], app) if app
@@ -2699,9 +2828,9 @@ def _client_read_back(what: str, chunk: int = 4000, app: str = None,
     resolver.refresh()   # a split since the last call changes the routes
     client = PegasusClient(resolver, timeout=120)
     keysets = _CLIENT["at_backup"] if at_backup else _CLIENT
-    out = {}
+    out = {"sampled_keys": 0, "sampled_s": 0.0}
     try:
-        for name in ("updated", "sampled"):
+        for name in ("updated", "sampled") if sample else ("updated",):
             keys, want = keysets[name]
             t0 = time.perf_counter()
             for lo in range(0, len(keys), chunk):
@@ -2718,6 +2847,74 @@ def _client_read_back(what: str, chunk: int = 4000, app: str = None,
     out["keys_per_s"] = (out["updated_keys"] + out["sampled_keys"]) / (
         out["updated_s"] + out["sampled_s"])
     return out
+
+
+def _client_hot_write(hk: bytes, n_rows: int) -> int:
+    """In the client process: n_rows sort keys under one hash key, each
+    set acknowledged, kept as the hot rows. -> rows written."""
+    from pegasus_tpu_torch.client import PegasusClient
+
+    client = PegasusClient(_CLIENT["resolver"], timeout=120)
+    try:
+        rows = [(b"s%04d" % i, b"hot-value-%d" % i) for i in range(n_rows)]
+        for sk, v in rows:
+            client.set(hk, sk, v)
+    finally:
+        client.close()
+    _CLIENT["hot"] = (hk, rows)
+    return len(rows)
+
+
+def _client_until_stopped(items: list, want: list, max_s: float,
+                          what: str) -> dict:
+    """In the client process: batch_get of `items` over and over, every
+    answer its `want`, until the parent sets the shared _PROGRESS below 0
+    or max_s passes. -> batches, keys and seconds."""
+    from pegasus_tpu_torch.client import PegasusClient
+
+    client = PegasusClient(_CLIENT["resolver"], timeout=120)
+    t0 = time.perf_counter()
+    batches = 0
+    try:
+        while _PROGRESS.value >= 0 and time.perf_counter() - t0 < max_s:
+            got = client.batch_get(items)
+            if got != want:
+                bad = next(i for i, (g, w) in enumerate(zip(got, want))
+                           if g != w)
+                raise AssertionError(f"{what}: {items[bad]!r} read "
+                                     f"{got[bad]!r}, want {want[bad]!r}")
+            batches += 1
+    finally:
+        client.close()
+    return {"batches": batches, "keys": batches * len(items),
+            "seconds": time.perf_counter() - t0}
+
+
+def _client_hammer(max_s: float) -> dict:
+    """In the client process: the hot rows (_client_hot_write) read back
+    in one batch, again and again (the parent stops it)."""
+    hk, rows = _CLIENT["hot"]
+    return _client_until_stopped([(hk, sk) for sk, _ in rows],
+                                 [v for _, v in rows], max_s, "hot read")
+
+
+def _client_calm(pidx: int, max_s: float, n_keys: int = 512) -> dict:
+    """In the client process: sampled untouched keys of every partition
+    but `pidx`, read back in batches (their loaded values) until the
+    parent stops it: the other partitions' load calms the hot one."""
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.client import PegasusClient
+
+    keys, want = _CLIENT["sampled"]
+    route = PegasusClient(_CLIENT["resolver"])
+    try:
+        picked = [i for i, (hk, sk) in enumerate(keys)
+                  if route._route(generate_key(hk, sk))[0] != pidx][:n_keys]
+    finally:
+        route.close()
+    return _client_until_stopped([keys[i] for i in picked],
+                                 [want[i] for i in picked], max_s,
+                                 "calming read")
 
 
 def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
@@ -2828,12 +3025,13 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
                                                   n_ops, n_threads, n_sample))
         out["run"]["server_gc_pauses"] = gcp.summary()
 
-        def read_back(what):
+        def read_back(what, sample=True):
             batch_size = counters.percentile("read.batch.size")
             batch_size.reset()
             FENCE["fence_lookup"] = 0
             with COMPACT_TRACER.session() as sess, _GcPauses() as gcp:
-                rb = pool.apply(_client_read_back, (what,))
+                rb = pool.apply(_client_read_back, (what,),
+                                {"sample": sample})
             lk = sess.summary().get("read.lookup", {})
             rb = dict(rb, batch_size=batch_size.percentiles(),
                       device_lookup_calls=lk.get("calls", 0),
@@ -2889,7 +3087,10 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
                                   for srv in servers),
             "check_s": check_compaction(servers, kept)}
         shutil.rmtree(os.path.join(work, "pre_compaction"))
-        out["read_back_after_compaction"] = read_back("after the compaction")
+        # its untouched sample read once, after the run (cut for the
+        # clock: the compaction outputs are held to the cpu backend)
+        out["read_back_after_compaction"] = read_back("after the compaction",
+                                                      sample=False)
         if on_card:
             out["peak_device_bytes"] = torch.cuda.max_memory_allocated(
                 device)
@@ -3343,6 +3544,10 @@ CLUSTER_SPLIT_MARGIN_S = 2.0   # writers' time before and after the split
 CLUSTER_DDL_TIMEOUT_S = 1800.0  # one shell DDL over every partition
 CLUSTER_POLL_S = 900.0         # a session or a restore followed to its end
 CLUSTER_CHECK_S = 900.0        # compactions and audits followed to their end
+CLUSTER_COLLECT_S = 1.0        # the collector's round (onebox: 10 s)
+CLUSTER_DETECT_S = 0.5         # its canary's probe (onebox: 2 s)
+HOT_ROWS = 256                 # the residency leg's rows under one hash key
+HOT_DEADLINE_S = 60.0          # its verdict, pin, primes and calm, each
 
 
 def _free_ports(n: int) -> list:
@@ -3358,23 +3563,26 @@ def _free_ports(n: int) -> list:
 
 
 def cluster_ini(work: str, device, fd: dict = None) -> tuple:
-    """onebox.ini cut to one meta and replica1..3 on fixed free ports,
-    data under `work`, compaction_backend = cuda (`device = cpu` when the
-    phase rehearses on the CPU), [failure_detector] as onebox.ini's unless
-    `fd` overrides it; the planes the port does not serve yet (http_port,
-    collector, offload) left out, and the toollets too: a middleware sends
-    every frame per frame, and the read-backs are measured batched. -> (ini path, meta address,
-    {replica name: address})."""
+    """onebox.ini cut to one meta, replica1..3 and the collector on fixed
+    free ports (replica1's http_port too), data under `work`,
+    compaction_backend = cuda (`device = cpu` when the phase rehearses on
+    the CPU), [failure_detector] as onebox.ini's unless `fd` overrides
+    it. The collector's round every CLUSTER_COLLECT_S and its canary's
+    probe every CLUSTER_DETECT_S; its canary table is onebox's `test`
+    (8 partitions x 3), and the scheduler stays off (the scheduler leg
+    runs its ticks in this process). Left out: the offload service, and
+    the toollets (a middleware sends every frame per frame, and the
+    read-backs are measured batched). -> (ini path, meta address,
+    {replica name: address}, {"collector": address, "http_port": n})."""
     import configparser
 
     import torch
 
     cp = configparser.ConfigParser()
     cp.read(os.path.join(ROOT, "onebox.ini"))
-    for sec in ("core", "apps.collector", "apps.compact_offload",
-                "apps.meta2", "apps.meta3"):
+    for sec in ("core", "apps.compact_offload", "apps.meta2", "apps.meta3"):
         cp.remove_section(sec)
-    ports = _free_ports(4)
+    ports = _free_ports(6)
     cp["apps.meta1"]["port"] = str(ports[0])
     cp["apps.meta1"]["state_dir"] = os.path.join(work, "meta")
     meta = f"127.0.0.1:{ports[0]}"
@@ -3383,8 +3591,13 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
         sec = cp[f"apps.replica{i}"]
         sec["port"] = str(ports[i])
         sec["data_dir"] = os.path.join(work, f"replica{i}")
-        sec.pop("http_port", None)
         nodes[f"replica{i}"] = f"127.0.0.1:{ports[i]}"
+    cp["apps.replica1"]["http_port"] = str(ports[4])
+    coll = cp["apps.collector"]
+    coll["port"] = str(ports[5])
+    coll["interval_seconds"] = str(CLUSTER_COLLECT_S)
+    coll["detect_interval_seconds"] = str(CLUSTER_DETECT_S)
+    extra = {"collector": f"127.0.0.1:{ports[5]}", "http_port": ports[4]}
     cp["pegasus.server"]["meta_servers"] = meta
     cp["pegasus.server"]["compaction_backend"] = "cuda"
     if torch.device(device).type != "cuda":
@@ -3394,7 +3607,7 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
     path = os.path.join(work, "cluster.ini")
     with open(path, "w") as f:
         cp.write(f)
-    return path, meta, nodes
+    return path, meta, nodes, extra
 
 
 class _App:
@@ -3953,18 +4166,48 @@ def _sched_status(node: str, gpid: str) -> dict:
                                       [gpid]))[gpid]
 
 
-def _await_rate(node: str, name: str, deadline_s: float = 10.0) -> float:
-    """A rate counter of `node` read until it shows events (a window
-    holding them rolls at a read one second after it opened)."""
-    end = time.monotonic() + deadline_s
-    while True:
-        v = json.loads(_remote_command(node, "perf-counters-by-prefix",
-                                       [name])).get(name, 0)
-        if v > 0:
-            return v
-        if time.monotonic() > end:
-            raise AssertionError(f"{node}: {name} shows no event")
-        time.sleep(0.2)
+class _RatePoller:
+    """Rate counters of nodes, each read every 50 ms by a thread of its
+    own while the context is open, keeping the largest value seen. A
+    read rolls a counter's window once it is a second old and
+    republishes the finished window's rate until the next roll, by any
+    reader: the collector's scrapes roll the same windows every round,
+    so only a reader that never pauses a second sees every window."""
+
+    def __init__(self, probes):
+        import threading
+
+        self.best = {p: 0.0 for p in probes}   # (node, counter) -> max
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._poll, args=(p,),
+                                          daemon=True) for p in probes]
+
+    def _poll(self, probe):
+        node, name = probe
+        while not self._stop.is_set():
+            v = json.loads(_remote_command(node, "perf-counters-by-prefix",
+                                           [name])).get(name, 0)
+            self.best[probe] = max(self.best[probe], v)
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60)
+
+    def wait(self, node: str, name: str, deadline_s: float = 10.0) -> float:
+        """The largest rate seen, waited for until it shows events."""
+        end = time.monotonic() + deadline_s
+        while self.best[(node, name)] <= 0:
+            if time.monotonic() > end:
+                raise AssertionError(f"{node}: {name} shows no event")
+            time.sleep(0.05)
+        return self.best[(node, name)]
 
 
 def _trigger_jobs(node: str, job_ids: set) -> dict:
@@ -4049,26 +4292,31 @@ def check_scheduler(meta: str, addrs: list, names: dict, app_id: int,
 
         pending = {(a, g) for a in addrs for g in urgent[a]}
         rounds, urgent_rate, hot_l0 = 0, {}, 0
-        while pending or hot_l0 < SCHED_TRIGGER:
-            if rounds == SCHED_ROUNDS:
-                raise AssertionError(f"after {rounds} flush rounds: urgent "
-                                     f"replicas not compacted {pending}, "
-                                     f"hot primary L0 {hot_l0}")
-            targets = sorted({g for _, g in pending} | {hot})
-            for g in targets:
-                client.set(markers[int(g.split(".")[1])], b"m", b"1")
-            _parallel(lambda a: _remote_command(
-                a, "flush-memtable", targets, timeout=CLUSTER_CHECK_S), addrs)
-            rounds += 1
-            done = {(a, g) for a, g in pending
-                    if _sched_status(a, g)["l0_files"] == 0}
-            for a in {a for a, _ in done}:
-                urgent_rate[names[a]] = _await_rate(
-                    a, "engine.compact.sched.urgent_count")
-            pending -= done
-            hot_l0 = _sched_status(prim, hot)["l0_files"]
-        deferred_rate = _await_rate(prim,
-                                    "engine.compact.sched.deferred_count")
+        urgent_c = "engine.compact.sched.urgent_count"
+        deferred_c = "engine.compact.sched.deferred_count"
+        # the collector's scrapes roll the same rate windows: read them
+        # all the while
+        with _RatePoller([(a, urgent_c) for a in addrs]
+                         + [(prim, deferred_c)]) as rates:
+            while pending or hot_l0 < SCHED_TRIGGER:
+                if rounds == SCHED_ROUNDS:
+                    raise AssertionError(
+                        f"after {rounds} flush rounds: urgent replicas not "
+                        f"compacted {pending}, hot primary L0 {hot_l0}")
+                targets = sorted({g for _, g in pending} | {hot})
+                for g in targets:
+                    client.set(markers[int(g.split(".")[1])], b"m", b"1")
+                _parallel(lambda a: _remote_command(
+                    a, "flush-memtable", targets,
+                    timeout=CLUSTER_CHECK_S), addrs)
+                rounds += 1
+                done = {(a, g) for a, g in pending
+                        if _sched_status(a, g)["l0_files"] == 0}
+                for a in {a for a, _ in done}:
+                    urgent_rate[names[a]] = rates.wait(a, urgent_c)
+                pending -= done
+                hot_l0 = _sched_status(prim, hot)["l0_files"]
+            deferred_rate = rates.wait(prim, deferred_c)
         if _sched_status(prim, hot)["policy"] != "defer":
             raise AssertionError("the hot primary lost its defer token")
         held_s = time.perf_counter() - t_leg
@@ -4120,6 +4368,174 @@ def check_scheduler(meta: str, addrs: list, names: dict, app_id: int,
                 for a in addrs},
             "lift": {"policy": rep2["delivered"][prim][hot],
                      "l0_after": lifted["l0_files"]}}
+
+
+def _await(what: str, fn, deadline_s: float = HOT_DEADLINE_S,
+           poll_s: float = 0.2):
+    """fn() polled until it returns something true. -> (it, seconds)."""
+    t0 = time.perf_counter()
+    while True:
+        got = fn()
+        if got:
+            return got, time.perf_counter() - t0
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"{what} within {deadline_s} s")
+        time.sleep(poll_s)
+
+
+def check_residency(meta: str, coll: str, pool, progress, addrs: list,
+                    on_card: bool) -> dict:
+    """The collector's closed hotkey loop pins a partition's runs on the
+    card, and the fence-lookup kernel serves its reads:
+
+      1. HOT_ROWS rows written under one new hash key of a partition the
+         loop does not pin now, flushed into a run on each of its
+         replicas (flush-memtable <gpid>), acknowledged;
+      2. the client process reads them back in one batch, again and
+         again, every answer the acknowledged value, until: the
+         collector flags the partition, finds the hot key by
+         detect_hotkey on the primary (its verdict must be that hash key,
+         kind read) and sends set-read-residency on (its
+         collector.app.<t>.hotkey.<p>.device_resident gauge reads 1 only
+         after the primary's reply); then every SST of the primary's node
+         is resident on the card (engine.hbm.resident_ssts equals the
+         replica-disk file count) and engine.hbm.resident_bytes grew;
+      3. the hot reads launched the fence-lookup kernel on the primary
+         (kernel.fence_lookup.launches before and after);
+      4. reads of the other partitions calm it: the loop sends
+         set-read-residency off (the gauge back to 0)."""
+    t_leg = time.perf_counter()
+    cfg = _config(meta, CLUSTER_APP)
+    app_id, n_parts = cfg.app.app_id, cfg.app.partition_count
+    pfx = f"collector.app.{CLUSTER_APP}.hotkey."
+
+    def gauges():
+        return json.loads(_remote_command(coll, "perf-counters-by-prefix",
+                                          [pfx]))
+
+    def hbm(addr):
+        return json.loads(_remote_command(addr, "perf-counters-by-prefix",
+                                          ["engine.hbm."]))
+
+    g0 = gauges()
+    pinned0 = sorted(p for p in range(n_parts)
+                     if g0.get(f"{pfx}{p}.device_resident") == 1)
+    i = 0
+    while True:
+        hk = b"hot-residency-%d" % i
+        pidx = int(_partition_of(np.frombuffer(hk, np.uint8)[None],
+                                 np.array([len(hk)]), n_parts)[0])
+        if pidx not in pinned0:
+            break
+        i += 1
+    pc = cfg.partitions[pidx]
+    prim, gpid = pc.primary, f"{app_id}.{pidx}"
+    hbm0 = hbm(prim)
+    rows = pool.apply(_client_hot_write, (hk, HOT_ROWS))
+    for a in [prim] + list(pc.secondaries):
+        _remote_command(a, "flush-memtable", [gpid], timeout=CLUSTER_CHECK_S)
+    before = _kernel_counts(addrs)
+    progress.value = 0
+    hammer = pool.apply_async(_client_hammer, (4 * HOT_DEADLINE_S,))
+    try:
+        def verdict():
+            if hammer.ready():
+                hammer.get()          # a wrong answer raises here
+            info = json.loads(_remote_command(coll, "collector-info"))
+            return info["hotkeys"].get(CLUSTER_APP, {}).get(str(pidx))
+
+        found, verdict_s = _await("the collector's verdict", verdict)
+        if found["key"] != repr(hk) or found["kind"] != "read":
+            raise AssertionError(f"verdict {found}, hammered {hk!r}")
+        _, pin_s = _await("set-read-residency on", lambda: gauges().get(
+            f"{pfx}{pidx}.device_resident") == 1)
+
+        def all_resident():
+            files = sum(r["sst_files"] for r in json.loads(
+                _remote_command(prim, "replica-disk")).values())
+            h = hbm(prim)
+            return (h, files) if h.get("engine.hbm.resident_ssts") == files \
+                else None
+
+        (hbm1, files), resident_s = _await("every run resident",
+                                           all_resident)
+    finally:
+        progress.value = -1
+        hot = hammer.get(timeout=CLUSTER_CHECK_S)
+        progress.value = 0
+    after = _kernel_counts(addrs)
+    fence = _delta(after, before, "kernel.fence_lookup.launches")
+    if on_card and fence[prim] <= 0:
+        raise AssertionError(f"the hot reads launched no fence kernel on "
+                             f"the primary: {fence}")
+    if hbm1["engine.hbm.resident_bytes"] <= \
+            hbm0.get("engine.hbm.resident_bytes", 0):
+        raise AssertionError(f"resident bytes {hbm0} -> {hbm1}")
+    calm = pool.apply_async(_client_calm, (pidx, 4 * HOT_DEADLINE_S))
+    try:
+        _, calm_s = _await("set-read-residency off", lambda: (
+            calm.get() if calm.ready() else True) and gauges().get(
+            f"{pfx}{pidx}.device_resident") == 0)
+    finally:
+        progress.value = -1
+        calmed = calm.get(timeout=CLUSTER_CHECK_S)
+        progress.value = 0
+    return {"seconds": time.perf_counter() - t_leg, "partition": pidx,
+            "pinned_before": pinned0, "hash_key": hk.decode(), "rows": rows,
+            "verdict": found["key"], "verdict_s": verdict_s,
+            "pin_s": pin_s, "resident_s": resident_s, "calm_s": calm_s,
+            "primary": prim, "primary_ssts": files,
+            "resident_bytes": [hbm0.get("engine.hbm.resident_bytes", 0),
+                               hbm1["engine.hbm.resident_bytes"]],
+            "resident_ssts": hbm1["engine.hbm.resident_ssts"],
+            "budget_bytes": hbm1["engine.hbm.budget_bytes"],
+            "hot_reads": hot, "calming_reads": calmed,
+            "fence_launches": fence}
+
+
+def check_collector(meta: str, coll: str, http_port: int,
+                    availability: dict) -> dict:
+    """The collector's other surfaces: its canary's samples (before the
+    kill, after the restart, now), GET /metrics on replica1's http_port
+    listing engine.hbm.resident_bytes, the shell's `slo <collector>`,
+    `app_stat` and `slow_requests --cluster` answering through it, and
+    its own doctor's verdict."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    info = json.loads(_remote_command(coll, "collector-info"))
+    availability = dict(availability, end=info["availability"])
+    if any(a["samples"] <= 0 for a in availability.values()):
+        raise AssertionError(f"the canary took no samples: {availability}")
+    with urllib.request.urlopen(f"http://127.0.0.1:{http_port}/metrics",
+                                timeout=60) as r:
+        metrics = r.read().decode()
+    if "\nengine_hbm_resident_bytes " not in metrics:
+        raise AssertionError("/metrics lists no engine.hbm.resident_bytes")
+    slo = json.loads(_shell(meta, f"slo {coll}"))
+    verdicts = next(iter(slo.values()))
+    if CLUSTER_APP not in verdicts:
+        raise AssertionError(f"slo named no {CLUSTER_APP}: {slo}")
+    stat = _shell(meta, "app_stat").strip().splitlines()
+    row = next((ln.split() for ln in stat[1:]
+                if ln.split()[0] == CLUSTER_APP), None)
+    if row is None:
+        raise AssertionError(f"app_stat: {stat}")
+    slow = json.loads(_shell(meta, "slow_requests --cluster 5"))
+    doctor = json.loads(_remote_command(coll, "cluster-doctor", ["0"],
+                                        timeout=CLUSTER_CHECK_S))
+    return {"seconds": time.perf_counter() - t0,
+            "availability": availability,
+            "metrics_lines": metrics.count("\n"),
+            "slo": {t: {k: v[k] for k in ("verdict", "fast_burn",
+                                          "slow_burn", "requests_fast",
+                                          "errors_fast")}
+                    for t, v in verdicts.items()},
+            "app_stat": dict(zip(stat[0].split()[1:], map(float, row[1:]))),
+            "slow_requests": len(slow),
+            "hotspots": info["hotspots"], "hotkeys": info["hotkeys"],
+            "doctor": {"verdict": doctor["verdict"],
+                       "causes": [c["cause"] for c in doctor["causes"]][:8]}}
 
 
 def check_lockrank(path: str, graphs: dict) -> dict:
@@ -4206,7 +4622,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
     on_card = torch.device(device).type == "cuda"
     os.makedirs(work, exist_ok=True)
-    ini, meta, node_addr = cluster_ini(work, device, fd)
+    ini, meta, node_addr, extra = cluster_ini(work, device, fd)
+    coll = extra["collector"]
     names = {a: n for n, a in node_addr.items()}
     addrs = list(node_addr.values())
     out = {"config": "BASELINE #3: YCSB workload-A (50/50 read/update), "
@@ -4258,6 +4675,10 @@ def run_cluster(device, work: str, provider: str, counts: list,
             if time.monotonic() > deadline:
                 raise AssertionError(f"nodes never beaconed: {r.nodes}")
             time.sleep(0.2)
+        # the collector once every node is alive: its canary table gets
+        # its 3 replicas
+        apps["collector"] = _App(ini, "collector", work, env=lock_env)
+        apps["collector"].wait_started(deadline)
         out["boot_s"] = time.perf_counter() - t0
         step("booted")
 
@@ -4316,7 +4737,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
             for a in addrs:
                 for g, ent in json.loads(
                         _remote_command(a, "query-audit", timeout=300)).items():
-                    applied[(a, g)] = ent["applied"]
+                    if g.startswith(f"{app_id}."):   # not the canary's
+                        applied[(a, g)] = ent["applied"]
             if len(applied) == 3 * n_parts and min(applied.values()) >= 1:
                 break
             if time.monotonic() > deadline + 600:
@@ -4361,6 +4783,7 @@ def run_cluster(device, work: str, provider: str, counts: list,
         victim = t_kill = t_restart = t_full = None
         led = []
         mem_before_kill = None
+        canary = {}
         while not res.ready():
             for name, app in apps.items():
                 if not app.alive() and not (name == victim
@@ -4381,6 +4804,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 apps[victim].proc.send_signal(signal.SIGKILL)
                 apps[victim].proc.wait()
                 t_kill = time.time()
+                canary["at_kill"] = json.loads(_remote_command(
+                    coll, "collector-info"))["availability"]
             elif t_kill is not None and t_restart is None and \
                     n_done >= restart_at:
                 cfg = _config(meta, CLUSTER_APP)
@@ -4392,6 +4817,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
                     apps[victim].start()
                     apps[victim].wait_started(time.monotonic() + 300)
                     t_restart = time.time()
+                    canary["after_restart"] = json.loads(_remote_command(
+                        coll, "collector-info"))["availability"]
             elif t_restart is not None and t_full is None:
                 cfg = _config(meta, CLUSTER_APP)
                 if all(len(pc.secondaries) == 2 for pc in cfg.partitions):
@@ -4441,6 +4868,11 @@ def run_cluster(device, work: str, provider: str, counts: list,
                                  "fence-lookup kernel")
         out["read_back"] = rb
         step("read back")
+        out["residency"] = check_residency(meta, coll, pool, progress,
+                                           addrs, on_card)
+        out["collector"] = check_collector(meta, coll, extra["http_port"],
+                                           canary)
+        step("residency leg")
         out["traces"] = check_traces(meta, addrs, CLUSTER_APP, n_parts)
         out["tables"] = check_tables(meta, CLUSTER_APP, run["ops_done"])
         step("traces and tables checked")
@@ -4549,7 +4981,10 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
         if lifecycle:
             before = _kernel_counts(addrs)
-            rb = pool.apply(_client_read_back, ("cluster after the split",))
+            # the updated keys only (cut for the clock): the untouched
+            # sample was read before the split and from the restore
+            rb = pool.apply(_client_read_back, ("cluster after the split",),
+                            {"sample": False})
             after = _kernel_counts(addrs)
             rb["fence_launches"] = _delta(after, before,
                                           "kernel.fence_lookup.launches")
@@ -4591,7 +5026,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
         shutil.rmtree(snap)
         out["compaction"].update(check_s=checked.pop("seconds"), **checked)
         table_records = (sum(counts) + len(markers)
-                         + out["traces"]["keys_written"])
+                         + out["traces"]["keys_written"]
+                         + out["residency"]["rows"])
         if lifecycle and sum(checked["records_by_pidx"].values()) \
                 != table_records:
             raise AssertionError(f"the primaries hold "
@@ -4660,6 +5096,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
             names[a]: c for a, c in _kernel_counts(addrs).items()}
         lock_graphs = {names[a]: json.loads(_remote_command(
             a, "perf-counters-by-prefix", ["lockrank."])) for a in addrs}
+        out["collector_lockrank"] = json.loads(_remote_command(
+            coll, "perf-counters-by-prefix", ["lockrank."]))
         if on_card:
             # this script's own process holds a context on the card too
             out["device_mib"] = {
@@ -4840,6 +5278,8 @@ def main(argv=()) -> int:
         # the kernel on the phase's own resident runs: the 10 M-record
         # compaction output, checked against the plain version and timed
         reads["fence_lookup_own"] = fence_on_engine(eng)
+        reads["headroom"] = check_headroom(device,
+                                           os.path.join(work, "headroom"))
         emit("reads", **reads)
         eng.close()
         del eng
@@ -4965,10 +5405,13 @@ def main(argv=()) -> int:
     life = cluster["lifecycle"]
     fence_launches = {
         "reads": reads["fence_launches"],
+        "reads_headroom_pinned": reads["headroom"]["fence_launches"],
         "serve": sum(serve[k]["fence_launches"] for k in (
             "read_back_after_run", "read_back_after_compaction")),
         "replicate": replicate["read_back"]["fence_launches"],
         "cluster": sum(cluster["read_back"]["fence_launches"].values()),
+        "cluster_residency_pinned": sum(
+            cluster["residency"]["fence_launches"].values()),
         "cluster_split_read_back": sum(
             life["split_read_back"]["fence_launches"].values()),
         "cluster_restore_read_back": sum(

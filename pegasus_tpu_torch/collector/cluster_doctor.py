@@ -588,8 +588,8 @@ def _check_quarantine(state, causes, evidence) -> None:
 def _check_slo(causes, evidence) -> None:
     """Tenant SLO verdicts: a table whose burn rate says `burning` is a
     degraded cause naming the table. The verdicts are the ones this
-    process evaluated last; a process that never evaluates SLOs (every
-    port process, until the evaluator is ported) adds nothing."""
+    process evaluated last (the collector is the evaluator); a process
+    that never evaluates SLOs adds nothing."""
     from .info_collector import latest_slo
 
     verdicts = latest_slo()

@@ -42,8 +42,9 @@ timing; it never blocks it.
 
 The port has no lane guard, so a port node exports no
 ``compact.lane.breaker_open``: the tick's breaker scrape reads False for
-it. The collector role that hosts the loop is not ported yet (ROADMAP
-Queue 1), so callers run ticks in their own process.
+it. The collector role (runtime/service_app.py CollectorApp) hosts the
+loop under ``PEGASUS_SCHED=1``; a caller may also run ticks in its own
+process.
 """
 
 import json
@@ -447,8 +448,8 @@ class CompactScheduler:
     """The control loop: one ``run_scheduler_tick`` per interval, the hot
     read partitions (`hot_fn`) and the slow-request rollup's size
     (`slow_fn`) wired into the fold; ``status()`` is the last round's
-    report. The reference's collector role constructs it under
-    ``PEGASUS_SCHED=1``; that role is not ported yet."""
+    report. The collector role constructs it under
+    ``PEGASUS_SCHED=1``."""
 
     def __init__(self, meta_addrs, pool=None, interval_seconds: float = None,
                  hot_fn=None, slow_fn=None):

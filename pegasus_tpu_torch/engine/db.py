@@ -103,6 +103,46 @@ DEVICE_READ_MIN_BATCH = 2
 DIGEST_OVERLAY_MAX = 4096
 
 
+class _HbmGauges:
+    """Process-wide device-residency accounting behind the
+    `engine.hbm.budget_bytes` / `engine.hbm.resident_bytes` /
+    `engine.hbm.resident_ssts` gauges on /metrics (the reference's names):
+    each cuda-backend engine (one per partition) reports its budget and
+    usage here at open and on every prime and release, and the gauges
+    publish the process sums. Leaf lock: never takes an engine lock
+    (callers may hold theirs)."""
+
+    def __init__(self):
+        self._lock = lockrank.named_lock("engine.hbm_gauges")
+        # id(engine) -> (budget, used_bytes, ssts)
+        self._per_engine = {}  #: guarded_by self._lock
+
+    def _publish_locked(self):  #: requires self._lock
+        vals = list(self._per_engine.values())
+        counters.number("engine.hbm.budget_bytes").set(
+            sum(v[0] for v in vals))
+        counters.number("engine.hbm.resident_bytes").set(
+            sum(v[1] for v in vals))
+        counters.number("engine.hbm.resident_ssts").set(
+            sum(v[2] for v in vals))
+
+    def update(self, engine) -> None:
+        with self._lock:
+            self._per_engine[id(engine)] = (
+                engine.opts.device_cache_bytes,
+                engine._device_cache_used,
+                engine._device_resident_ssts)
+            self._publish_locked()
+
+    def drop(self, engine) -> None:
+        with self._lock:
+            self._per_engine.pop(id(engine), None)
+            self._publish_locked()
+
+
+HBM_GAUGES = _HbmGauges()
+
+
 class _SchedGate:
     """Per-node cap on concurrent device compactions: the cluster
     compaction scheduler bounds how many device merges run at once in
@@ -252,6 +292,11 @@ class LsmEngine:
         self._compaction_lock = lockrank.named_rlock("engine.compaction")
         self._device_cache_used = 0     # bytes pinned by resident runs
         self._device_resident_ssts = 0
+        # read-residency flag (the collector's hotkey loop drives it
+        # through the set-read-residency remote command): a read-hot
+        # partition keeps its SSTs primed so its batched reads probe the
+        # card, and may fill its whole device budget
+        self._read_hot = False         #: guarded_by self._lock
         # async primes: waiters on another thread's in-flight prime of
         # the same file; the first device failure of an async prime,
         # raised to the next flush, compaction or close
@@ -314,6 +359,8 @@ class LsmEngine:
         self.table_ledger = None
         os.makedirs(path, exist_ok=True)
         self._load_manifest()
+        if self.opts.backend == "cuda":
+            HBM_GAUGES.update(self)  # budget visible before the first prime
 
     # ------------------------------------------------------------------ meta
 
@@ -511,6 +558,25 @@ class LsmEngine:
         """Batched reads probe resident runs on the device (the cuda
         backend); the server's read coalescers batch only then."""
         return self.opts.backend == "cuda"
+
+    def set_read_residency(self, on: bool) -> None:
+        """Read-residency policy hook (the collector's hotkey loop drives
+        it through the set-read-residency remote command): a read-hot
+        partition primes every current SST onto the card, on the pipeline
+        pool, and may fill its whole device budget, where a cold
+        partition's primes stop at 7/8 of it (the headroom this pin
+        claims; see _device_run_budgeted). Off only clears the flag:
+        resident runs stay (compaction still wants them) and age out
+        through the merge lifecycle. A pinned prime's device failure is
+        kept and raised like any async prime's."""
+        with self._lock:
+            # under the engine lock: _device_run_budgeted reads the flag
+            # to size the prime budget
+            self._read_hot = bool(on)
+            ssts = self._all_ssts_locked() \
+                if on and self.opts.backend == "cuda" else []
+        for sst in ssts:
+            self._prime_async(sst)
 
     def get(self, key: bytes, now: int = None):
         """-> value bytes, or None (missing / deleted / expired).
@@ -1167,11 +1233,12 @@ class LsmEngine:
             if cached is not None and (not want_values
                                        or cached.val2d is not None):
                 return cached
-            # primes stop at 7/8 of the budget: the reference's rule for
-            # a partition that is not read-hot, keeping headroom for a
-            # read-residency pin (read residency is not ported)
+            # a partition that is not read-hot stops priming at 7/8 of
+            # its budget, keeping headroom that the hotkey loop's
+            # set-read-residency pin claims
             budget = self.opts.device_cache_bytes
-            budget -= budget >> 3
+            if not self._read_hot:
+                budget -= budget >> 3
             if self._device_cache_used >= budget:
                 return cached
             sst._prime_inflight = True
@@ -1191,6 +1258,7 @@ class LsmEngine:
                     if not sst._device_budgeted:
                         self._device_resident_ssts += 1
                     sst._device_budgeted = True
+                    HBM_GAUGES.update(self)
             return dr
         finally:
             with self._lock:
@@ -1223,6 +1291,7 @@ class LsmEngine:
             if sst._device_run is not None and sst._device_budgeted:
                 self._device_cache_used -= sst._device_run.nbytes()
                 self._device_resident_ssts -= 1
+                HBM_GAUGES.update(self)
             sst._device_budgeted = False
             sst._device_run = None
 
@@ -1950,6 +2019,7 @@ class LsmEngine:
             ssts = self._all_ssts_locked()
         for s in ssts:
             self._release_device_run(s)
+        HBM_GAUGES.drop(self)
         self._raise_prime_failure()
 
     # ------------------------------------------------------------- statistics
@@ -1978,6 +2048,7 @@ class LsmEngine:
                 "last_durable_decree": self.last_durable_decree(),
                 "device_resident_bytes": self._device_cache_used,
                 "device_resident_ssts": self._device_resident_ssts,
+                "read_hot": self._read_hot,
             }
 
 

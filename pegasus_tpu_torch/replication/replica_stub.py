@@ -25,10 +25,14 @@ installs its policy tokens, placements and the node's device-compaction
 cap; `compact-sched-status` reads them back with each replica's debt;
 the maintenance loop pokes at most one held L0 trigger per tick.
 
+The collector's hotkey loop reaches a partition through
+`detect_hotkey` (the server's hotkey collector) and pins a read-hot
+partition's runs on the card with `set-read-residency`.
+
 Not ported yet (ROADMAP Queue 1): partition groups (a group_spec raises,
 naming the module; the socket adoption loop, and with it the scheduler's
 per-group split of the device cap), duplication, quarantine and
-scrub-replica, set-read-residency and detect_hotkey.
+scrub-replica.
 """
 
 import json
@@ -213,6 +217,9 @@ class ReplicaStub:
                                self._cmd_batched_manual_compact)
         self.commands.register("replica-disk", self._cmd_replica_disk)
         self.commands.register("query-compact-state", self._cmd_compact_state)
+        self.commands.register("detect_hotkey", self._cmd_detect_hotkey)
+        self.commands.register("set-read-residency",
+                               self._cmd_set_read_residency)
         self.commands.register("flush-log", self._cmd_flush_log)
         self.commands.register("flush-memtable", self._cmd_flush_memtable)
         self.commands.register("trigger-audit", self._cmd_trigger_audit)
@@ -840,6 +847,37 @@ class ReplicaStub:
         return "\n".join(
             f"{a}.{p}: {rep.server.manual_compact_service.query_compact_state()}"
             for (a, p), rep in targets)
+
+    def _cmd_detect_hotkey(self, args: list) -> str:
+        """detect_hotkey <app_id.pidx> <read|write> <start|stop|query>."""
+        if len(args) < 3:
+            return ("usage: detect_hotkey <app_id.pidx> <read|write> "
+                    "<start|stop|query>")
+        gpid, kind, action = args[0], args[1], args[2]
+        a, _, p = gpid.partition(".")
+        with self._lock:
+            rep = self._replicas.get((int(a), int(p)))
+        if rep is None:
+            return f"no replica {gpid}"
+        return rep.server.on_detect_hotkey(kind, action)
+
+    def _cmd_set_read_residency(self, args: list) -> str:
+        """set-read-residency <app_id.pidx> <on|off>: pin or unpin one
+        partition's SSTs on the card for its batched reads (the
+        collector's hotkey loop drives this from read-hot verdicts). On a
+        cuda node the pin primes on the card; a failed prime raises to
+        the next read that needs the run."""
+        if len(args) < 2 or args[1] not in ("on", "off"):
+            return "usage: set-read-residency <app_id.pidx> <on|off>"
+        gpid = args[0]
+        a, _, p = gpid.partition(".")
+        with self._lock:
+            rep = self._replicas.get((int(a), int(p)))
+        if rep is None:
+            return f"no replica {gpid}"
+        on = args[1] == "on"
+        rep.server.engine.set_read_residency(on)
+        return f"read residency {'on' if on else 'off'} for {gpid}"
 
     def _cmd_trigger_audit(self, args: list) -> str:
         """trigger-audit <app_id.pidx> [audit_id] [now=<epoch>]: ride a

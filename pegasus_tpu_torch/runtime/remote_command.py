@@ -3,11 +3,9 @@
 Port of pegasus_tpu/runtime/remote_command.py. A server registers its
 commands and serves them on the RPC_CLI_CLI_CALL task code; the request
 and response messages are the JAX package's, so its shell and
-collectors query a port service as they query their own. Only the
-commands whose machinery the port has are registered by default: the
-JAX package's defaults except `slo-status` (its evaluator is the
-collector, not ported yet). The structural commands answer JSON keyed
-by this process's pid, as the JAX package's do.
+collectors query a port service as they query their own. The default
+commands are the JAX package's. The structural commands answer JSON
+keyed by this process's pid, as the JAX package's do.
 """
 
 import json
@@ -64,6 +62,7 @@ class RemoteCommandService:
         self.register("slow-requests", self._cmd_slow_requests)
         self.register("job-trace", self._cmd_job_trace)
         self.register("table-stats", self._cmd_table_stats)
+        self.register("slo-status", self._cmd_slo_status)
         if describe is not None:
             self.register("describe",
                           lambda a: json.dumps(describe(), indent=1))
@@ -153,6 +152,15 @@ class RemoteCommandService:
         from .table_stats import TABLE_STATS
 
         return json.dumps({f"pid:{os.getpid()}": TABLE_STATS.snapshot()})
+
+    @staticmethod
+    def _cmd_slo_status(args) -> str:
+        """slo-status: the per-table SLO burn-rate verdicts this process
+        computed last ({} on nodes that never evaluate SLOs: the
+        collector is the evaluator), keyed by this process's pid."""
+        from ..collector.info_collector import latest_slo
+
+        return json.dumps({f"pid:{os.getpid()}": latest_slo()})
 
     @staticmethod
     def _cmd_events_dump(args) -> str:

@@ -4,17 +4,16 @@
 
 Starts every [apps.<name>] section that --app selects (comma-separated;
 default: every section whose `run` is true, as in pegasus_tpu). The port
-serves `type = meta`, `replica` and `compact_offload`
-(runtime/service_app.py); `collector` raises (ROADMAP Queue 1 item 9).
-The onebox is
+serves `type = meta`, `replica`, `collector` and `compact_offload`
+(runtime/service_app.py). The onebox is
 
-    python -m pegasus_tpu_torch.server --config <ini> \\
-        --app meta1,meta2,meta3,replica1,replica2,replica3
+    python -m pegasus_tpu_torch.server --config onebox.ini
 
-with the replicas on fixed ports (a node's address is its identity to
-the meta). Prints one `[pegasus-tpu] app <name> started <addr>` line per
-app, then serves until SIGINT or SIGTERM, and stops every app before it
-exits.
+(three metas, three replicas with an http_port on replica1, and the
+collector), with the replicas on fixed ports (a node's address is its
+identity to the meta). Prints one `[pegasus-tpu] app <name> started
+<addr>` line per app, then serves until SIGINT or SIGTERM, and stops
+every app before it exits.
 """
 
 import argparse
@@ -55,8 +54,7 @@ def main(argv=None) -> int:
         if type_name not in APP_TYPES:
             raise ValueError(
                 f"app {name!r} has type {type_name!r}: the port serves "
-                f"{', '.join(sorted(APP_TYPES))}; the collector comes with "
-                f"ROADMAP Queue 1 item 9")
+                f"{', '.join(sorted(APP_TYPES))}")
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

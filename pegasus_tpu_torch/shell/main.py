@@ -9,13 +9,15 @@ cluster info, table DDL, nodes, data ops (set/get/del/multi_*/ttl/incr/
 scans/count_data/copy_data), app envs and manual compaction, remote
 commands and counters, the traces, jobs and table ledgers, the
 consistency audit, the cluster doctor, the compaction scheduler's tokens,
-backup and restore, backup policies, bulk-load sessions, the meta level
-and the offline debuggers. The shell runs the audit and the doctor in its
-own process (collector/cluster_doctor.py), as the reference's does.
+hotkey detection, SLO verdicts, app stats, backup and restore, backup
+policies, bulk-load sessions, the meta level and the offline debuggers.
+The shell runs the audit, the doctor, `app_stat`'s collection round and
+`slow_requests --cluster`'s rollup in its own process, as the
+reference's does; `slo <collector>` reads the collector's verdicts.
 
-A command whose plane the port does not have yet (the collector's SLOs
-and hotkeys, the flight recorder, duplication, balance, recover,
-ddd_diagnose, ...) prints one error line naming the missing module and, in
+A command whose plane the port does not have yet (the flight recorder,
+duplication, balance, recover, ddd_diagnose, ...) prints one error line
+naming the missing module and, in
 one-shot mode, exits non-zero. The reference shell has no split command:
 a split is the RPC_CM_START_PARTITION_SPLIT DDL.
 """
@@ -47,10 +49,6 @@ NOT_PORTED = {
     "scrub_replica": "quarantine and scrub "
                      "(replication/replica_stub.py scrub-replica)",
     "flight_recorder": "the flight recorder (collector/flight_recorder.py)",
-    "slo": "the collector's SLO evaluation "
-           "(collector/info_collector.py slo-status)",
-    "detect_hotkey": "hotkey detection "
-                     "(replication/replica_stub.py detect_hotkey)",
     "cross_cluster_audit": "duplication (replication/duplicator.py)",
     "propose": "balance (meta/meta_server.py RPC_CM_PROPOSE_BALANCER)",
     "balance": "balance (meta/meta_server.py RPC_CM_START_BALANCE)",
@@ -62,7 +60,6 @@ NOT_PORTED = {
     "set_dup_fail_mode": "duplication (replication/duplicator.py)",
     "recover": "recover (meta/meta_server.py RPC_CM_START_RECOVERY)",
     "ddd_diagnose": "ddd_diagnose (meta/meta_server.py RPC_CM_DDD_DIAGNOSE)",
-    "app_stat": "the collector (collector/info_collector.py)",
 }
 
 
@@ -161,8 +158,9 @@ class Shell:
                               "request traces (client/rpc/replication/engine "
                               "stage timelines)"),
             "slow_requests": (self.cmd_slow_requests,
-                              "slow_requests [node] [last] — the "
-                              "slow-request ledger"),
+                              "slow_requests [node|--cluster] [last] — the "
+                              "slow-request ledger; --cluster merges every "
+                              "node's ledger into one worst-first top-N"),
             "job_trace": (self.cmd_job_trace,
                           "job_trace [node] [last|<job-id>] — background-"
                           "job timelines (compaction/offload/learn/dup "
@@ -191,11 +189,11 @@ class Shell:
                        "ledgers (ops/latency/bytes/throttle/device/HBM) "
                        "+ top-k capacity attribution, from every alive "
                        "node's table-stats"),
-            "slo": (self._not_ported("slo"),
+            "slo": (self.cmd_slo,
                     "slo [node] — per-table SLO burn-rate verdicts "
                     "(ok|warn|burning + named evidence) from every "
                     "node's slo-status (the collector evaluates)"),
-            "detect_hotkey": (self._not_ported("detect_hotkey"),
+            "detect_hotkey": (self.cmd_detect_hotkey,
                               "detect_hotkey <node> <app_id.pidx> <read|write> <start|stop|query>"),
             "set_fail_point": (self.cmd_set_fail_point,
                                "set_fail_point <node|all> <name> <action> — "
@@ -257,7 +255,7 @@ class Shell:
                         "timeout [ms] — get/set the data-op client timeout"),
             "hash": (self.cmd_hash,
                      "hash <hk> <sk> — partition hash + routed pidx"),
-            "app_stat": (self._not_ported("app_stat"),
+            "app_stat": (self.cmd_app_stat,
                          "per-app qps/cu aggregates scraped from primaries"),
             "app_disk": (self.cmd_app_disk,
                          "app_disk [app] — per-replica disk usage by node"),
@@ -699,13 +697,43 @@ class Shell:
 
     def cmd_slow_requests(self, args):
         if args and args[0] == "--cluster":
-            raise NotPorted("slow_requests --cluster: not ported to "
-                            "pegasus_tpu_torch yet (needs the collector's "
-                            "rollup, collector/info_collector.py)")
-        if args:
+            from ..collector.info_collector import rollup_slow_requests
+
+            last = int(args[1]) if len(args) > 1 else 20
+            nodes = [n.address for n in self._nodes() if n.alive]
+            merged = rollup_slow_requests(
+                lambda n: self._node_command(n, "slow-requests", [str(last)]),
+                nodes, last=last)
+            self.p(json.dumps(merged, indent=1))
+        elif args:
             self.p(self._node_command(args[0], "slow-requests", args[1:]))
         else:
             self.cmd_remote_command(["all", "slow-requests"])
+
+    def cmd_slo(self, args):
+        if args:
+            self.p(self._node_command(args[0], "slo-status", args[1:]))
+            return
+        merged = {}
+        for node in [n.address for n in self._nodes() if n.alive]:
+            try:
+                reply = json.loads(self._node_command(node, "slo-status", []))
+            except ValueError:
+                continue
+            if isinstance(reply, dict):
+                for verdicts in reply.values():
+                    if isinstance(verdicts, dict):
+                        merged.update(verdicts)
+        self.p(json.dumps(merged, indent=1))
+        burning = sorted(t for t, v in merged.items()
+                         if isinstance(v, dict)
+                         and v.get("verdict") == "burning")
+        if burning:
+            self.p("BURNING: " + ", ".join(burning))
+
+    def cmd_detect_hotkey(self, args):
+        node, rest = args[0], args[1:]
+        self.p(self._node_command(node, "detect_hotkey", rest))
 
     def cmd_tables(self, args):
         k = int(args[0]) if args else 5
@@ -950,6 +978,21 @@ class Shell:
             n = self._client().resolver.partition_count
             line += f"  partition: {h % n} (of {n})"
         self.p(line)
+
+    def cmd_app_stat(self, args):
+        from ..collector.info_collector import InfoCollector
+
+        coll = InfoCollector(self.meta_addrs)
+        try:
+            summary = coll.collect_once()
+        finally:
+            coll.stop()
+        hdr = ["get_qps", "put_qps", "multi_get_qps", "scan_qps",
+               "recent_read_cu", "recent_write_cu"]
+        self.p(f"{'app':<16} " + " ".join(f"{h:>15}" for h in hdr))
+        for app, agg in sorted(summary.items()):
+            self.p(f"{app:<16} " + " ".join(f"{agg.get(h, 0):>15.1f}"
+                                            for h in hdr))
 
     def cmd_app_disk(self, args):
         want_app = args[0] if args else None

@@ -418,8 +418,8 @@ def _free_ports(n):
 def _onebox_ini(tmp_path) -> str:
     """onebox.ini with its metas and replicas on free fixed ports and
     paths under tmp_path, the cpu backend, fast beacons, and without the
-    planes the port does not serve yet (toollets, http_port, collector,
-    offload)."""
+    toollets, http_port, the collector and the offload service (the
+    whole onebox boots in tests/test_torch_collector_role.py)."""
     cp = configparser.ConfigParser()
     cp.read(os.path.join(ROOT, "onebox.ini"))
     for sec in ("core", "apps.collector", "apps.compact_offload"):

@@ -80,7 +80,9 @@ def test_source_walk_covers_the_package():
                 "runtime/toollets.py", "collector/__init__.py",
                 "collector/cluster_doctor.py",
                 "collector/compact_scheduler.py",
-                "collector/info_collector.py"):
+                "collector/info_collector.py",
+                "collector/available_detector.py",
+                "collector/reporter.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
 
 

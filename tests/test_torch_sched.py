@@ -305,7 +305,10 @@ def test_engine_without_token_writes_the_reference_bytes(tmp_path):
     lapsed converges to the same digest and reads."""
     a = _Pair(tmp_path, trigger=2, name="a")
     b = _Pair(tmp_path, trigger=2, name="b")
-    b.token("defer", ttl_s=0.2)
+    # the lease outlives the rounds however slow the host is, and lapses
+    # for both of b's engines at one round boundary: a wall-clock lease
+    # that ran out between b's port and reference flush split their L0
+    b.token("defer", ttl_s=60)
     rows = [(_key(i), b"val%d" % i) for i in range(40)]
     for i, (k, v) in enumerate(rows):
         for e in a.both + b.both:
@@ -315,7 +318,7 @@ def test_engine_without_token_writes_the_reference_bytes(tmp_path):
                 e.flush()
             a.l0()
             b.l0()
-    time.sleep(0.25)
+    b.token("defer", ttl_s=0)
     for e in a.both + b.both:
         e.flush()
     for e in b.both:

@@ -54,6 +54,20 @@ def test_engine_phases_at_tiny_size(tmp_path):
         eng.close()
 
 
+def test_headroom_check_at_tiny_size(tmp_path):
+    """The reads phase's headroom check on device="cpu": unpinned, the
+    primes stop a run short at 7/8 of a budget one byte above the runs;
+    pinned, every run is resident and the batched reads, each run probed
+    on the device lanes, equal the cpu backend's (it raises otherwise)."""
+    rep = chip_smoke.check_headroom("cpu", str(tmp_path), rows=300)
+    assert rep["unpinned"]["runs"] == rep["runs"] - 1
+    assert rep["cap_bytes"] <= rep["unpinned"]["bytes"] < rep["budget_bytes"]
+    assert rep["pinned"] == dict(rep["pinned"], runs=rep["runs"],
+                                 bytes=rep["budget_bytes"] - 1)
+    assert rep["device_lookups"] == rep["runs"]
+    assert rep["get_hits"] == 4096
+
+
 def test_levels_phase_at_tiny_size(tmp_path):
     """The L0 + cascade phase at depths 1 and 2 on device="cpu", in two
     rounds: each level's files digest-equal to the cpu backend engine's
@@ -267,8 +281,9 @@ def test_serve_phase_at_tiny_size(tmp_path):
     """The partition data plane on device="cpu": raw sets bulk-loaded into
     4 partitions through RPC_BULK_LOAD_INGEST, a zipfian 50/50 run from 4
     client threads (every read the loaded or an issued value), read-back
-    of every updated and a sample of untouched keys before and after a
-    manual compaction of every partition through update_app_envs, each
+    of every updated key and a sample of untouched keys before a manual
+    compaction of every partition through update_app_envs, of every
+    updated key after it, each
     partition's ingested run and compaction output held to the cpu
     backend (run_serve raises on any mismatch)."""
     rep = chip_smoke.run_serve("cpu", str(tmp_path), n_records=6000,
@@ -278,8 +293,11 @@ def test_serve_phase_at_tiny_size(tmp_path):
     assert rep["ingest_check_s"] > 0 and rep["compaction"]["check_s"] > 0
     assert rep["run"]["ops_done"] == 600 and rep["run"]["keys_updated"] > 0
     assert rep["compaction"]["l0_files_after"] == 0
-    for tag in ("read_back_after_run", "read_back_after_compaction"):
-        assert rep[tag]["sampled_keys"] == 300
+    # the untouched sample is read once, after the run (the second
+    # read-back's sample is cut for the chip clock)
+    for tag, sampled in (("read_back_after_run", 300),
+                         ("read_back_after_compaction", 0)):
+        assert rep[tag]["sampled_keys"] == sampled
         assert rep[tag]["updated_keys"] == rep["run"]["keys_updated"]
         assert rep[tag]["server_gc_pauses"]["count"] >= 0
 
@@ -422,6 +440,25 @@ def test_cluster_phase_at_tiny_size(tmp_path):
     assert all(n > 0 for n in sched["urgent_tokens"].values())
     assert all(j["urgent"] >= sched["urgent_tokens"][n]
                for n, j in sched["urgent_jobs"].items())
+    # the collector role: the hammered hash key's verdict pinned its
+    # partition, every run of the primary's node resident (the cuda
+    # backend's plain versions on the CPU), calmed and released; the
+    # canary sampled through the kill and the restart
+    res = rep["residency"]
+    assert res["verdict"] == repr(res["hash_key"].encode())
+    assert res["partition"] not in res["pinned_before"]
+    assert res["resident_ssts"] >= res["primary_ssts"] > 0
+    assert res["resident_bytes"][1] > res["resident_bytes"][0]
+    assert res["hot_reads"]["batches"] > 0
+    assert res["calming_reads"]["batches"] > 0
+    col = rep["collector"]
+    assert set(col["availability"]) == {"at_kill", "after_restart", "end"}
+    assert all(a["samples"] > 0 for a in col["availability"].values())
+    assert col["slo"]["usertable"]["verdict"] in ("ok", "warn", "burning")
+    assert set(col["app_stat"]) == {"get_qps", "put_qps", "multi_get_qps",
+                                    "scan_qps", "recent_read_cu",
+                                    "recent_write_cu"}
+    assert col["doctor"]["verdict"] in ("healthy", "degraded")
 
 
 def test_cluster_lifecycle_at_tiny_size(tmp_path):
@@ -454,7 +491,10 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     assert split["seed_s"]["secondary"]["learns"] == 8
     assert rep["compaction"]["partition_mask"] == 7
     assert rep["compaction"]["gc_dropped_rows"] > 0
-    assert life["split_read_back"]["sampled_keys"] > 0
+    # the split read-back reads the updated keys (its sample is cut for
+    # the chip clock)
+    assert life["split_read_back"]["updated_keys"] > 0
+    assert life["split_read_back"]["sampled_keys"] == 0
     assert rep["audit"]["replicas"] == 24
     assert rep["doctor"]["audit_checked"] == 8
     assert rep["sched"]["lift"]["l0_after"] == 0

@@ -19,6 +19,7 @@ import json
 import os
 import threading
 import time
+import urllib.request
 
 import pytest
 
@@ -531,5 +532,16 @@ def test_core_toollets_no_longer_refused_http_port_still_is(tmp_path):
         assert len(app.rpc._middlewares) == 2
     finally:
         app.stop()
-    with pytest.raises(ValueError, match="http_port"):
-        MetaApp("meta", Config(text=ini + "http_port = 0\n"), "apps.meta")
+    # http_port is served now: the meta's reporter answers /metrics and
+    # its routes; serve groups are still refused, by name
+    app = MetaApp("meta", Config(text=ini + "http_port = 0\n"), "apps.meta")
+    app.start()
+    try:
+        host, port = app.reporter.address
+        with urllib.request.urlopen(f"http://{host}:{port}/version",
+                                    timeout=10) as r:
+            assert json.loads(r.read())["server_type"] == "meta"
+    finally:
+        app.stop()
+    with pytest.raises(ValueError, match="serve_groups"):
+        MetaApp("meta", Config(text=ini + "serve_groups = 2\n"), "apps.meta")
