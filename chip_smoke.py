@@ -114,7 +114,7 @@ exits non-zero before printing any result. Phases, one JSON line each:
               value) bulk-loaded from 4 unsorted raw sets per partition,
               one RPC_BULK_LOAD_INGEST each (>= 32 merge-kernel launches),
               each partition's installed run digest-equal to the cpu
-              backend's compaction of the same raw sets; 100k closed-loop
+              backend's compaction of the same raw sets; 25k closed-loop
               ops from 8 PegasusClient threads, 50 % get,
               50 % set on zipfian ranks (theta 0.99), every read the loaded
               or an issued value; read-back of every updated key and a
@@ -140,7 +140,26 @@ exits non-zero before printing any result. Phases, one JSON line each:
               counted); state digests equal; a manual
               compaction of all 3 replicas, each output digest-equal to
               the cpu backend's compaction of its runs.
- 12. cluster  BASELINE #3 with its three replicas as processes: an ini
+ 12. geo      BASELINE #5 (geo range-scan + compact) at tools/geo_bench.py's
+              geography and levels (12/16): the geo client's two tables,
+              geo_main and geo_idx, 8 partitions each, PegasusServers
+              (cuda backend; geo_idx with a 9-lane key window and device
+              reads from one range up, GEO_IDX_OPTS) behind two in-process
+              RpcServers; 1 000 000 points uniform in +-0.7 deg around
+              40.06 N 116.40 E (2 000 000 rows) bulk-loaded from 4 raw
+              sets per partition, each run held to the cpu backend; through
+              GeoClient from 8 threads, 5 000 points moved and 2 500
+              added, then 500 radial searches of 500 m and 50 of 5 km
+              (nearest 100), every answer equal to a brute force over the
+              known points (haversine_m distances); a bottommost manual
+              compaction of all 16 partitions, each output held to the cpu
+              backend; the searches again; a RESP session over TCP to a
+              RedisProxy (SET/GET/SETEX/TTL/INCRBY/DEL on 1 000 keys,
+              GEOADD of 2 000 members, 20 each of GEORADIUS, GEODIST and
+              GEOPOS), every reply the expected bytes. Merge launches around
+              the ingest and the compaction, fence launches around each
+              round of searches.
+ 13. cluster  BASELINE #3 with its three replicas as processes: an ini
               derived from onebox.ini (cluster_ini: one meta, replica1..3
               on fixed ports, replica1's http_port, compaction_backend =
               cuda, onebox's failure detector, and the collector, its
@@ -156,7 +175,7 @@ exits non-zero before printing any result. Phases, one JSON line each:
               client process, the node leading the most partitions
               SIGKILLed at op 15k and restarted at op 25k once failed over
               (the meta re-adds it, it relearns over RPC_LEARN_*), no op
-              failing for good; every acknowledged update and a 50k
+              failing for good; every acknowledged update and a 25k
               sample read back (fence-lookup launches scraped from the
               processes). Then the residency leg (check_residency): 256
               rows under one new hash key flushed into a run on each of
@@ -192,7 +211,21 @@ exits non-zero before printing any result. Phases, one JSON line each:
               acknowledged write (the run's and the split's) read back
               through 64 partitions; trigger-audit on
               every primary, query-audit on every replica: equal digests
-              at an equal decree on all 192; `restore_app` into
+              at an equal decree on all 192. Then the integrity loop
+              (check_heal; the collector under PEGASUS_AUTOHEAL=1, its
+              http_port and incident dir): a table `heal` of 4 x 3 with
+              5 000 rows, flushed; the tail of one secondary's newest SST
+              flipped with the meta frozen, the shell's scrub_replica
+              quarantining it, that node's engine.hbm.resident_bytes down,
+              the collector's doctor degraded naming it, the meta's tick
+              re-seeding it once unfrozen, the bytes back, the audit
+              conclusive, every row read back from all 3 replicas (fence
+              launches counted); then audit.digest armed on another
+              secondary, the audit's one mismatch, the collector's doctor
+              critical with autoheal naming that replica and an incident
+              whose first cause on GET /incidents is the arm (the shell's
+              flight_recorder lists it), disarmed, re-seeded, re-audited,
+              read back. `restore_app` into
               usertable_r (query_restore_status to ok), its read-back
               equal to the values at backup time; batched-manual-compact
               of usertable_r on every node (the batched merge kernel),
@@ -206,14 +239,14 @@ exits non-zero before printing any result. Phases, one JSON line each:
 
 The main paths (compact, levels at each depth, blockwise, batched,
 offload, serve's ingest and compaction, replicate's load and
-compaction; the reads of reads,
-serve and replicate) each run with the launch counts set to 0 just
-before and read just after; the cluster phase reads each process's
-counts (perf counters kernel.*) before and after each of its steps:
-the bulk-load session, the read-backs, the GC compaction and the
-restored table's node compaction. Then, before the last line, the
-kernel table (times, launches, bounds, launches by phase; merge_path,
-merge_path_batched and fence_lookup) and
+compaction, geo's ingest and compaction; the reads of reads,
+serve, replicate and geo's two rounds of searches) each run with the
+launch counts set to 0 just before and read just after; the cluster
+phase reads each process's counts (perf counters kernel.*) before and
+after each of its steps: the bulk-load session, the read-backs (the heal
+leg's too), the GC compaction and the restored table's node compaction.
+Then, before the last line, the kernel table (times, launches, bounds,
+launches by phase; merge_path, merge_path_batched and fence_lookup) and
 the nvidia-smi line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises and exits non-zero. Engine and offload-service
@@ -720,6 +753,51 @@ def check_kernel(device) -> dict:
     # (a 4-run compaction's final merge is timed on its own operands in
     # the device_stage phase)
     return {"cases": len(cases) + 2, "max_abs_err": max_err, **timed}
+
+
+def mixed_width_cases(seed: int = 12, threads: int = 8,
+                      n: int = 60_000) -> list:
+    """(name, a, b, nk) pairs of two key widths, nk 4 and 10 in turns
+    (the geo phase's two tables), one pair per host thread."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(threads):
+        nk = (4, 10)[t % 2]
+        out.append((f"thread{t}_nk{nk}", _sorted_operand(rng, n, nk),
+                    _sorted_operand(rng, n // 2, nk, prio=1, idx_base=n),
+                    nk))
+    return out
+
+
+def check_mixed_widths(device, rounds: int = 8) -> dict:
+    """Merges of different key widths launched from several host threads
+    at once, each byte-equal to the plain merge: every launch asks the
+    same shared-memory opt-in of the kernel, so no thread's launch fails
+    on a limit another thread lowered."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pegasus_tpu_torch.ops.device_sort import merge_two_sorted_plain
+    from pegasus_tpu_torch.ops.merge_path import merge_two_sorted
+
+    cases = [(name, torch.from_numpy(a).to(device),
+              torch.from_numpy(b).to(device), nk)
+             for name, a, b, nk in mixed_width_cases()]
+    wants = [merge_two_sorted_plain(a, b, nk) for _, a, b, nk in cases]
+
+    def one(i):
+        name, a, b, nk = cases[i]
+        for _ in range(rounds):
+            got = merge_two_sorted(a, b, nk)
+            torch.cuda.synchronize(device)
+            if not torch.equal(got, wants[i]):
+                raise AssertionError(f"mixed widths: {name} != plain")
+
+    with ThreadPoolExecutor(len(cases)) as ex:
+        list(ex.map(one, range(len(cases))))
+    return {"threads": len(cases), "merges": len(cases) * rounds,
+            "nk": sorted({c[3] for c in cases})}
 
 
 def _time_merge(ta, tb, nk) -> dict:
@@ -2370,9 +2448,10 @@ def run_server(runs, device, work: str) -> dict:
 SERVE_PARTITIONS = 32
 SERVE_RECORDS = 10_000_000
 SERVE_FILES = 4            # raw-set files per partition
-SERVE_OPS = 50_000         # 200 000 until the cluster phase took on the
+SERVE_OPS = 25_000         # 200 000 until the cluster phase took on the
                            # table lifecycle, 100 000 until the doctor and
-                           # scheduler legs: cut for the clock
+                           # scheduler legs, 50 000 until geo and the heal
+                           # leg: cut for the clock
 SERVE_THREADS = 8
 SERVE_SAMPLE = 50_000      # untouched keys read back (100 000 until the
                            # levels phase and the cluster's lock-order
@@ -3522,14 +3601,557 @@ def run_replicate(device, work: str, provider: str,
     return out
 
 
-# ------------------------------------------------------------------ main
+# ---------------------------------------------------------------- geo
+
+# BASELINE config #5 (geo/ S2-indexed keys, range-scan + compact), at
+# tools/geo_bench.py's geography and levels: the points uniform in a box
+# around 40.06 N 116.40 E, raised from its 20 000 points in +-0.1 deg to
+# 1 000 000 in +-0.7 deg, which keeps its ~54 points per km^2
+GEO_POINTS = 1_000_000
+GEO_CENTER = (40.06, 116.40)
+GEO_BOX = 0.7          # points uniform in GEO_CENTER +- GEO_BOX degrees
+GEO_QUERY_BOX = 0.8    # search centres uniform in GEO_CENTER +- this
+                       # share of the points' box (0.56 deg)
+GEO_PARTITIONS = 8
+GEO_FILES = 4          # raw-set files per partition
+# cut for the clock (the first full run took 1254 s of 1200 on a slow
+# host; its geo phase 166 s): moves and adds 10 000 + 5 000 -> 5 000 +
+# 2 500, searches a round 1 000 + 100 -> 500 + 50
+GEO_MOVES = 5_000      # points deleted and set again at a new place
+GEO_ADDS = 2_500
+GEO_SEARCHES = ((500.0, -1, 500), (5000.0, 100, 50))  # (m, count, n)
+GEO_THREADS = 8
+GEO_MIN_LEVEL, GEO_MAX_LEVEL = 12, 16   # GeoClient's and geo_bench's
+GEO_APPS = (("geo_main", 5), ("geo_idx", 6))
+GEO_RESP_KEYS = 1000
+GEO_RESP_MEMBERS = 2000
+GEO_RESP_GEO = 20      # GEORADIUS, GEODIST and GEOPOS commands each
+GEO_RESP_BOX = 0.05    # the GEOADD members around GEO_CENTER
+GEO_RESP_TTL = 600
+# geo_idx's EngineOptions: its keys are 36 bytes (2 + a 6-byte cell
+# token + a 28-byte sort key), past the default 32-byte prefix window, so
+# at prefix_u32 = 8 its runs are not cacheable on the card and every scan
+# walks the host; and a scan arrives one range per frame, so at the
+# default min batch (2) a lone range takes the host search too
+GEO_IDX_OPTS = {"prefix_u32": 9, "device_read_min_batch": 1}
+
+
+def geo_points(n: int, seed: int, box: float = GEO_BOX):
+    """n points uniform in GEO_CENTER +- box. -> (lat, lng) float64."""
+    rng = np.random.default_rng(seed)
+    return (GEO_CENTER[0] + rng.uniform(-box, box, n),
+            GEO_CENTER[1] + rng.uniform(-box, box, n))
+
+
+def geo_value(i: int, lat: float, lng: float) -> bytes:
+    """The value GeoClient.set_geo_data(lat, lng, hk, sk, b"v%d" % i)
+    stores: LatlngCodec's fields 4 (lng) and 5 (lat) patched in."""
+    return b"v%d||||%r|%r" % (i, lng, lat)
+
+
+def _arena(items) -> tuple:
+    """bytes items -> (uint8 arena, int64 offsets, int32 lengths)."""
+    lens = np.fromiter((len(x) for x in items), np.int32, len(items))
+    offs = np.zeros(len(items), np.int64)
+    if len(items):
+        np.cumsum(lens[:-1], out=offs[1:])
+    return np.frombuffer(b"".join(items), np.uint8), offs, lens
+
+
+def geo_rows(lat, lng) -> dict:
+    """Both tables' rows of points i = 0..n-1, as GeoClient writes them:
+    geo_main (p%07d, s) -> value; geo_idx (the level-GEO_MIN_LEVEL cell
+    token, the 15-hex Morton code + the hash key's length + hash key +
+    sort key) -> value. -> {app: (hash keys, sort keys, values)}."""
+    from pegasus_tpu_torch.geo import cells
+
+    n = len(lat)
+    codes = cells.morton_batch(lat, lng)
+    cids = codes >> np.uint64(2 * (30 - GEO_MIN_LEVEL))
+    hks = [b"p%07d" % i for i in range(n)]
+    values = [geo_value(i, a, b) for i, (a, b) in
+              enumerate(zip(lat.tolist(), lng.tolist()))]
+    tokens = [cells.cell_token(c, GEO_MIN_LEVEL) for c in cids.tolist()]
+    gsks = [b"%015x%04x%ss" % (m, len(hk), hk)
+            for m, hk in zip(codes.tolist(), hks)]
+    return {"geo_main": (hks, [b"s"] * n, values),
+            "geo_idx": (tokens, gsks, values)}
+
+
+def write_geo_provider(root: str, rows: dict, n_parts: int,
+                       n_files: int, seed: int = 31) -> dict:
+    """Each table's bulk-load provider tree: rows routed to their
+    partition by the hash key's hash, each partition's rows shuffled
+    (raw sets are unsorted) and cut into n_files raw-set files. -> {app:
+    records per partition}."""
+    from pegasus_tpu_torch.engine.bulk_load import (write_metadata,
+                                                    write_raw_columns)
+
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for app, (hks, sks, values) in rows.items():
+        ha = _arena(hks)
+        width = int(ha[2].max())
+        padded = np.zeros((len(hks), width), np.uint8)
+        ok = np.arange(width)[None, :] < ha[2][:, None]
+        padded[ok] = ha[0]
+        part = _partition_of(padded, ha[2], n_parts)
+        counts[app] = []
+        for p in range(n_parts):
+            idx = rng.permutation(np.flatnonzero(part == p))
+            counts[app].append(len(idx))
+            pdir = os.path.join(root, app, str(n_parts), str(p))
+            os.makedirs(pdir, exist_ok=True)
+            for f, fr in enumerate(np.array_split(idx, n_files)):
+                fr = fr.tolist()
+                write_raw_columns(
+                    os.path.join(pdir, f"{f:02d}.raw"),
+                    _arena([hks[i] for i in fr]),
+                    _arena([sks[i] for i in fr]),
+                    _arena([values[i] for i in fr]),
+                    np.zeros(len(fr), np.uint32))
+        write_metadata(root, app, n_parts)
+    return counts
+
+
+class GeoTruth:
+    """The known point set, for brute-force answers: every point's
+    latitude, longitude and value, points sorted by latitude so that a
+    query reads only the band its radius can reach."""
+
+    def __init__(self, lat, lng, values, hks):
+        order = np.argsort(lat, kind="stable")
+        self.lat, self.lng = lat[order], lng[order]
+        self.values = [values[i] for i in order.tolist()]
+        self.hks = [hks[i] for i in order.tolist()]
+
+    def search(self, lat: float, lng: float, radius: float,
+               count: int = -1) -> list:
+        """search_radial's answer by brute force: [(d, hk, b"s", value)]
+        sorted by distance, d from cells.haversine_m."""
+        import math
+
+        from pegasus_tpu_torch.geo import cells
+
+        pad = math.degrees(radius / cells.EARTH_RADIUS_M) * 1.01 + 1e-6
+        lo, hi = np.searchsorted(self.lat, [lat - pad, lat + pad])
+        la, ln = self.lat[lo:hi], self.lng[lo:hi]
+        # a numpy prefilter with a margin; the distances themselves are
+        # haversine_m's, as the client computes them
+        p1, p2 = math.radians(lat), np.radians(la)
+        a = (np.sin((p2 - p1) / 2) ** 2 + math.cos(p1) * np.cos(p2)
+             * np.sin(np.radians(ln - lng) / 2) ** 2)
+        d = 2 * cells.EARTH_RADIUS_M * np.arcsin(np.minimum(1.0,
+                                                            np.sqrt(a)))
+        out = []
+        for j in np.flatnonzero(d <= radius * (1 + 1e-9) + 1e-6).tolist():
+            dist = cells.haversine_m(lat, lng, float(la[j]), float(ln[j]))
+            if dist <= radius:
+                k = lo + j
+                out.append((dist, self.hks[k], b"s", self.values[k]))
+        out.sort()
+        return out[:count] if count > 0 else out
+
+
+def check_geo_answer(got: list, want: list, count: int) -> None:
+    """A search answer against the brute force: the same (hash key, sort
+    key, value) set with the same distances; for a counted search, the
+    nearest `count` (their distances in order)."""
+    if count > 0:
+        if [g[0] for g in got] != [w[0] for w in want]:
+            raise AssertionError(f"nearest {count}: distances "
+                                 f"{[g[0] for g in got][:5]}... != "
+                                 f"{[w[0] for w in want][:5]}...")
+    if sorted(got) != want:
+        missing = set(want) - set(got)
+        extra = set(got) - set(want)
+        raise AssertionError(f"geo answer: {len(got)} rows, brute force "
+                             f"{len(want)}; missing {sorted(missing)[:3]}, "
+                             f"extra {sorted(extra)[:3]}")
+
+
+def _geo_searches(geo, truth, queries, n_threads: int) -> dict:
+    """Every (lat, lng, radius, count) query from n_threads threads, each
+    answer held to the brute force. -> latency percentiles and rows per
+    query, by radius."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(q):
+        t0 = time.perf_counter()
+        rows = geo.search_radial(*q)
+        return time.perf_counter() - t0, rows
+
+    with ThreadPoolExecutor(n_threads) as ex:
+        done = list(ex.map(one, queries))
+    by_radius = {}
+    for q, (s, rows) in zip(queries, done):
+        check_geo_answer(rows, truth.search(*q), q[3])
+        r = by_radius.setdefault(f"{q[2]:.0f}m", {"lat": [], "rows": 0})
+        r["lat"].append(s)
+        r["rows"] += len(rows)
+    return {k: dict(_percentiles(v["lat"]),
+                    rows_per_query=v["rows"] / len(v["lat"]))
+            for k, v in by_radius.items()}
+
+
+def _resp_cmd(*args) -> bytes:
+    out = b"*%d\r\n" % len(args)
+    for a in args:
+        a = a if isinstance(a, bytes) else str(a).encode()
+        out += b"$%d\r\n%s\r\n" % (len(a), a)
+    return out
+
+
+def _resp_reply(f) -> bytes:
+    """One whole RESP reply, as the bytes it came in."""
+    line = f.readline()
+    if line[:1] == b"$":
+        n = int(line[1:])
+        return line + (f.read(n + 2) if n >= 0 else b"")
+    if line[:1] == b"*":
+        return line + b"".join(_resp_reply(f)
+                               for _ in range(max(0, int(line[1:]))))
+    return line
+
+
+def _resp_bulk(v: bytes) -> bytes:
+    return b"$%d\r\n%s\r\n" % (len(v), v)
+
+
+def _resp_exchange(f, pairs, chunk: int = 200) -> int:
+    """Send (command, expected reply or set of allowed replies) pairs,
+    chunk commands at a time (pipelined), and hold every reply to its
+    expectation. -> commands sent."""
+    for lo in range(0, len(pairs), chunk):
+        part = pairs[lo:lo + chunk]
+        f.write(b"".join(c for c, _ in part))
+        f.flush()
+        for cmd, want in part:
+            got = _resp_reply(f)
+            ok = got in want if isinstance(want, (set, frozenset)) \
+                else got == want
+            if not ok:
+                raise AssertionError(f"RESP {cmd[:80]!r}: {got[:200]!r}, "
+                                     f"want {want!r:.200}")
+    return len(pairs)
+
+
+def run_resp(geo, kv_client, n_keys: int = GEO_RESP_KEYS,
+             n_members: int = GEO_RESP_MEMBERS, n_geo: int = GEO_RESP_GEO,
+             seed: int = 37) -> dict:
+    """A RESP session over TCP to a RedisProxy in this process, every
+    reply held to its expected bytes: SET, GET, SETEX, TTL, INCRBY and DEL
+    on n_keys keys; GEOADD of n_members members under one key (100 per
+    command), then n_geo GEORADIUS (1 km around a member), GEODIST and
+    GEOPOS (a member and a missing one), each expected from the members'
+    coordinates by brute force (cells.haversine_m)."""
+    import socket
+
+    from pegasus_tpu_torch.geo import cells
+    from pegasus_tpu_torch.redis_proxy import RedisProxy
+
+    proxy = RedisProxy(kv_client, geo=geo).start()
+    sock = socket.create_connection(proxy.address, timeout=300)
+    f = sock.makefile("rwb")
+    out = {"keys": n_keys, "members": n_members}
+    try:
+        t0 = time.perf_counter()
+        kv = []
+        for i in range(n_keys):
+            k, v = b"rk%d" % i, b"val%d" % i
+            kv += [(_resp_cmd("SET", k, v), b"+OK\r\n"),
+                   (_resp_cmd("GET", k), _resp_bulk(v)),
+                   (_resp_cmd("SETEX", b"rt%d" % i, GEO_RESP_TTL, v),
+                    b"+OK\r\n"),
+                   (_resp_cmd("TTL", b"rt%d" % i),
+                    {b":%d\r\n" % t for t in range(GEO_RESP_TTL - 2,
+                                                   GEO_RESP_TTL + 1)}),
+                   (_resp_cmd("INCRBY", b"rc%d" % i, 7), b":7\r\n"),
+                   (_resp_cmd("DEL", k), b":1\r\n")]
+        n = _resp_exchange(f, kv)
+        out["kv_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(seed)
+        lat, lng = geo_points(n_members, seed, GEO_RESP_BOX)
+        # the members' coordinates as the proxy parses them
+        la = [float("%.7f" % x) for x in lat.tolist()]
+        ln = [float("%.7f" % x) for x in lng.tolist()]
+        names = [b"m%04d" % i for i in range(n_members)]
+        t0 = time.perf_counter()
+        adds = []
+        for lo in range(0, n_members, 100):
+            args = []
+            for i in range(lo, min(n_members, lo + 100)):
+                args += ["%.7f" % ln[i], "%.7f" % la[i], names[i]]
+            adds.append((_resp_cmd("GEOADD", "fleet", *args),
+                         b":%d\r\n" % (len(args) // 3)))
+        n += _resp_exchange(f, adds)
+        out["geoadd_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        geo_cmds, found = [], 0
+        for j in range(n_geo):
+            c = int(rng.integers(n_members))
+            near = sorted((cells.haversine_m(la[c], ln[c], la[i], ln[i]),
+                           names[i]) for i in range(n_members))
+            want = [m for d, m in near if d <= 1000.0]
+            found += len(want)
+            geo_cmds.append((_resp_cmd("GEORADIUS", "fleet", "%.7f" % ln[c],
+                                       "%.7f" % la[c], 1, "km"),
+                             b"*%d\r\n" % len(want)
+                             + b"".join(_resp_bulk(m) for m in want)))
+            a, b = (int(x) for x in rng.integers(n_members, size=2))
+            unit, scale = (("km", 1000.0) if j % 2 else ("m", 1.0))
+            d = cells.haversine_m(la[a], ln[a], la[b], ln[b])
+            geo_cmds.append((_resp_cmd("GEODIST", "fleet", names[a],
+                                       names[b], unit),
+                             _resp_bulk(repr(round(d / scale, 4)).encode())))
+            geo_cmds.append((_resp_cmd("GEOPOS", "fleet", names[a], "nope"),
+                             b"*2\r\n*2\r\n" + _resp_bulk(repr(ln[a]).encode())
+                             + _resp_bulk(repr(la[a]).encode())
+                             + b"$-1\r\n"))
+        n += _resp_exchange(f, geo_cmds, chunk=1)
+        out.update(geo_s=time.perf_counter() - t0, commands=n,
+                   georadius_members_per_query=found / max(1, n_geo))
+    finally:
+        sock.close()
+        proxy.stop()
+    return out
+
+
+def run_geo(device, work: str, n_points: int = GEO_POINTS,
+            n_parts: int = GEO_PARTITIONS, n_moves: int = GEO_MOVES,
+            n_adds: int = GEO_ADDS, searches=GEO_SEARCHES,
+            n_threads: int = GEO_THREADS, box: float = GEO_BOX,
+            resp: dict = None) -> dict:
+    """BASELINE config #5, geo range-scan + compact: the two tables of the
+    geo client (geo_main, geo_idx), n_parts partitions each, as
+    PegasusServers (cuda backend) behind two in-process RpcServers, one
+    replica each; n_points points made from the seed with numpy and
+    bulk-loaded from GEO_FILES raw sets per partition (RPC_BULK_LOAD_INGEST,
+    the merges on the card), each installed run held to the cpu backend
+    (check_ingest). Through GeoClient in this process: n_moves points
+    deleted and set again at a new place and n_adds added, from
+    n_threads threads; the radial searches (searches: radius, count,
+    number) from n_threads threads, every answer equal to a brute force
+    over the known final points; a manual compaction of every partition
+    of both tables (update_app_envs), each output held to the cpu
+    backend's compaction of its runs from just before
+    (check_compaction); the same searches again; then a RESP session
+    through a RedisProxy (run_resp). Merge-kernel launches are counted
+    around the ingest and the compaction, fence-lookup launches around
+    each round of searches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pegasus_tpu_torch.base import consts
+    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
+    from pegasus_tpu_torch.engine.db import EngineOptions
+    from pegasus_tpu_torch.engine.replica_service import ReplicaService
+    from pegasus_tpu_torch.engine.server_impl import PegasusServer
+    from pegasus_tpu_torch.geo import GeoClient
+    from pegasus_tpu_torch.ops.fence_lookup import LAUNCHES as FENCE
+    from pegasus_tpu_torch.ops.merge_path import LAUNCHES
+    from pegasus_tpu_torch.rpc import codec
+    from pegasus_tpu_torch.rpc import messages as msg
+    from pegasus_tpu_torch.rpc.task_codes import RPC_BULK_LOAD_INGEST
+    from pegasus_tpu_torch.rpc.transport import RpcServer
+    from pegasus_tpu_torch.runtime.tracing import COMPACT_TRACER
+
+    on_card = torch.device(device).type == "cuda"
+    os.makedirs(work, exist_ok=True)
+    out = {"config": "BASELINE #5: geo/ S2-indexed keys (src/geo) "
+           "range-scan + compact; tools/geo_bench.py's geography, levels "
+           f"{GEO_MIN_LEVEL}/{GEO_MAX_LEVEL}",
+           "tables": [a for a, _ in GEO_APPS], "partitions": n_parts,
+           "points": n_points, "rows": 2 * n_points, "moves": n_moves,
+           "adds": n_adds, "threads": n_threads,
+           "geo_idx_options": GEO_IDX_OPTS,
+           "searches": [{"radius_m": r, "count": c, "n": n}
+                        for r, c, n in searches],
+           "guarantee": "every acknowledged geo write read back by "
+                        "search; one copy (no mutation log)",
+           "reduced": {"replicas": "3 -> 1 (the cluster phase holds "
+                                   "replication)",
+                       "points": f"raised from geo_bench's 20 000 to "
+                                 f"{n_points}, the box from +-0.1 to "
+                                 f"+-{box} deg (~54 points per km^2 at "
+                                 f"1 000 000 in +-0.7)",
+                       "clock": "moves + adds 10 000 + 5 000 -> "
+                                f"{n_moves} + {n_adds}, searches a round "
+                                "1 100 -> "
+                                f"{sum(n for _, _, n in searches)}"}}
+    t0 = time.perf_counter()
+    lat, lng = geo_points(n_points, 29, box)
+    rows = geo_rows(lat, lng)
+    provider = os.path.join(work, "provider")
+    counts = write_geo_provider(provider, rows, n_parts, GEO_FILES)
+    out["fill_s"] = time.perf_counter() - t0
+
+    rpcs, servers, clients, geo = [], {a: [] for a, _ in GEO_APPS}, {}, None
+    try:
+        addr = {a: {} for a, _ in GEO_APPS}
+        for node in range(2):
+            svc = ReplicaService()
+            rpc = RpcServer().start()
+            rpcs.append(rpc)
+            for app, app_id in GEO_APPS:
+                for p in range(node, n_parts, 2):
+                    opts = GEO_IDX_OPTS if app == "geo_idx" else {}
+                    srv = PegasusServer(
+                        os.path.join(work, f"{app}_{p}"), app_id=app_id,
+                        pidx=p, server=f"node{node}",
+                        options=EngineOptions(device=device, **opts))
+                    svc.add_replica(srv, n_parts)
+                    servers[app].append(srv)
+                    addr[app][p] = rpc.address
+            rpc.register_serverlet(svc)
+        for app, app_id in GEO_APPS:
+            clients[app] = PegasusClient(StaticResolver(
+                app_id, [addr[app][p] for p in range(n_parts)]))
+
+        def ingest(item):
+            app, app_id, p = item
+            conn = clients[app].pool.get(addr[app][p], shard=p)
+            _, body = conn.call(RPC_BULK_LOAD_INGEST, codec.encode(
+                msg.BulkLoadIngestRequest(provider, app, n_parts)),
+                app_id=app_id, partition_index=p, timeout=SERVE_TIMEOUT_S)
+            r = codec.decode(msg.BulkLoadIngestResponse, body)
+            if r.error or r.ingested_records != counts[app][p]:
+                raise AssertionError(f"{app} partition {p} ingested "
+                                     f"{r.ingested_records} of "
+                                     f"{counts[app][p]} (error {r.error})")
+
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2 * n_parts) as ex:
+            list(ex.map(ingest, [(a, i, p) for a, i in GEO_APPS
+                                 for p in range(n_parts)]))
+        out["ingest_s"] = time.perf_counter() - t0
+        out["ingest_merge_launches"] = LAUNCHES["merge_path"]
+        out["ingest_check_s"] = sum(
+            check_ingest(servers[a], provider, a, n_parts)
+            for a, _ in GEO_APPS)
+        del rows
+
+        geo = GeoClient(clients["geo_main"], clients["geo_idx"],
+                        min_level=GEO_MIN_LEVEL, max_level=GEO_MAX_LEVEL,
+                        scan_threads=GEO_THREADS)
+        # ---- updates through the client
+        rng = np.random.default_rng(41)
+        moved = rng.choice(n_points, n_moves, replace=False)
+        new_lat, new_lng = geo_points(n_moves + n_adds, 43, box)
+        lat = np.concatenate([lat, new_lat[n_moves:]])
+        lng = np.concatenate([lng, new_lng[n_moves:]])
+        lat[moved], lng[moved] = new_lat[:n_moves], new_lng[:n_moves]
+        work_items = ([("move", int(i)) for i in moved.tolist()]
+                      + [("add", n_points + j) for j in range(n_adds)])
+
+        def update(items):
+            for kind, i in items:
+                hk = b"p%07d" % i
+                if kind == "move":
+                    geo.delete(hk, b"s")
+                geo.set_geo_data(float(lat[i]), float(lng[i]), hk, b"s",
+                                 b"v%d" % i)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n_threads) as ex:
+            list(ex.map(update, [work_items[t::n_threads]
+                                 for t in range(n_threads)]))
+        out["update_s"] = time.perf_counter() - t0
+        n_all = n_points + n_adds
+        truth = GeoTruth(lat, lng, [geo_value(i, a, b) for i, (a, b) in
+                                    enumerate(zip(lat.tolist(),
+                                                  lng.tolist()))],
+                         [b"p%07d" % i for i in range(n_all)])
+
+        qrng = np.random.default_rng(47)
+        queries = []
+        for radius, count, n in searches:
+            half = GEO_QUERY_BOX * box
+            qlat, qlng = (GEO_CENTER[0] + qrng.uniform(-half, half, n),
+                          GEO_CENTER[1] + qrng.uniform(-half, half, n))
+            queries += [(float(a), float(b), radius, count)
+                        for a, b in zip(qlat, qlng)]
+
+        def search_round(what):
+            FENCE["fence_lookup"] = 0
+            with COMPACT_TRACER.session() as sess:
+                t0 = time.perf_counter()
+                res = _geo_searches(geo, truth, queries, n_threads)
+                res["seconds"] = time.perf_counter() - t0
+            rng_calls = sess.summary().get("read.range", {})
+            res.update(fence_launches=FENCE["fence_lookup"],
+                       device_range_calls=rng_calls.get("calls", 0),
+                       device_range_queries=rng_calls.get("records", 0))
+            if not res["device_range_calls"] or (
+                    on_card and not res["fence_launches"]):
+                raise AssertionError(f"geo searches {what}: "
+                                     f"{res['device_range_calls']} device "
+                                     f"range calls, "
+                                     f"{res['fence_launches']} fence "
+                                     f"launches")
+            return res
+
+        out["search_before_compaction"] = search_round("before compaction")
+
+        # ---- manual compaction of every partition of both tables
+        every = [s for a, _ in GEO_APPS for s in servers[a]]
+        kept = keep_runs(every, os.path.join(work, "pre_compaction"))
+        # a full compaction, as geo_bench's manual_compact: bottommost, so
+        # the moves' tombstones go (check_compaction's cpu merge is too)
+        trigger = {consts.MANUAL_COMPACT_ONCE_TRIGGER_TIME_KEY:
+                   str(int(time.time()) - 1),
+                   consts.MANUAL_COMPACT_ONCE_KEY_PREFIX
+                   + consts.MANUAL_COMPACT_BOTTOMMOST_LEVEL_COMPACTION_KEY:
+                   consts.MANUAL_COMPACT_BOTTOMMOST_LEVEL_COMPACTION_FORCE}
+        LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        t0 = time.perf_counter()
+        for srv in every:
+            srv.update_app_envs(trigger)
+        if on_card:
+            torch.cuda.synchronize(device)
+        compact_s = time.perf_counter() - t0
+        states = [srv.manual_compact_service.query_compact_state()
+                  for srv in every]
+        if any(not st.startswith("idle; last finish") for st in states):
+            raise AssertionError(f"a geo compaction did not finish: "
+                                 f"{states}")
+        out["compaction"] = {"seconds": compact_s,
+                             "merge_launches": LAUNCHES["merge_path"],
+                             "check_s": check_compaction(every, kept)}
+        if on_card and LAUNCHES["merge_path"] < len(every):
+            raise AssertionError(f"the geo compaction launched "
+                                 f"{LAUNCHES['merge_path']} merges for "
+                                 f"{len(every)} partitions")
+        shutil.rmtree(os.path.join(work, "pre_compaction"))
+        for srv in every:
+            srv.engine.wait_primes()
+        out["search_after_compaction"] = search_round("after compaction")
+        out["resp"] = run_resp(geo, clients["geo_main"], **(resp or {}))
+        if on_card:
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+    finally:
+        if geo is not None:
+            geo.close()
+        for c in clients.values():
+            c.close()
+        for r in rpcs:
+            r.stop()
+        for srvs in servers.values():
+            for srv in srvs:
+                srv.close()
+    return out
+
 
 # ------------------------------------------------------------- cluster
 
 CLUSTER_OPS = 40_000
 CLUSTER_THREADS = 8
-CLUSTER_SAMPLE = 50_000       # untouched loaded keys read back (100 000
-                              # until the levels phase)
+CLUSTER_SAMPLE = 25_000       # untouched loaded keys read back (100 000
+                              # until the levels phase, 50 000 until geo
+                              # and the heal leg)
 CLUSTER_KILL_AT = 15_000
 CLUSTER_RESTART_AT = 25_000
 CLUSTER_APP = "usertable"
@@ -3573,7 +4195,8 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
     runs its ticks in this process). Left out: the offload service, and
     the toollets (a middleware sends every frame per frame, and the
     read-backs are measured batched). -> (ini path, meta address,
-    {replica name: address}, {"collector": address, "http_port": n})."""
+    {replica name: address}, {"collector": address, "http_port": n,
+    "collector_http_port": n})."""
     import configparser
 
     import torch
@@ -3582,7 +4205,7 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
     cp.read(os.path.join(ROOT, "onebox.ini"))
     for sec in ("core", "apps.compact_offload", "apps.meta2", "apps.meta3"):
         cp.remove_section(sec)
-    ports = _free_ports(6)
+    ports = _free_ports(7)
     cp["apps.meta1"]["port"] = str(ports[0])
     cp["apps.meta1"]["state_dir"] = os.path.join(work, "meta")
     meta = f"127.0.0.1:{ports[0]}"
@@ -3597,7 +4220,9 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
     coll["port"] = str(ports[5])
     coll["interval_seconds"] = str(CLUSTER_COLLECT_S)
     coll["detect_interval_seconds"] = str(CLUSTER_DETECT_S)
-    extra = {"collector": f"127.0.0.1:{ports[5]}", "http_port": ports[4]}
+    coll["http_port"] = str(ports[6])
+    extra = {"collector": f"127.0.0.1:{ports[5]}", "http_port": ports[4],
+             "collector_http_port": ports[6]}
     cp["pegasus.server"]["meta_servers"] = meta
     cp["pegasus.server"]["compaction_backend"] = "cuda"
     if torch.device(device).type != "cuda":
@@ -3997,8 +4622,11 @@ def check_traces(meta: str, addrs: list, app: str, n_parts: int) -> dict:
         slow = _traced_put(client, hk)
     finally:
         client.close()
+    # the whole ledger (its 256 entries): the canary's and the
+    # collector's traced ops on a loaded box can push the slow put past
+    # the last 64 within a second
     ledger = [tr for tr in json.loads(_shell(meta,
-                                             f"slow_requests {node} 64"))
+                                             f"slow_requests {node} 256"))
               if tr["trace_id"] == slow["trace_id"]]
     if not ledger:
         raise AssertionError(f"{node}'s slow_requests lacks trace "
@@ -4538,6 +5166,359 @@ def check_collector(meta: str, coll: str, http_port: int,
                        "causes": [c["cause"] for c in doctor["causes"]][:8]}}
 
 
+HEAL_APP = "heal"
+HEAL_PARTITIONS = 4
+HEAL_ROWS = 5_000        # 20 000, cut for the clock
+HEAL_SORT_KEYS = 100     # rows under one hash key (one multi_set each)
+HEAL_DEADLINE_S = 180.0  # a verdict, a re-seed or the primes, each
+# the collector's flight recorder: the window its captures pull and look
+# for a first cause in, and the cooldown between two captures (onebox:
+# 120 s and 30 s; the leg's two drills are seconds apart)
+HEAL_INCIDENT_WINDOW_S = 20
+HEAL_INCIDENT_COOLDOWN_S = 2
+
+
+def _flip_tail(path: str, nbytes: int = 8) -> None:
+    """Flip the last nbytes of a file (tests/test_integrity.py's
+    flip_tail): the header still parses, the last section's crc fails."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size - nbytes)
+        tail = f.read(nbytes)
+        f.seek(size - nbytes)
+        f.write(bytes(b ^ 0xFF for b in tail))
+
+
+def _hbm(addr: str) -> dict:
+    return json.loads(_remote_command(addr, "perf-counters-by-prefix",
+                                      ["engine.hbm."]))
+
+
+def _coll_doctor(coll: str) -> dict:
+    return json.loads(_remote_command(coll, "cluster-doctor", ["0"],
+                                      timeout=CLUSTER_CHECK_S))
+
+
+def _members_of(meta: str, app: str, pidx: int) -> list:
+    pc = _config(meta, app).partitions[pidx]
+    return [pc.primary] + list(pc.secondaries) if pc.primary else []
+
+
+def _hosts(addr: str, gpid: str) -> bool:
+    return gpid in json.loads(_remote_command(addr, "replica-disk"))
+
+
+def _await_reseed(meta: str, victim: str, app_id: int, pidx: int) -> float:
+    """Until the meta re-seeded the quarantined replica: the partition
+    has 3 members, each hosting it, and the victim's quarantine record
+    is acknowledged. -> seconds waited."""
+    gpid = f"{app_id}.{pidx}"
+
+    def done():
+        members = _members_of(meta, HEAL_APP, pidx)
+        return (len(members) == 3 and all(_hosts(a, gpid) for a in members)
+                and gpid not in json.loads(_remote_command(
+                    victim, "quarantine-status")))
+
+    t0 = time.perf_counter()
+    _await(f"the re-seed of {gpid} on {victim}", done, HEAL_DEADLINE_S)
+    return time.perf_counter() - t0
+
+
+def _await_primes(addr: str, want_ssts: int) -> dict:
+    """Until addr's node holds at least want_ssts runs on the device (an
+    async prime lands after its flush or learn). -> its engine.hbm.*."""
+    _await(f"{addr}'s primes", lambda: _hbm(addr).get(
+        "engine.hbm.resident_ssts", 0) >= want_ssts, HEAL_DEADLINE_S)
+    return _hbm(addr)
+
+
+def _heal_audit(meta: str, app_id: int) -> dict:
+    """The audit of the heal table alone, retried until every partition
+    is conclusive (a re-seeded member may still apply its backlog: the
+    equal-decree rule reads that as pending, never a mismatch)."""
+    from pegasus_tpu_torch.collector.cluster_doctor import run_cluster_audit
+
+    t0 = time.perf_counter()
+    for _ in range(30):
+        caller = _caller(meta)
+        try:
+            report = run_cluster_audit([meta], apps=[HEAL_APP],
+                                       wait_s=CLUSTER_CHECK_S, caller=caller)
+        finally:
+            caller.close()
+        if report["mismatches"]:
+            raise AssertionError(f"heal audit: {report['mismatches']}")
+        if len(report["ok"]) == HEAL_PARTITIONS:
+            return {"seconds": time.perf_counter() - t0,
+                    "replicas": sum(len(d) for d in
+                                    report["digests"].values())}
+        time.sleep(0.5)
+    raise AssertionError(f"heal audit never conclusive: {report}")
+
+
+def _heal_read_back(meta: str, addrs: list, app_id: int, rows: dict) -> dict:
+    """Every row read from each of the 3 replicas of its partition
+    (member k of every partition through a StaticResolver, batch_get in
+    waves), each the acknowledged value; fence launches scraped from the
+    nodes around it."""
+    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
+
+    keys = list(rows)
+    before = _kernel_counts(addrs)
+    t0 = time.perf_counter()
+    members = [_members_of(meta, HEAL_APP, p) for p in range(HEAL_PARTITIONS)]
+    for k in range(3):
+        cli = PegasusClient(StaticResolver(app_id, [
+            (m[k].rpartition(":")[0], int(m[k].rpartition(":")[2]))
+            for m in members]), timeout=120)
+        try:
+            for lo in range(0, len(keys), 2000):
+                got = cli.batch_get(keys[lo:lo + 2000])
+                bad = [(key, g) for key, g in zip(keys[lo:lo + 2000], got)
+                       if g != rows[key]]
+                if bad:
+                    raise AssertionError(f"replica {k} of the heal table "
+                                         f"read {len(bad)} rows wrong: "
+                                         f"{bad[:3]}")
+        finally:
+            cli.close()
+    after = _kernel_counts(addrs)
+    return {"seconds": time.perf_counter() - t0, "rows": len(keys),
+            "replicas": 3, "fence_launches": _delta(
+                after, before, "kernel.fence_lookup.launches")}
+
+
+def _quiet_causes(nodes: list, window: float) -> float:
+    """Wait until no node's event ring holds a first-cause-class event
+    inside the last `window` seconds, so that an arm made now is the
+    earliest one an incident window can see. -> seconds waited."""
+    from pegasus_tpu_torch.collector.flight_recorder import FIRST_CAUSE_NAMES
+
+    t0 = time.perf_counter()
+    while True:
+        latest = 0.0
+        for a in nodes:
+            for evs in json.loads(_remote_command(
+                    a, "events-dump", ["1000"])).values():
+                latest = max([latest] + [e["ts"] for e in evs
+                                         if e["name"] in FIRST_CAUSE_NAMES])
+        wait = latest + window + 0.5 - time.time()
+        if wait <= 0:
+            return time.perf_counter() - t0
+        time.sleep(min(wait, window))
+
+
+def check_heal(meta: str, coll: str, coll_http: int, addrs: list,
+               names: dict, work: str, incident_dir: str,
+               n_rows: int = HEAL_ROWS, on_card: bool = True) -> dict:
+    """The integrity loop on the cluster, a table `heal` of
+    HEAL_PARTITIONS partitions x 3 replicas, n_rows rows written through
+    the client and flushed on every replica (flush-memtable).
+
+    Scrub drill: with the meta frozen (set_meta_level freezed: no
+    re-seed yet), the last 8 bytes of the newest SST of partition 0's
+    first secondary flipped; the shell's scrub_replica answers
+    quarantined with a crc finding, quarantine_status names the gpid
+    with source scrub, that node's engine.hbm.resident_bytes falls (the
+    closed engine released its runs), and the collector's doctor answers
+    degraded naming the quarantine. The meta's level restored, its FD
+    tick re-seeds the replica; the node's resident bytes come back, the
+    audit of the table is conclusive and mismatch-free, and every row
+    reads back with its acknowledged value from each of the 3 replicas.
+
+    Auto-heal drill (the collector under PEGASUS_AUTOHEAL=1): the
+    collector's doctor healthy, `audit.digest` armed on partition 1's
+    first secondary through set-fail-point, the audit finds that one
+    mismatch, the collector's doctor answers critical with autoheal
+    naming that replica and an incident id; GET /incidents on the
+    collector lists the incident, its first cause the fail point's arm
+    on audit.digest, and the shell's flight_recorder lists it; the fail
+    point disarmed, the re-seed lands, the re-audit is conclusive and
+    the read-back whole."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pegasus_tpu_torch.client import MetaResolver, PegasusClient
+    from pegasus_tpu_torch.collector.cluster_doctor import run_cluster_audit
+
+    t_leg = time.perf_counter()
+    out = {"partitions": HEAL_PARTITIONS, "rows": n_rows}
+    _shell(meta, f"create {HEAL_APP} -p {HEAL_PARTITIONS} -r 3")
+    cfg = _config(meta, HEAL_APP)
+    app_id = cfg.app.app_id
+    if any(not pc.primary or len(pc.secondaries) != 2
+           for pc in cfg.partitions):
+        raise AssertionError(f"heal partitions without 3 members: {cfg}")
+    client = PegasusClient(MetaResolver([meta], HEAL_APP), timeout=120)
+    rows = {}
+    try:
+        def write(j):
+            hk = b"heal%05d" % j
+            kvs = {b"s%03d" % k: b"hv%d.%d" % (j, k) for k in range(
+                min(per_hk, n_rows - j * per_hk))}
+            client.multi_set(hk, kvs)
+            return hk, kvs
+
+        # at least 8 hash keys a partition, so a small table fills each
+        per_hk = min(HEAL_SORT_KEYS, -(-n_rows // (8 * HEAL_PARTITIONS)))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            for hk, kvs in ex.map(write, range(-(-n_rows // per_hk))):
+                rows.update({(hk, sk): v for sk, v in kvs.items()})
+        out["write_s"] = time.perf_counter() - t0
+    finally:
+        client.close()
+    gpids = [f"{app_id}.{p}" for p in range(HEAL_PARTITIONS)]
+    ssts0 = {a: _hbm(a).get("engine.hbm.resident_ssts", 0) for a in addrs}
+    for a in addrs:
+        _remote_command(a, "flush-memtable", gpids, timeout=300)
+    # every node hosts a replica of each partition: each flushed run
+    # primes on the card asynchronously
+    for a in addrs:
+        disk = json.loads(_remote_command(a, "replica-disk"))
+        _await_primes(a, ssts0[a] + sum(disk[g]["sst_files"] for g in gpids))
+
+    # ---- scrub drill
+    level = _shell(meta, "get_meta_level").split()[-1]
+    victim = cfg.partitions[0].secondaries[0]
+    gpid = f"{app_id}.0"
+    data = os.path.join(work, names[victim], gpid, "data")
+    newest = max((os.path.join(data, f) for f in os.listdir(data)
+                  if f.endswith(".sst")), key=os.path.getmtime)
+    hbm0 = _hbm(victim)
+    _shell(meta, "set_meta_level freezed")
+    scrub = {"victim": victim, "gpid": gpid, "file": os.path.basename(newest)}
+    try:
+        t0 = time.perf_counter()
+        _flip_tail(newest)
+        text = _shell(meta, f"scrub_replica {victim} {gpid}")
+        ans = json.loads(text.split("\n", 1)[1])[gpid]
+        scrub["flip_to_quarantine_s"] = time.perf_counter() - t0
+        if ans.get("quarantined") is not True or not any(
+                "crc32 mismatch" in f["detail"] for f in ans["findings"]):
+            raise AssertionError(f"scrub_replica: {ans}")
+        scrub["finding"] = ans["findings"][0]["detail"]
+        status = json.loads(_shell(meta, f"quarantine_status {victim}"))
+        if status.get(gpid, {}).get("source") != "scrub" or not status[
+                gpid].get("dir"):
+            raise AssertionError(f"quarantine_status: {status}")
+        hbm1 = _hbm(victim)
+        fell = (hbm0["engine.hbm.resident_bytes"]
+                - hbm1["engine.hbm.resident_bytes"])
+        scrub["resident_bytes_fell"] = fell
+        if fell <= 0:
+            raise AssertionError(f"{victim}'s resident bytes did not fall: "
+                                 f"{hbm0} -> {hbm1}")
+        cause = f"replica {gpid} on node {victim} quarantined (scrub: "
+
+        def degraded():
+            v = _coll_doctor(coll)
+            scrub["doctor"] = {"verdict": v["verdict"], "causes": [
+                c["cause"] for c in v["causes"]][:6],
+                "incident": v.get("incident")}
+            return v["verdict"] == "degraded" and any(
+                c["cause"].startswith(cause) for c in v["causes"])
+
+        _await("the collector's doctor naming the quarantine", degraded,
+               HEAL_DEADLINE_S)
+    finally:
+        _shell(meta, f"set_meta_level {level}")
+    scrub["reseed_s"] = _await_reseed(meta, victim, app_id, 0)
+    hbm2 = _await_primes(victim, hbm1["engine.hbm.resident_ssts"] + 1)
+    scrub["resident_bytes"] = [hbm0["engine.hbm.resident_bytes"],
+                               hbm1["engine.hbm.resident_bytes"],
+                               hbm2["engine.hbm.resident_bytes"]]
+    scrub["audit"] = _heal_audit(meta, app_id)
+    scrub["read_back"] = _heal_read_back(meta, addrs, app_id, rows)
+    if on_card and not sum(scrub["read_back"]["fence_launches"].values()):
+        raise AssertionError("the heal read-back launched no fence kernel")
+    out["scrub"] = scrub
+
+    # ---- auto-heal drill
+    auto = {}
+    t0 = time.perf_counter()
+    _await("the collector's doctor healthy",
+           lambda: _coll_doctor(coll)["verdict"] == "healthy",
+           HEAL_DEADLINE_S)
+    auto["healthy_s"] = time.perf_counter() - t0
+    victim = cfg.partitions[1].secondaries[0]
+    gpid = f"{app_id}.1"
+    auto.update(victim=victim, gpid=gpid, quiet_s=_quiet_causes(
+        addrs + [coll], HEAL_INCIDENT_WINDOW_S))
+    _remote_command(victim, "set-fail-point",
+                    ["audit.digest", f"return({victim}@{gpid})"])
+    try:
+        caller = _caller(meta)
+        try:
+            report = run_cluster_audit([meta], apps=[HEAL_APP],
+                                       wait_s=CLUSTER_CHECK_S, caller=caller)
+        finally:
+            caller.close()
+        if [(m["gpid"], m["node"]) for m in report["mismatches"]] != \
+                [(gpid, victim)]:
+            raise AssertionError(f"the planted audit: "
+                                 f"{report['mismatches']}")
+        t0 = time.perf_counter()
+        verdicts = []
+
+        def unhealthy():
+            verdicts.append(_coll_doctor(coll))
+            return verdicts[-1]["verdict"] != "healthy"
+
+        _await("the collector's doctor seeing the mismatch", unhealthy,
+               HEAL_DEADLINE_S)
+        v = verdicts[-1]
+        auto["doctor"] = {"verdict": v["verdict"],
+                          "autoheal": v.get("autoheal"),
+                          "incident": v.get("incident"),
+                          "seconds": time.perf_counter() - t0}
+        if v["verdict"] != "critical" or v.get("autoheal") != [
+                {"gpid": gpid, "node": victim}] or not v.get("incident"):
+            raise AssertionError(f"the collector's doctor: {v['verdict']}, "
+                                 f"autoheal {v.get('autoheal')}, incident "
+                                 f"{v.get('incident')}, causes "
+                                 f"{[c['cause'] for c in v['causes']][:4]}")
+        inc_id = v["incident"]
+        base = f"http://127.0.0.1:{coll_http}/incidents"
+        with urllib.request.urlopen(base, timeout=60) as r:
+            listed = json.loads(r.read())["incidents"]
+        with urllib.request.urlopen(f"{base}?id={inc_id}", timeout=60) as r:
+            inc = json.loads(r.read())["incident"]
+        entry = next((i for i in listed if i["id"] == inc_id), None)
+        fc = inc["first_cause"] or {}
+        if entry is None or entry["first_cause"] != "failpoint.arm" or \
+                fc.get("attrs", {}).get("point") != "audit.digest":
+            raise AssertionError(f"/incidents: {entry}, first cause {fc}")
+        auto["incident"] = {"id": inc_id, "first_cause": fc["name"],
+                            "point": fc["attrs"]["point"],
+                            "node": fc.get("node"),
+                            "timeline_events": len(inc["timeline"]),
+                            "listed": len(listed)}
+        # the shell's flight_recorder reads the collector's artifacts
+        saved = os.environ.get("PEGASUS_INCIDENT_DIR")
+        os.environ["PEGASUS_INCIDENT_DIR"] = incident_dir
+        try:
+            shown = _shell(meta, "flight_recorder")
+        finally:
+            if saved is None:
+                os.environ.pop("PEGASUS_INCIDENT_DIR", None)
+            else:
+                os.environ["PEGASUS_INCIDENT_DIR"] = saved
+        if f"{inc_id}  trigger=doctor first_cause=failpoint.arm" not in shown:
+            raise AssertionError(f"flight_recorder: {shown[:1000]}")
+    finally:
+        _remote_command(victim, "set-fail-point", ["audit.digest", "off()"])
+    auto["reseed_s"] = _await_reseed(meta, victim, app_id, 1)
+    auto["audit"] = _heal_audit(meta, app_id)
+    auto["read_back"] = _heal_read_back(meta, addrs, app_id, rows)
+    if on_card and not sum(auto["read_back"]["fence_launches"].values()):
+        raise AssertionError("the heal read-back launched no fence kernel")
+    out["autoheal"] = auto
+    out["seconds"] = time.perf_counter() - t_leg
+    return out
+
+
 def check_lockrank(path: str, graphs: dict) -> dict:
     """The cluster's processes ran with PEGASUS_LOCKRANK=1 and appended
     any lock-order violation to `path`: none may be there. `graphs`
@@ -4566,7 +5547,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 n_sample: int = CLUSTER_SAMPLE,
                 kill_at: int = CLUSTER_KILL_AT,
                 restart_at: int = CLUSTER_RESTART_AT,
-                fd: dict = None, lifecycle: bool = False) -> dict:
+                fd: dict = None, lifecycle: bool = False,
+                heal: bool = False, heal_rows: int = HEAL_ROWS) -> dict:
     """BASELINE config #3 with its three replicas, as a cluster of
     processes: one meta and replica1..3 (cluster_ini), each `python -m
     pegasus_tpu_torch.server` on the card. Through the port's shell:
@@ -4599,7 +5581,13 @@ def run_cluster(device, work: str, provider: str, counts: list,
     decree; then the doctor names no dead node, no under-replicated
     partition and no mismatch, its audit evidence covering every
     partition, and the shell prints its verdict (check_doctor_healthy).
-    With `lifecycle`, last: the backup
+    With `heal`, then the integrity loop (check_heal): a scrub drill on
+    a table `heal` (a flipped SST quarantined, the node's device bytes
+    released, the doctor degraded, the meta's re-seed, every row read
+    back from 3 replicas) and an auto-heal drill (a planted audit
+    mismatch, the collector's doctor critical and auto-healing it, its
+    incident served on /incidents with the fail point's arm as first
+    cause). With `lifecycle`, last: the backup
     restored into usertable_r (`restore_app`, followed with
     query_restore_status to ok), the read-back keys read from it with
     their values at backup time, and `batched-manual-compact <app_id>` on
@@ -4638,6 +5626,15 @@ def run_cluster(device, work: str, provider: str, counts: list,
                        "(field0, fieldlength 100), as tools/ycsb_bench.py"}}
     apps, pool, loader = {}, None, None
     lock_graphs = {}
+    # incident artifacts: the collector's (it auto-heals under
+    # PEGASUS_AUTOHEAL=1), and this process's own doctor runs'
+    incidents = os.path.join(work, "incidents")
+    coll_env = {"PEGASUS_AUTOHEAL": "1",
+                "PEGASUS_INCIDENT_DIR": os.path.join(incidents, "collector"),
+                "PEGASUS_INCIDENT_WINDOW_S": str(HEAL_INCIDENT_WINDOW_S),
+                "PEGASUS_INCIDENT_COOLDOWN_S": str(HEAL_INCIDENT_COOLDOWN_S)}
+    saved_dir = os.environ.get("PEGASUS_INCIDENT_DIR")
+    os.environ["PEGASUS_INCIDENT_DIR"] = os.path.join(incidents, "local")
     # every process checks its lock order; a violation lands in the file
     lock_file = os.path.join(work, "lockrank.jsonl")
     lock_env = {"PEGASUS_LOCKRANK": "1", "PEGASUS_LOCKRANK_FILE": lock_file}
@@ -4677,7 +5674,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
             time.sleep(0.2)
         # the collector once every node is alive: its canary table gets
         # its 3 replicas
-        apps["collector"] = _App(ini, "collector", work, env=lock_env)
+        apps["collector"] = _App(ini, "collector", work,
+                                 env=dict(lock_env, **coll_env))
         apps["collector"].wait_started(deadline)
         out["boot_s"] = time.perf_counter() - t0
         step("booted")
@@ -5035,6 +6033,12 @@ def run_cluster(device, work: str, provider: str, counts: list,
                                  f" records, the table {table_records}")
         step("compaction checked")
 
+        if heal:
+            out["heal"] = check_heal(
+                meta, coll, extra["collector_http_port"], addrs, names, work,
+                coll_env["PEGASUS_INCIDENT_DIR"], heal_rows, on_card)
+            step("heal leg")
+
         if lifecycle:
             # ---- restore the backup into a new table and read it back
             t0 = time.perf_counter()
@@ -5105,6 +6109,10 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 "pids": {n: a.proc.pid for n, a in apps.items()},
                 "this_pid": os.getpid()}
     finally:
+        if saved_dir is None:
+            os.environ.pop("PEGASUS_INCIDENT_DIR", None)
+        else:
+            os.environ["PEGASUS_INCIDENT_DIR"] = saved_dir
         if pool is not None:
             pool.terminate()
             pool.join()
@@ -5245,6 +6253,7 @@ def main(argv=()) -> int:
                                  f"ptxas report: {usage}")
 
     kern = check_kernel(device)
+    kern["mixed_widths"] = check_mixed_widths(device)
     kern_b = check_batched_kernel(device)
     fence, fence_dr, fence_keys = check_fence_kernel(device)
     emit("kernel", **kern, batched=kern_b, fence_lookup=fence)
@@ -5379,9 +6388,14 @@ def main(argv=()) -> int:
                 f" compaction {comp['merge_launches']} (want "
                 f"{comp['expected_launches']})")
         torch.cuda.empty_cache()
+        geo = run_geo(device, os.path.join(work, "geo"))
+        emit("geo", **geo)
+        shutil.rmtree(os.path.join(work, "geo"), ignore_errors=True)
+        torch.cuda.empty_cache()
         cluster = run_cluster(device, os.path.join(work, "cluster"),
                               os.path.join(work, "serve", "provider"),
-                              serve["partition_records"], lifecycle=True)
+                              serve["partition_records"], lifecycle=True,
+                              heal=True)
         emit("cluster", **cluster)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5415,7 +6429,15 @@ def main(argv=()) -> int:
         "cluster_split_read_back": sum(
             life["split_read_back"]["fence_launches"].values()),
         "cluster_restore_read_back": sum(
-            life["restore"]["read_back"]["fence_launches"].values())}
+            life["restore"]["read_back"]["fence_launches"].values()),
+        "geo": {"before_compaction": geo["search_before_compaction"]
+                ["fence_launches"],
+                "after_compaction": geo["search_after_compaction"]
+                ["fence_launches"]},
+        "cluster.heal": {
+            leg: sum(cluster["heal"][leg]["read_back"]
+                     ["fence_launches"].values())
+            for leg in ("scrub", "autoheal")}}
     # the merge's launches on every path of the main run, per phase (the
     # cluster's scraped from its processes)
     node = life["node_compaction"]
@@ -5432,7 +6454,9 @@ def main(argv=()) -> int:
             cluster["load"]["merge_launches"].values()),
             "scheduler_leg": sum(cluster["sched"]["merge_launches"].values()),
             "split_gc_compaction": sum(
-                cluster["compaction"]["merge_launches"].values())}}
+                cluster["compaction"]["merge_launches"].values())},
+        "geo": {"ingest": geo["ingest_merge_launches"],
+                "compaction": geo["compaction"]["merge_launches"]}}
     batched_launches = {
         "batched": {"calls": batched["merge_calls"],
                     "rows": batched["merge_rows"]},
@@ -5445,7 +6469,7 @@ def main(argv=()) -> int:
         "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/fence_lookup.cu",
         "replaces": "pegasus_tpu/ops/device_lookup.py:63",
-        "launches": sum(fence_launches.values()),
+        "launches": _total(fence_launches),
         "max_abs_err": fence["max_abs_err"],
         "ms": fence_64["ms"],
         "plain_ms": fence_64["plain_ms"],
@@ -5510,6 +6534,12 @@ def main(argv=()) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _total(counts) -> int:
+    """The sum of a launch-count dict's numbers, nested dicts included."""
+    return sum(_total(v) if isinstance(v, dict) else v
+               for v in counts.values())
 
 
 def _child_pids() -> list:

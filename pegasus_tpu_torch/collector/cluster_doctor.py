@@ -24,12 +24,15 @@ cluster's RPC surfaces:
 Both are plain functions over RPC surfaces, so the shell, tests and
 chip_smoke.py call the same code against either package's cluster.
 
-Not ported yet: the cross-cluster audit (it needs duplication), and the
-flight-recorder capture and auto-heal hooks the reference runs on each
-verdict; the port's verdict carries no ``incident`` or ``autoheal`` key
-(ROADMAP Queue 1 items 3 and 5). The port has no lane guard, so no port
-node exports ``*.lane.breaker_open`` and the breaker check never fires
-against one.
+After each verdict the doctor runs the reference's two hooks: the
+flight recorder (collector/flight_recorder.py) captures an incident on
+a healthy -> degraded / critical transition, and the auto-healer
+(collector/auto_heal.py) quarantines the one replica an audit isolates;
+their results ride the verdict as ``incident`` and ``autoheal``.
+
+Not ported yet: the cross-cluster audit (it needs duplication; ROADMAP
+Queue 1 item 5). The port has no lane guard, so no port node exports
+``*.lane.breaker_open`` and the breaker check never fires against one.
 """
 
 import json
@@ -395,6 +398,29 @@ def run_cluster_doctor(meta_addrs, pool: ConnectionPool = None,
         out = {"verdict": verdict, "causes": causes, "evidence": evidence,
                "ts": time.time()}
         _export_verdict(out)
+        # a healthy -> degraded/critical transition captures an incident;
+        # its id rides the verdict so every doctor surface points at the
+        # evidence bundle
+        try:
+            from .flight_recorder import RECORDER
+
+            incident = RECORDER.observe_verdict(out, list(meta_addrs),
+                                                caller=caller)
+            if incident:
+                out["incident"] = incident
+        except Exception as e:  # noqa: BLE001 - the verdict must never
+            # fail because evidence gathering did
+            print(f"[doctor] incident capture failed: {e!r}", flush=True)
+        # audit-driven auto-heal: gated off unless PEGASUS_AUTOHEAL=1,
+        # interlocked and rate-limited inside
+        try:
+            from .auto_heal import AUTO_HEALER
+
+            healed = AUTO_HEALER.observe_verdict(out, caller=caller)
+            if healed:
+                out["autoheal"] = healed
+        except Exception as e:  # noqa: BLE001 - heal is best-effort
+            print(f"[doctor] auto-heal failed: {e!r}", flush=True)
         return out
     finally:
         if own:
@@ -564,8 +590,7 @@ def _check_audit(state, causes, evidence) -> None:
 def _check_quarantine(state, causes, evidence) -> None:
     """Beacon-reported QUARANTINED replicas: degraded, not critical (the
     healthy members keep serving); the cause names node, partition and
-    reason. Port nodes do not quarantine yet (ROADMAP Queue 1 item 3);
-    a reference node's beacon still shows here."""
+    reason."""
     quarantined = []
     for node, states in state.get("replica_states", {}).items():
         for gpid, st in states.items():

@@ -293,9 +293,16 @@ extern "C" int merge_path_merge_i64(const void* a, int64_t la, const void* b,
                     static_cast<unsigned>(batch));
   const size_t smem = static_cast<size_t>(nk) * kTile * sizeof(uint32_t) +
                       kTile * sizeof(uint16_t);
+  // the kernel's opt-in limit is one value for every nk: merges of
+  // different key widths launch from several host threads at once, and a
+  // limit set to this launch's size could be lowered by another thread
+  // between the set and the launch (cudaErrorInvalidValue)
+  const size_t smem_max =
+      static_cast<size_t>(kMaxKeys) * kTile * sizeof(uint32_t) +
+      kTile * sizeof(uint16_t);
   const cudaError_t err = cudaFuncSetAttribute(
       merge_path_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(smem_max));
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_path_tile_kernel<<<blocks, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(

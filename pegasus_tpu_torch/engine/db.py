@@ -96,7 +96,8 @@ _UNRESOLVED = object()  # get_batch: "not answered yet"
 
 # batched reads probe an SST's resident run once it has this many
 # candidate keys; below it the host binary search serves (a lone key
-# never pays a device round trip)
+# never pays a device round trip). EngineOptions.device_read_min_batch
+# and PEGASUS_DEVICE_READ_MIN_BATCH override it.
 DEVICE_READ_MIN_BATCH = 2
 # state_digest's array path: the most rows the sources newer than the
 # base run may hold (each is looked up in the base one at a time)
@@ -228,6 +229,11 @@ class EngineOptions:
     level_base_bytes: int = 256 << 20        # L1 budget; Ln = base * ratio^(n-1)
     level_size_ratio: int = 10
     device_cache_bytes: int = 8 << 30  # device-memory budget for resident runs
+    # smallest per-SST candidate batch worth a device probe (below it the
+    # host binary search serves); None = PEGASUS_DEVICE_READ_MIN_BATCH,
+    # default 2, so a lone sequential get or range never pays a device
+    # round trip (the reference's option and knob)
+    device_read_min_batch: int = None
     # value residency: pin uniform-layout value rows on the device with
     # the key columns so compaction outputs gather their values there
     device_values: bool = False
@@ -351,6 +357,11 @@ class LsmEngine:
         self._pin_token = 0           #: guarded_by self.checkpoint_lock
         # decree -> cached decree-anchored digest of that checkpoint
         self._ckpt_digests = {}       #: guarded_by self.checkpoint_lock
+        mb = self.opts.device_read_min_batch
+        self._device_read_min = max(1, int(
+            os.environ.get("PEGASUS_DEVICE_READ_MIN_BATCH",
+                           str(DEVICE_READ_MIN_BATCH)))
+            if mb is None else mb)
         # corruption callout: the hosting replica installs callable(exc)
         # here; a read hitting a CorruptionError notifies it and re-raises
         self.corruption_hook = None
@@ -715,7 +726,8 @@ class LsmEngine:
 
     def _probe_sst_impl(self, sst, cand, keys, nows, res, use_device) -> None:
         dr = (self._read_index(sst)
-              if use_device and len(cand) >= DEVICE_READ_MIN_BATCH else None)
+              if use_device and len(cand) >= self._device_read_min
+              else None)
         if dr is not None:
             from ..ops.device_lookup import lookup_batch
 
@@ -902,7 +914,7 @@ class LsmEngine:
             if not cand:
                 continue
             dr = (self._read_index(sst)
-                  if len(cand) >= DEVICE_READ_MIN_BATCH else None)
+                  if len(cand) >= self._device_read_min else None)
             if dr is not None:
                 from ..ops.device_lookup import range_batch
 

@@ -15,7 +15,7 @@ split, cold backup and restore, meta-driven bulk-load sessions and
 backup policies (run by the meta app's policy timer). Not ported yet, so
 their codes stay unregistered and answer ERR_HANDLER_NOT_FOUND:
 duplication, recall and purge of dropped apps, recover, ddd_diagnose,
-the quarantine repair, balance and propose. The
+balance and propose. The
 state file's entries for those planes (duplications, soft-dropped apps)
 are kept as loaded and written back unchanged.
 """
@@ -1097,6 +1097,68 @@ class MetaServer:
         # learner path above)
         self._install_partition(app, pc)
         return 1
+
+    def repair_quarantined(self) -> int:
+        """Heal quarantined replicas: a beacon state with
+        status QUARANTINED means that node pulled its copy off the
+        serving path after a corruption hit and moved the data dir into
+        forensics — the copy is gone. Treat it exactly like a lost
+        replica: drop the node from the partition's membership
+        (`_reconfigure_partition`), which re-seeds a learner from the
+        healthy primary via the block-shipped learn. The quarantined
+        node itself is alive and now a non-member, so it is usually the
+        re-seed target — the heal lands a fresh dir on the same node.
+        Membership is the dedup: once dropped, the still-QUARANTINED
+        beacon state no longer names a member, so a heal fires once.
+        Returns the number of partitions reconfigured."""
+        if self.level in ("stopped", "blind", "freezed"):
+            return 0
+        with self._lock:
+            apps_by_id = {app.app_id: app for app in self._apps.values()}
+            hits = []
+            for node, states in self._node_states.items():
+                for gpid, st in states.items():
+                    if st.get("status") != "QUARANTINED":
+                        continue
+                    a, _, p = gpid.partition(".")
+                    try:
+                        app_id, pidx = int(a), int(p)
+                    except ValueError:
+                        continue
+                    app = apps_by_id.get(app_id)
+                    pcs = self._parts.get(app_id) or []
+                    if app is None or pidx >= len(pcs):
+                        continue
+                    pc = pcs[pidx]
+                    if pc.primary == node or node in pc.secondaries:
+                        hits.append((app, pc, node))
+        from ..runtime import events
+
+        healed = 0
+        for app, pc, node in hits:
+            events.emit("meta.heal_quarantine", "warn",
+                        gpid=f"{app.app_id}.{pc.pidx}", node=node)
+            # ack the quarantine BEFORE reconfiguring: the close clears
+            # the node's beaconed QUARANTINED record (otherwise it
+            # reports the lost copy forever and the doctor stays
+            # degraded on a healed partition). The quarantined node is
+            # alive and usually the reconfigure's re-seed target — an
+            # after-the-fact close would tear down the replica the
+            # re-seed just landed on that same node.
+            self._send_to_node(node, RPC_CLOSE_REPLICA,
+                               mm.CloseReplicaRequest(app.app_id, pc.pidx),
+                               ignore_errors=True)
+            with self._lock:
+                # drop the folded state we just acted on: a second
+                # repair tick inside one beacon interval must not read
+                # the stale QUARANTINED entry and nuke the re-seeded
+                # copy; the next beacon repopulates the truth
+                st = self._node_states.get(node)
+                if st:
+                    st.pop(f"{app.app_id}.{pc.pidx}", None)
+            self._reconfigure_partition(app, pc, dead=node)
+            healed += 1
+        return healed
 
     def _install_partition(self, app, pc: mm.PartitionConfig, learners=()):
         """Push the view to every member (primary first), seed learners.

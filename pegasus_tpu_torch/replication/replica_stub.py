@@ -29,10 +29,20 @@ The collector's hotkey loop reaches a partition through
 `detect_hotkey` (the server's hotkey collector) and pins a read-hot
 partition's runs on the card with `set-read-residency`.
 
+The integrity plane: every engine's corruption hook, the maintenance
+loop's background scrub (one replica per tick past its cadence), and
+the `scrub-replica`, `quarantine-replica` and `quarantine-status`
+commands. A finding quarantines the replica: it leaves the serving path,
+its engine closes (on a cuda node that frees its device-resident runs,
+and the `engine.hbm.*` gauges stop counting them), its data dir moves
+into a bounded forensics dir, and its beacon reports QUARANTINED until
+the meta's `repair_quarantined` re-seeds it. Knobs:
+PEGASUS_SCRUB_INTERVAL_S (300; 0 turns the background scrub off),
+PEGASUS_SCRUB_BPS (0: unthrottled) and PEGASUS_QUARANTINE_KEEP (4).
+
 Not ported yet (ROADMAP Queue 1): partition groups (a group_spec raises,
 naming the module; the socket adoption loop, and with it the scheduler's
-per-group split of the device cap), duplication, quarantine and
-scrub-replica.
+per-group split of the device cap) and duplication.
 """
 
 import json
@@ -193,6 +203,19 @@ class ReplicaStub:
         self.pool = ConnectionPool()
         self._lock = threading.RLock()
         self._replicas = {}      #: guarded_by self._lock
+        # the integrity plane: partitions pulled off the serving path
+        # after a corruption hit; gpid "a.p" -> forensics record, reported
+        # in beacons (status QUARANTINED) until a re-open clears it
+        self._quarantined = {}   #: guarded_by self._lock
+        # gpids with an async read-path quarantine already in flight
+        self._quarantining = set()  #: guarded_by self._lock
+        # (app_id, pidx) -> monotonic ts of the last background scrub
+        self._last_scrub = {}    #: guarded_by self._lock
+        self._scrub_interval = float(
+            os.environ.get("PEGASUS_SCRUB_INTERVAL_S", "300"))
+        self._scrub_bps = float(os.environ.get("PEGASUS_SCRUB_BPS", "0"))
+        self._quarantine_keep = int(
+            os.environ.get("PEGASUS_QUARANTINE_KEEP", "4"))
         self._service = ReplicaService()
         self._service.set_write_router(self._route_write)
         self.rpc = RpcServer(host, port)
@@ -229,6 +252,11 @@ class ReplicaStub:
                                self._cmd_compact_sched_policy)
         self.commands.register("compact-sched-status",
                                self._cmd_compact_sched_status)
+        self.commands.register("scrub-replica", self._cmd_scrub_replica)
+        self.commands.register("quarantine-replica",
+                               self._cmd_quarantine_replica)
+        self.commands.register("quarantine-status",
+                               self._cmd_quarantine_status)
         self.rpc.register(RPC_REMOTE_COMMAND, self.commands.rpc_handler)
         self.rpc.start()
         self.address = f"{self.rpc.address[0]}:{self.rpc.address[1]}"
@@ -259,8 +287,8 @@ class ReplicaStub:
         """Per-replica timers (the reference's replica-level checkpoint
         timer and manual-compact trigger checks): periodic async
         checkpoint, plog GC behind the durable decree, env-driven
-        periodic manual compaction, then the idle retry of a held L0
-        trigger."""
+        periodic manual compaction, the idle retry of a held L0 trigger,
+        then the background scrub."""
         while not self._stop.wait(self._maint_interval):
             with self._lock:
                 reps = list(self._replicas.values())
@@ -282,6 +310,13 @@ class ReplicaStub:
                         break
                 except Exception as e:
                     print(f"[maintenance] {rep.name}: {e!r}", flush=True)
+            # re-verify on-disk checksums off the serving path, one
+            # replica per tick past its cadence (rate-limited inside
+            # engine.scrub)
+            try:
+                self._scrub_tick(reps)
+            except Exception as e:
+                print(f"[maintenance] scrub: {e!r}", flush=True)
 
     # ------------------------------------------------------------- beacons
 
@@ -303,6 +338,12 @@ class ReplicaStub:
                                "decree": la.get("decree", 0),
                                "digest": la.get("digest", "")}
             states.append(json.dumps(st))
+        # quarantined partitions ride the same list as synthetic entries:
+        # the meta's fold sees status QUARANTINED (repair_quarantined) and
+        # the doctor names them
+        for gpid, q in self._quarantined.items():
+            states.append(json.dumps({"gpid": gpid, "status": "QUARANTINED",
+                                      "quarantine": q}))
         frag = self._table_stats_fragment_locked()
         if frag is not None:
             states.append(frag)
@@ -395,7 +436,14 @@ class ReplicaStub:
                               self.options_factory(),
                               peers=self._peer_factory(req.app_id, req.pidx),
                               cluster_id=self.cluster_id)
+                # read-path corruption -> async quarantine; the Replica
+                # re-installs the hook on every engine swap (a learn)
+                rep.set_corruption_hook(
+                    self._corruption_hook(req.app_id, req.pidx))
                 self._replicas[key] = rep
+                # a re-open after a quarantine is the heal: the meta
+                # seeded a fresh dir, and the partition serves again
+                self._quarantined.pop(f"{req.app_id}.{req.pidx}", None)
             # Split seeding is ONCE-ONLY and SEED-BEFORE-SERVE:
             #  * once-only: when the meta retries a split whose seeding
             #    failed part-way, a child that did seed and then took
@@ -484,9 +532,180 @@ class ReplicaStub:
         with self._lock:
             rep = self._replicas.pop((req.app_id, req.pidx), None)
             self._service.remove_replica(req.app_id, req.pidx)
+            # a close is also the meta's quarantine ack (the re-seed may
+            # land on another node): stop beaconing the lost copy
+            self._quarantined.pop(f"{req.app_id}.{req.pidx}", None)
+            self._quarantining.discard(f"{req.app_id}.{req.pidx}")
         if rep:
             rep.close()
         return b""
+
+    # -------------------------------------------------- integrity plane
+
+    def _corruption_hook(self, app_id: int, pidx: int):
+        """The engine's read-path corruption callout for one partition:
+        hand off to an async quarantine thread (the engine cannot close
+        itself from inside a failing read), deduplicated so a burst of
+        reads against one rotten SST starts exactly one quarantine."""
+        gpid = f"{app_id}.{pidx}"
+
+        def on_corruption(exc):
+            with self._lock:
+                if gpid in self._quarantining or gpid in self._quarantined \
+                        or (app_id, pidx) not in self._replicas:
+                    return
+                self._quarantining.add(gpid)
+            spawn_thread(self.quarantine_replica, app_id, pidx,
+                         str(getattr(exc, "detail", None) or exc), "read",
+                         daemon=True, name=f"quarantine.{gpid}")
+
+        return on_corruption
+
+    def quarantine_replica(self, app_id: int, pidx: int, reason: str,
+                           source: str = "command") -> dict:
+        """Pull one partition off the serving path after a corruption hit
+        (read path, scrub finding, or an audit-named mismatch): unregister
+        it so clients get typed errors instead of garbage, close it (its
+        engine releases every device-resident run, so the node's
+        `engine.hbm.*` gauges stop counting them), move its data dir into
+        a bounded-retention `quarantine/` forensics dir, and record the
+        state so beacons report QUARANTINED: the meta then re-seeds the
+        partition like any lost replica."""
+        gpid = f"{app_id}.{pidx}"
+        key = (app_id, pidx)
+        with self._lock:
+            rep = self._replicas.pop(key, None)
+            if rep is None:
+                self._quarantining.discard(gpid)
+                prior = self._quarantined.get(gpid)
+                return dict(prior) if prior else {"error": f"no replica {gpid}"}
+            self._service.remove_replica(app_id, pidx)
+            self._last_scrub.pop(key, None)
+        try:
+            rep.close()
+        except Exception as e:  # noqa: BLE001 - the forensics move still runs
+            print(f"[quarantine] {gpid}: close failed: {e!r}", flush=True)
+        qroot = os.path.join(self.root, "quarantine")
+        dest = os.path.join(qroot, f"{gpid}.{int(time.time() * 1000)}")
+        try:
+            os.makedirs(qroot, exist_ok=True)
+            os.rename(rep.path, dest)
+        except OSError as e:
+            print(f"[quarantine] {gpid}: move failed: {e!r}", flush=True)
+            dest = ""
+        self._prune_quarantine(qroot)
+        record = {"reason": reason, "source": source, "dir": dest,
+                  "ts": time.time()}
+        with self._lock:
+            self._quarantined[gpid] = record
+            self._quarantining.discard(gpid)
+        counters.rate("replica.quarantine_count").increment()
+        events.emit("replica.quarantine", "error", gpid=gpid,
+                    node=self.address, reason=reason, source=source)
+        return dict(record)
+
+    def _prune_quarantine(self, qroot: str) -> None:
+        """Bound the forensics dir: keep the newest PEGASUS_QUARANTINE_KEEP
+        quarantined trees, delete the rest oldest-first."""
+        import shutil
+
+        try:
+            entries = [os.path.join(qroot, n) for n in os.listdir(qroot)]
+        except OSError:
+            return
+        entries.sort(key=lambda p: os.path.getmtime(p)
+                     if os.path.exists(p) else 0.0)
+        for victim in entries[:max(0, len(entries) - self._quarantine_keep)]:
+            shutil.rmtree(victim, ignore_errors=True)
+
+    def _scrub_tick(self, reps) -> None:
+        """The maintenance timer's scrub cadence: pick at most ONE replica
+        past its PEGASUS_SCRUB_INTERVAL_S (the oldest) and re-verify its
+        on-disk checksums."""
+        if self._scrub_interval <= 0:
+            return
+        now = time.monotonic()
+        victim = None
+        with self._lock:
+            oldest = None
+            for rep in reps:
+                k = (rep.app_id, rep.pidx)
+                if k not in self._replicas:
+                    continue  # closed or quarantined since the snapshot
+                last = self._last_scrub.get(k, 0.0)
+                # the OLDEST past-due replica, not the first in dict
+                # order: a cadence shorter than the maintenance interval
+                # leaves every replica past due at every tick
+                if (now - last >= self._scrub_interval
+                        and (oldest is None or last < oldest)):
+                    oldest = last
+                    victim = rep
+            if victim is not None:
+                self._last_scrub[(victim.app_id, victim.pidx)] = now
+        if victim is not None:
+            self._scrub_replica(victim)
+
+    def _scrub_replica(self, rep) -> dict:
+        """Scrub one replica (the engine's checksum and manifest
+        re-verify: host-side file reads; a device-resident run was primed
+        before any later rot, so only the scrub or a host read sees it)
+        and quarantine it on any finding."""
+        res = rep.server.engine.scrub(
+            rate_bytes_per_s=self._scrub_bps or None)
+        if res["findings"]:
+            f0 = res["findings"][0]
+            self.quarantine_replica(
+                rep.app_id, rep.pidx,
+                f"scrub: {f0.get('detail', '?')} ({f0.get('path', '?')})",
+                "scrub")
+            res["quarantined"] = True
+        return res
+
+    def _cmd_scrub_replica(self, args: list) -> str:
+        """`scrub-replica [app_id.pidx]`: re-verify hosted replicas'
+        on-disk checksums now (every hosted replica, or the named gpid).
+        JSON keyed by gpid."""
+        with self._lock:
+            targets = list(self._replicas.items())
+        out = {}
+        for (a, p), rep in targets:
+            gpid = f"{a}.{p}"
+            if args and args[0] != gpid:
+                continue
+            try:
+                res = self._scrub_replica(rep)
+            except Exception as e:  # noqa: BLE001 - report, keep the rest
+                out[gpid] = {"error": repr(e)}
+                continue
+            out[gpid] = {"files": res["files"], "bytes": res["bytes"],
+                         "findings": res["findings"],
+                         "errors": res.get("errors", []),
+                         "quarantined": bool(res.get("quarantined"))}
+        return json.dumps(out)
+
+    def _cmd_quarantine_replica(self, args: list) -> str:
+        """`quarantine-replica <app_id.pidx> [reason...]`: force one
+        partition into quarantine (the collector's auto-healer turns an
+        audit-named mismatch into a re-seed through this)."""
+        if not args:
+            return "usage: quarantine-replica <app_id.pidx> [reason]"
+        a, _, p = args[0].partition(".")
+        try:
+            app_id, pidx = int(a), int(p)
+        except ValueError:
+            return f"bad gpid {args[0]!r}"
+        reason = " ".join(args[1:]) or "remote-command"
+        rec = self.quarantine_replica(app_id, pidx, reason, "command")
+        if "error" in rec:
+            return ""  # not hosted here
+        return json.dumps({args[0]: rec})
+
+    def _cmd_quarantine_status(self, args: list) -> str:
+        """`quarantine-status`: this node's quarantined partitions
+        (gpid-keyed JSON)."""
+        with self._lock:
+            return json.dumps({g: dict(q)
+                               for g, q in self._quarantined.items()})
 
     def _on_replica_state(self, header, body) -> bytes:
         req = codec.decode(mm.ReplicaStateRequest, body)

@@ -1,6 +1,7 @@
 """Structured event ring: the state transitions a process records.
 
-Port of pegasus_tpu/runtime/events.py (the bounded ring and `emit`).
+Port of pegasus_tpu/runtime/events.py, whole (the bounded ring, `emit`,
+and the flight recorder's `emitted_total` / `reset`).
 Counters are levels; an event records that something happened (a merge
 finished, a tenant was refused), with a wall-clock ts and a monotone
 per-process seq:
@@ -76,6 +77,17 @@ class EventBus:
         if last is not None and last >= 0:
             out = out[-last:] if last else []
         return out
+
+    def emitted_total(self) -> int:
+        """Total events ever emitted (monotone; the ring holds the tail)."""
+        with self._lock:
+            return self._next
+
+    def reset(self) -> None:
+        """Test hook: empty the ring."""
+        with self._lock:
+            self._ring = [None] * self.capacity
+            self._next = 0
 
 
 # process-wide bus, like the counter registry and the tracer

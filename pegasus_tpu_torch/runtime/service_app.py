@@ -36,10 +36,13 @@ Every role samples the process's counters into the metric history
 with `http_port` >= 0 serves its counters and routes over HTTP
 (collector/reporter.py CounterReporter; 0 picks a free port).
 
-Not ported yet (ROADMAP Queue 1): serve groups, sharded compaction, and
-the flight recorder's `/incidents` route and `trigger-incident` command.
-A config that asks for serve groups or sharded compaction raises,
-naming it.
+The meta's failure-detector tick also heals quarantined replicas
+(MetaServer.repair_quarantined); the meta and the collector serve the
+flight recorder's `/incidents`, and the collector its
+`trigger-incident` command.
+
+Not ported yet (ROADMAP Queue 1): serve groups and sharded compaction.
+A config that asks for either raises, naming it.
 """
 
 import json
@@ -158,6 +161,18 @@ def _metrics_history_route(path: str) -> dict:
         deltas=(q.get("deltas") or ["0"])[0] not in ("0", ""))
 
 
+def _incidents_route(path: str) -> dict:
+    """GET /incidents[?id=<incident>]: the flight recorder's retained
+    incident artifacts: the list, or one full artifact by id."""
+    from ..collector.flight_recorder import RECORDER
+
+    q = parse_qs(urlparse(path).query)
+    incident_id = (q.get("id") or [""])[0]
+    if incident_id:
+        return {"incident": RECORDER.load(incident_id)}
+    return {"incidents": RECORDER.list_incidents()}
+
+
 def _health_cluster_route(meta_addrs):
     """GET /health/cluster[?scrape=0][&last=N]: the cluster doctor's one
     verdict, the twin of the `cluster-doctor` command (?scrape=0 skips
@@ -240,6 +255,7 @@ def _meta_http_routes(meta) -> dict:
             "/jobs": _jobs_route,
             "/events": _events_route,
             "/metrics/history": _metrics_history_route,
+            "/incidents": _incidents_route,
             "/tables": _tables_meta_route(meta),
             "/slo": _slo_route}
 
@@ -363,6 +379,9 @@ class MetaApp:
         try:
             if self._is_leader():  # followers watch, never act
                 self.meta.check_leases()
+                # a beacon reporting QUARANTINED is a lost copy:
+                # reconfigure and re-seed on the lease cadence
+                self.meta.repair_quarantined()
                 self.meta.repair_under_replication()
         except Exception as e:  # a fenced persist (or any failure) must
             # not kill the timer for the process lifetime
@@ -515,6 +534,8 @@ class CollectorApp:
                                self._cmd_compact_sched_status)
         self.commands.register("cluster-doctor", self._cmd_cluster_doctor)
         self.commands.register("trigger-audit", self._cmd_trigger_audit)
+        self.commands.register("trigger-incident",
+                               self._cmd_trigger_incident)
         self.rpc.register("RPC_CLI_CLI_CALL", self.commands.rpc_handler)
         self.reporter = _reporter(config, section, self._routes)
 
@@ -529,6 +550,7 @@ class CollectorApp:
                 "/jobs": _jobs_route,
                 "/events": _events_route,
                 "/metrics/history": _metrics_history_route,
+                "/incidents": _incidents_route,
                 "/tables": tables_route,
                 "/slo": _slo_route,
                 "/health/cluster": _health_cluster_route(self.metas)}
@@ -576,6 +598,21 @@ class CollectorApp:
         return json.dumps(run_cluster_audit(
             list(self.metas), pool=self.collector.pool,
             apps=list(args) or None), indent=1)
+
+    def _cmd_trigger_incident(self, args) -> str:
+        """trigger-incident [reason]: capture a flight-recorder incident
+        now (every alive node's event ring, metric history, slow ledger
+        and recent traces, aligned on one anchor, first cause found,
+        artifact retained; served as GET /incidents and the shell's
+        flight_recorder)."""
+        from ..collector.flight_recorder import RECORDER
+
+        reason = " ".join(args) if args else "manual trigger"
+        inc = RECORDER.capture(list(self.metas), reason=reason,
+                               trigger="manual", pool=self.collector.pool)
+        return json.dumps({"incident": inc["id"],
+                           "path": inc.get("path", ""),
+                           "first_cause": inc.get("first_cause")}, indent=1)
 
     @property
     def address(self):

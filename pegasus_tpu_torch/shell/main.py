@@ -9,14 +9,16 @@ cluster info, table DDL, nodes, data ops (set/get/del/multi_*/ttl/incr/
 scans/count_data/copy_data), app envs and manual compaction, remote
 commands and counters, the traces, jobs and table ledgers, the
 consistency audit, the cluster doctor, the compaction scheduler's tokens,
-hotkey detection, SLO verdicts, app stats, backup and restore, backup
-policies, bulk-load sessions, the meta level and the offline debuggers.
-The shell runs the audit, the doctor, `app_stat`'s collection round and
-`slow_requests --cluster`'s rollup in its own process, as the
-reference's does; `slo <collector>` reads the collector's verdicts.
+hotkey detection, SLO verdicts, app stats, the integrity plane (scrub,
+quarantine status, the flight recorder's incidents), backup and restore,
+backup policies, bulk-load sessions, the meta level and the offline
+debuggers. The shell runs the audit, the doctor, `app_stat`'s collection
+round, `slow_requests --cluster`'s rollup and `flight_recorder`'s
+listing and captures in its own process, as the reference's does;
+`slo <collector>` reads the collector's verdicts.
 
-A command whose plane the port does not have yet (the flight recorder,
-duplication, balance, recover, ddd_diagnose, ...) prints one error line
+A command whose plane the port does not have yet (duplication, balance,
+recover, ddd_diagnose, ...) prints one error line
 naming the missing module and, in
 one-shot mode, exits non-zero. The reference shell has no split command:
 a split is the RPC_CM_START_PARTITION_SPLIT DDL.
@@ -44,11 +46,6 @@ from ..runtime.table_stats import fold_snapshots, top_k
 NOT_PORTED = {
     "recall": "the meta's recall of soft-dropped apps "
               "(meta/meta_server.py RPC_CM_RECALL_APP)",
-    "quarantine_status": "quarantine and scrub "
-                         "(replication/replica_stub.py quarantine-status)",
-    "scrub_replica": "quarantine and scrub "
-                     "(replication/replica_stub.py scrub-replica)",
-    "flight_recorder": "the flight recorder (collector/flight_recorder.py)",
     "cross_cluster_audit": "duplication (replication/duplicator.py)",
     "propose": "balance (meta/meta_server.py RPC_CM_PROPOSE_BALANCER)",
     "balance": "balance (meta/meta_server.py RPC_CM_START_BALANCE)",
@@ -144,11 +141,11 @@ class Shell:
                               "device-health watchdog state on every node "
                               "(last_ok / last_error / wedged_at_stage / "
                               "open stages)"),
-            "quarantine_status": (self._not_ported("quarantine_status"),
+            "quarantine_status": (self.cmd_quarantine_status,
                                   "quarantine_status [node] — replicas "
                                   "fenced for on-disk corruption (reason, "
                                   "source, forensics dir) per node"),
-            "scrub_replica": (self._not_ported("scrub_replica"),
+            "scrub_replica": (self.cmd_scrub_replica,
                               "scrub_replica <node|all> [gpid] — force one "
                               "integrity scrub pass now (checksum-verify "
                               "live SSTs off the serving path; corrupt "
@@ -170,7 +167,7 @@ class Shell:
                        "event ring (flight recorder): breaker trips, "
                        "scheduler tokens, elections, splits, fail-point "
                        "arms... per process, pid-keyed"),
-            "flight_recorder": (self._not_ported("flight_recorder"),
+            "flight_recorder": (self.cmd_flight_recorder,
                                 "flight_recorder [list|show <id>|capture "
                                 "[reason]] — retained incident artifacts "
                                 "(auto-captured on doctor degradation / "
@@ -682,6 +679,18 @@ class Shell:
     def cmd_device_health(self, args):
         self.cmd_remote_command(["all", "device-health"])
 
+    def cmd_quarantine_status(self, args):
+        if args:
+            self.p(self._node_command(args[0], "quarantine-status", args[1:]))
+        else:
+            self.cmd_remote_command(["all", "quarantine-status"])
+
+    def cmd_scrub_replica(self, args):
+        if not args:
+            self.p("usage: scrub_replica <node|all> [gpid]")
+            return
+        self.cmd_remote_command([args[0], "scrub-replica"] + args[1:])
+
     def cmd_request_trace(self, args):
         if args:
             self.p(self._node_command(args[0], "request-trace-dump",
@@ -767,6 +776,30 @@ class Shell:
             self.p(self._node_command(args[0], "events-dump", args[1:]))
         else:
             self.cmd_remote_command(["all", "events-dump"])
+
+    def cmd_flight_recorder(self, args):
+        from ..collector.flight_recorder import RECORDER
+
+        sub = args[0] if args else "list"
+        if sub == "capture":
+            reason = " ".join(args[1:]) or "shell capture"
+            inc = RECORDER.capture(self.meta_addrs, reason=reason,
+                                   trigger="shell", pool=self.pool)
+            self.p(json.dumps({"id": inc["id"], "path": inc["path"],
+                               "first_cause": inc["first_cause"],
+                               "timeline_events": len(inc["timeline"]),
+                               "errors": inc["errors"]}, indent=1))
+        elif sub == "show" and len(args) > 1:
+            inc = RECORDER.load(args[1])
+            self.p(json.dumps(inc, indent=1) if inc
+                   else f"no retained incident {args[1]!r}")
+        else:
+            incidents = RECORDER.list_incidents()
+            if not incidents:
+                self.p("no retained incidents")
+            for i in incidents:
+                self.p(f"{i['id']}  trigger={i['trigger']} "
+                       f"first_cause={i['first_cause']}  {i['reason']}")
 
     def cmd_trigger_audit(self, args):
         from ..collector.cluster_doctor import run_cluster_audit

@@ -8,9 +8,9 @@ sets JAX up for the CPU tests),
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each test skips without a card. The cases are chip_smoke.py's: the
-merge-path kernel (2-D and batched) and the fence-lookup kernel at every
-lanes-per-query choice, each byte-equal to its plain version and counted
-as one launch. The card tests that compare with the JAX package
+merge-path kernel (2-D, two key widths from 8 threads at once, and
+batched) and the fence-lookup kernel at every lanes-per-query choice,
+each byte-equal to its plain version and counted as one launch. The card tests that compare with the JAX package
 (tests/test_torch_onebox.py, test_torch_server.py) stay beside their CPU
 twins.
 """
@@ -44,6 +44,14 @@ def test_merge_kernel_matches_plain_on_card(card):
         assert torch.equal(got, merge_two_sorted_plain(ta, tb, nk)), name
         # and the partition pass against the plain splits
         chip_smoke._check_merge(ta, tb, nk, name)
+
+
+@pytest.mark.cuda
+def test_merges_of_mixed_widths_from_many_threads_on_card(card):
+    """nk 4 and 10 launched from 8 host threads at once (two tables'
+    ingests): every merge byte-equal to the plain one."""
+    rep = chip_smoke.check_mixed_widths(card)
+    assert rep["nk"] == [4, 10] and rep["merges"] == 64
 
 
 @pytest.mark.cuda

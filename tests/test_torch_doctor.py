@@ -14,9 +14,10 @@ against pegasus_tpu's, in one process.
 - The shell's trigger_audit and cluster_doctor print the reference
   shell's lines.
 
-The reference's doctor also feeds its verdict to the flight recorder and
-auto-heal, which the port has not ported yet: those hooks are stubbed
-out here, and only `verdict` and `causes` are compared.
+Both doctors also feed their verdicts to the flight recorder and
+auto-heal (tests/test_torch_heal.py holds those to each other): the
+hooks of both packages are stubbed out here, and only `verdict` and
+`causes` are compared.
 """
 
 import io
@@ -48,15 +49,20 @@ CHECKS = ("_check_nodes", "_check_partitions", "_check_lag",
 
 @pytest.fixture(autouse=True)
 def _reference_hooks(monkeypatch):
-    """The port has no flight recorder, auto-heal or SLO evaluator yet:
-    the reference's hooks are stubbed and both packages' SLO verdicts
-    cleared (other tests in the process may have left some)."""
+    """The flight recorder's and the auto-healer's doctor hooks are
+    stubbed in both packages (tests/test_torch_heal.py holds them to each
+    other), and both packages' SLO verdicts cleared (other tests in the
+    process may have left some)."""
     from pegasus_tpu.collector import auto_heal, flight_recorder
+    from pegasus_tpu_torch.collector import auto_heal as port_heal
+    from pegasus_tpu_torch.collector import flight_recorder as port_fr
 
-    monkeypatch.setattr(flight_recorder.RECORDER, "observe_verdict",
-                        lambda *a, **k: None)
-    monkeypatch.setattr(auto_heal.AUTO_HEALER, "observe_verdict",
-                        lambda *a, **k: None)
+    for mod in (flight_recorder, port_fr):
+        monkeypatch.setattr(mod.RECORDER, "observe_verdict",
+                            lambda *a, **k: None)
+    for mod in (auto_heal, port_heal):
+        monkeypatch.setattr(mod.AUTO_HEALER, "observe_verdict",
+                            lambda *a, **k: None)
     ref_ic.reset_slo()
     port_ic.reset_slo()
 

@@ -296,11 +296,11 @@ def test_one_shot_shell_and_exit_codes(cluster):
     assert r.returncode == 0
     assert r.stdout.startswith("create app oneshot succeed, id=")
     r = _py(["pegasus_tpu_torch.shell", "--meta", cluster.meta_addr,
-             "flight_recorder", "list"])
+             "recall", "1"])
     assert r.returncode == 1 and "Traceback" not in r.stderr
-    assert r.stdout == ("ERROR: flight_recorder: not ported to "
-                        "pegasus_tpu_torch yet (needs the flight recorder "
-                        "(collector/flight_recorder.py))\n")
+    assert r.stdout == ("ERROR: recall: not ported to pegasus_tpu_torch "
+                        "yet (needs the meta's recall of soft-dropped apps "
+                        "(meta/meta_server.py RPC_CM_RECALL_APP))\n")
 
 
 def test_sample_prints_the_reference_lines(cluster):

@@ -35,6 +35,19 @@ def test_kernel_cases_are_sorted_merges():
         assert sorted(got[nk].tolist()) == sorted(cat[nk].tolist()), name
 
 
+def test_mixed_width_cases_are_sorted_merges():
+    """The kernel phase's mixed-width cases (nk 4 and 10, one pair per
+    thread) merge to a numpy lexsort of the same rows."""
+    cases = chip_smoke.mixed_width_cases()
+    assert sorted({nk for _, _, _, nk in cases}) == [4, 10]
+    for name, a, b, nk in cases:
+        got = merge_two_sorted(torch.from_numpy(a), torch.from_numpy(b),
+                               nk).numpy()
+        cat = np.concatenate([a, b], axis=1)
+        order = np.lexsort(tuple(cat[c] for c in range(nk - 1, -1, -1)))
+        np.testing.assert_array_equal(got[:nk], cat[:nk, order], name)
+
+
 def test_engine_phases_at_tiny_size(tmp_path):
     runs = chip_smoke.fill(8000)
     assert len(runs) == 4 and all(r.n > 0 for r in runs)
@@ -469,10 +482,15 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     write kept), the GC compaction of every replica (each primary held
     to the cpu backend under mask 7, owning only its keys, the
     primaries' records summing to the table's), the read-back through 8
-    partitions, all 24 replicas' audit digests equal, the restore into
-    a new table read back with the backup-time values, and the restored
-    table's node compaction through the batched path, each replica held
-    to the cpu backend (run_cluster raises on any mismatch)."""
+    partitions, all 24 replicas' audit digests equal, the heal leg as
+    main() runs it (600 rows: a flipped SST scrubbed, quarantined, its
+    device bytes released and the doctor degraded, re-seeded and read
+    back from 3 replicas; a planted audit mismatch auto-healed by the
+    collector, its incident's first cause the fail point's arm), the
+    restore into a new table read back with the backup-time values, and
+    the restored table's node compaction through the batched path, each
+    replica held to the cpu backend (run_cluster raises on any
+    mismatch)."""
     provider = str(tmp_path / "provider")
     counts = chip_smoke.write_provider(provider, "usertable", 6000, 4,
                                        chip_smoke.SERVE_FILES)
@@ -481,7 +499,8 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
         n_parts=4, n_ops=1200, n_threads=4, n_sample=300, kill_at=300,
         restart_at=700, fd={"beacon_interval_seconds": 0.2,
                             "grace_seconds": 2,
-                            "check_interval_seconds": 0.5}, lifecycle=True)
+                            "check_interval_seconds": 0.5}, lifecycle=True,
+        heal=True, heal_rows=600)
     life = rep["lifecycle"]
     assert "4/4 partitions, 6000 records" in rep["load"]["session"]
     assert life["backup"]["bytes"] > 0
@@ -502,6 +521,86 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     assert sum(s["batched"] for s in
                life["node_compaction"]["stats"].values()) == 12
     assert set(rep["stop_rcs"].values()) == {0}
+    heal = rep["heal"]
+    scrub, auto = heal["scrub"], heal["autoheal"]
+    assert "crc32 mismatch" in scrub["finding"]
+    assert scrub["resident_bytes_fell"] > 0
+    before, quarantined, after = scrub["resident_bytes"]
+    assert quarantined < before and after > quarantined
+    assert scrub["doctor"]["verdict"] == "degraded"
+    assert scrub["doctor"]["incident"]
+    for leg in (scrub, auto):
+        assert leg["audit"]["replicas"] == 12
+        assert leg["read_back"] == dict(leg["read_back"], rows=600,
+                                        replicas=3)
+    assert auto["doctor"]["verdict"] == "critical"
+    assert auto["doctor"]["autoheal"] == [{"gpid": auto["gpid"],
+                                           "node": auto["victim"]}]
+    assert auto["incident"]["id"] == auto["doctor"]["incident"]
+    assert (auto["incident"]["first_cause"], auto["incident"]["point"],
+            auto["incident"]["node"]) == ("failpoint.arm", "audit.digest",
+                                          auto["victim"])
+
+
+def test_geo_phase_at_tiny_size(tmp_path):
+    """The geo phase on device="cpu" at 4 000 points, the box shrunk to
+    keep the full run's density: both tables bulk-loaded (each run held
+    to the cpu backend), moves and adds through GeoClient, both rounds of
+    searches equal to the brute force with their range bounds resolved
+    by the device path (the plain version here), the bottommost
+    compaction held to the cpu backend, and the RESP session's every
+    reply the expected bytes (run_geo raises on any mismatch)."""
+    n = 4000
+    rep = chip_smoke.run_geo(
+        "cpu", str(tmp_path), n_points=n, n_moves=40, n_adds=20,
+        searches=((500.0, -1, 24), (5000.0, 100, 4)), n_threads=2,
+        box=chip_smoke.GEO_BOX * (n / chip_smoke.GEO_POINTS) ** 0.5,
+        resp={"n_keys": 40, "n_members": 200, "n_geo": 4})
+    assert rep["rows"] == 2 * n
+    for rnd in ("search_before_compaction", "search_after_compaction"):
+        r = rep[rnd]
+        assert r["device_range_calls"] > 0
+        assert r["500m"]["count"] == 24 and r["5000m"]["count"] == 4
+        assert r["500m"]["rows_per_query"] > 5
+        assert r["5000m"]["rows_per_query"] == 100
+    assert rep["compaction"]["check_s"] > 0
+    assert rep["resp"]["commands"] == 40 * 6 + 2 + 3 * 4
+    assert rep["resp"]["georadius_members_per_query"] > 1
+
+
+def test_geo_checks_catch_a_wrong_answer():
+    """The geo phase's checks raise on an answer that lost a row, holds a
+    wrong distance or is not the nearest; and on a RESP reply that is not
+    the expected bytes."""
+    import io
+
+    lat, lng = chip_smoke.geo_points(400, 3, box=0.01)
+    hks = [b"p%07d" % i for i in range(400)]
+    truth = chip_smoke.GeoTruth(lat, lng, [chip_smoke.geo_value(
+        i, a, b) for i, (a, b) in enumerate(zip(lat.tolist(),
+                                                 lng.tolist()))], hks)
+    c = chip_smoke.GEO_CENTER
+    want = truth.search(c[0], c[1], 600.0)
+    assert len(want) > 3
+    chip_smoke.check_geo_answer(list(reversed(want)), want, -1)
+    for bad in (want[1:], [(want[0][0] + 1e-9,) + want[0][1:]] + want[1:]):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_geo_answer(bad, want, -1)
+    near = truth.search(c[0], c[1], 600.0, 3)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_geo_answer(want[1:4], near, 3)
+
+    class _Wire(io.BytesIO):
+        def write(self, b):
+            return len(b)
+
+    wire = _Wire(b"+OK\r\n:7\r\n")
+    allowed = {b":6\r\n", b":7\r\n"}
+    assert chip_smoke._resp_exchange(wire, [(b"x", b"+OK\r\n"),
+                                            (b"y", allowed)]) == 2
+    with pytest.raises(AssertionError):
+        chip_smoke._resp_exchange(_Wire(b"$1\r\n6\r\n"),
+                                  [(b"x", b"$1\r\n7\r\n")])
 
 
 _LEFTOVERS = """
