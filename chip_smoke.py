@@ -47,9 +47,10 @@ exits non-zero before printing any result. Phases, one JSON line each:
               trace (device busy time and idle share of the whole call):
               the merge kernel must have launched, and the output's digest
               must equal the port's cpu backend's;
-     compact_values  the same with EngineOptions(device_values=True):
+     compact_values  the same with EngineOptions(device_values=True)
+              on a quarter of the fill (2.5M records, VALUES_FRACTION):
               value rows resident too, the output's values gathered on the
-              device, the same digest;
+              device, digest-equal to the cpu backend's of those runs;
      levels   the engine's own L0 -> L1 compact() and its size-triggered
               cascade (1M records of the same fill, 8 MiB files, an L1
               budget of 32 MiB, ratio 4) in two rounds (the older two
@@ -109,9 +110,12 @@ exits non-zero before printing any result. Phases, one JSON line each:
               digest-equal to its cpu merge, SIGTERM, exit 0;
  10. serve    the partition data plane at BASELINE config #3 (YCSB
               workload-A, 32 hash partitions): 32 PegasusServers (cuda
-              backend) behind two in-process RpcServers; 10M records
-              (hash key "user"+fnvhash64(rank), sort key field0, 100-byte
-              value) bulk-loaded from 4 unsorted raw sets per partition,
+              backend) behind two in-process RpcServers; a quarter of the
+              10M records (2.5M, SERVE_FRACTION; hash key
+              "user"+fnvhash64(rank), sort key field0, 100-byte value)
+              bulk-loaded from 4 unsorted raw sets per partition (the
+              10M-record provider that replicate and cluster load is
+              written by a process of its own from the start),
               one RPC_BULK_LOAD_INGEST each (>= 32 merge-kernel launches),
               each partition's installed run digest-equal to the cpu
               backend's compaction of the same raw sets; 25k closed-loop
@@ -135,7 +139,7 @@ exits non-zero before printing any result. Phases, one JSON line each:
               YCSB-A, 10k ops from 8 threads (gets through
               primary.server.on_get_batch), group 0's primary killed at
               op 3.75k and restarted as a learner at op 6.25k (writes
-              commit throughout); every acknowledged update and a 50k
+              commit throughout); every acknowledged update and a 25k
               sample read back from every replica (fence-lookup launches
               counted); state digests equal; a manual
               compaction of all 3 replicas, each output digest-equal to
@@ -151,7 +155,9 @@ exits non-zero before printing any result. Phases, one JSON line each:
               GeoClient from 8 threads, 5 000 points moved and 2 500
               added, then 500 radial searches of 500 m and 50 of 5 km
               (nearest 100), every answer equal to a brute force over the
-              known points (haversine_m distances); a bottommost manual
+              known points (haversine_m distances; since the cluster's
+              duplication and admin legs: 2 500 moved, 1 250 added, 250
+              and 25 searches); a bottommost manual
               compaction of all 16 partitions, each output held to the cpu
               backend; the searches again; a RESP session over TCP to a
               RedisProxy (SET/GET/SETEX/TTL/INCRBY/DEL on 1 000 keys,
@@ -235,7 +241,24 @@ exits non-zero before printing any result. Phases, one JSON line each:
               run under PEGASUS_LOCKRANK=1 with no lock-order violation
               in its file, and each replica node's acquisition graph
               (its lockrank.edges counter, read before the stop) not
-              empty.
+              empty. The duplication and admin legs: a second cluster
+              `west` (one meta, replica1..3, cluster_id 2) boots beside
+              the source, named in its [pegasus.clusters]; after the
+              session the table is created there, `add_dup usertable
+              west -f`, the source memtables flushed, the block-ship
+              bootstrap (bootstrap_remote_cluster: 32 primaries' pinned
+              checkpoints, then west's replicated ingest of all 10M
+              records), `start_dup`; the 40k ops run with the
+              duplication live through the kill; after the read-back the
+              cross-cluster audit (match, equal record counts) and every
+              acknowledged write read from west's 3 replicas (west's
+              merge and fence launches above 0); `balance` and one
+              `propose` (every node within one primary); `remove_dup`
+              before the split; in the heal leg, `drop heal -r 3600`
+              and `recall` with a 3-replica read-back; last, the
+              collector stopped, meta1 SIGKILLed, its state dir emptied,
+              a fresh meta on its address, `recover` with the 3 nodes and
+              read-backs of the split and the restored tables through it.
 
 The main paths (compact, levels at each depth, blockwise, batched,
 offload, serve's ingest and compaction, replicate's load and
@@ -280,6 +303,9 @@ TTL_FRAC = 0.10
 DEL_FRAC = 0.05
 NOW = 100
 BLOCKWISE_BUDGET = 1 << 22   # max_device_records of the blockwise phase
+VALUES_FRACTION = 4          # compact_values on a quarter of the fill
+                             # (all of it until the cluster phase took on
+                             # the duplication and admin legs)
 
 
 # every phase line again, whole, beside the run's output (whose end is
@@ -2447,6 +2473,9 @@ def run_server(runs, device, work: str) -> dict:
 # as tools/ycsb_bench.py does.
 SERVE_PARTITIONS = 32
 SERVE_RECORDS = 10_000_000
+SERVE_FRACTION = 4         # the serve phase's own table: a quarter of the
+                           # records (all of them until the cluster phase
+                           # took on the duplication and admin legs)
 SERVE_FILES = 4            # raw-set files per partition
 SERVE_OPS = 25_000         # 200 000 until the cluster phase took on the
                            # table lifecycle, 100 000 until the doctor and
@@ -2894,12 +2923,13 @@ def _client_absorb(acked: dict) -> int:
 
 
 def _client_read_back(what: str, chunk: int = 4000, app: str = None,
-                      at_backup: bool = False, sample: bool = True) -> dict:
+                      at_backup: bool = False, sample: bool = True,
+                      limit: int = None) -> dict:
     """In the client process: batch_get every updated key (its last
     acknowledged value) and, with `sample`, every sampled untouched key
     (its loaded value); any other answer raises. With `app`, from that
     table of the same meta; with at_backup, the values _client_snapshot
-    kept."""
+    kept; with `limit`, the first `limit` keys of each set only."""
     from pegasus_tpu_torch.client import MetaResolver, PegasusClient
 
     resolver = (MetaResolver([_CLIENT["meta"]], app) if app
@@ -2911,6 +2941,7 @@ def _client_read_back(what: str, chunk: int = 4000, app: str = None,
     try:
         for name in ("updated", "sampled") if sample else ("updated",):
             keys, want = keysets[name]
+            keys, want = keys[:limit], want[:limit]
             t0 = time.perf_counter()
             for lo in range(0, len(keys), chunk):
                 got = client.batch_get(keys[lo: lo + chunk])
@@ -2925,6 +2956,55 @@ def _client_read_back(what: str, chunk: int = 4000, app: str = None,
         client.close()
     out["keys_per_s"] = (out["updated_keys"] + out["sampled_keys"]) / (
         out["updated_s"] + out["sampled_s"])
+    return out
+
+
+def _read_each_member(what: str, app_id: int, members: list, keysets: dict,
+                      chunk: int = 4000) -> dict:
+    """Member k of every partition in turn behind a StaticResolver
+    (members[pidx][k], "host:port"): batch_get in waves each key set of
+    `keysets` ({name: (keys, wanted values, every member or the first
+    only)}); any other answer raises. -> keys read per name."""
+    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
+
+    read = {name: 0 for name in keysets}
+    for k in range(len(members[0])):
+        client = PegasusClient(StaticResolver(app_id, [
+            (m[k].rpartition(":")[0], int(m[k].rpartition(":")[2]))
+            for m in members]), timeout=120)
+        try:
+            for name, (keys, want, every) in keysets.items():
+                if k and not every:
+                    continue
+                for lo in range(0, len(keys), chunk):
+                    got = client.batch_get(keys[lo: lo + chunk])
+                    bad = [(key, g, w) for key, g, w in zip(
+                        keys[lo: lo + chunk], got, want[lo: lo + chunk])
+                        if g != w]
+                    if bad:
+                        raise AssertionError(
+                            f"{what}: replica {k} read {len(bad)} {name} "
+                            f"keys wrong (key, read, want): {bad[:3]}")
+                read[name] += len(keys)
+        finally:
+            client.close()
+    return read
+
+
+def _client_read_members(what: str, app_id: int, members: list) -> dict:
+    """In the client process: every updated key (its last acknowledged
+    value) from each replica of its partition in turn, and the sampled
+    untouched keys (their loaded values) from the first
+    (_read_each_member)."""
+    t0 = time.perf_counter()
+    read = _read_each_member(what, app_id, members, {
+        "updated": _CLIENT["updated"] + (True,),
+        "sampled": _CLIENT["sampled"] + (False,)})
+    out = {"replicas": len(members[0]),
+           "updated_keys": read["updated"], "sampled_keys": read["sampled"],
+           "seconds": time.perf_counter() - t0}
+    out["keys_per_s"] = (out["updated_keys"] + out["sampled_keys"]) / \
+        out["seconds"]
     return out
 
 
@@ -3050,6 +3130,10 @@ def run_serve(device, work: str, n_records: int = SERVE_RECORDS,
     provider = os.path.join(work, "provider")
     counts = write_provider(provider, "usertable", n_records, n_parts,
                             SERVE_FILES)
+    if n_records < SERVE_RECORDS:
+        out["reduced"]["records"] = (f"{SERVE_RECORDS} -> {n_records} (the "
+                                     f"clock; the cluster phase loads all "
+                                     f"of them)")
     out["load_s"] = time.perf_counter() - t0
 
     if on_card:
@@ -3195,8 +3279,9 @@ REPLICATE_GROUPS = 1
 REPLICATE_OPS = 10_000
 REPLICATE_THREADS = 8
 REPLICATE_WAVE = 8          # ops per client wave; its gets, one batch per group
-REPLICATE_SAMPLE = 50_000  # untouched loaded keys read back from every
-                           # replica (100 000 until the levels phase)
+REPLICATE_SAMPLE = 25_000  # untouched loaded keys read back from every
+                           # replica (100 000 until the levels phase, 50 000
+                           # until the cluster's duplication and admin legs)
 REPLICATE_KILL_AT = 3_750
 REPLICATE_RESTART_AT = 6_250
 REPLICATE_APP_ID = 4
@@ -3616,10 +3701,12 @@ GEO_PARTITIONS = 8
 GEO_FILES = 4          # raw-set files per partition
 # cut for the clock (the first full run took 1254 s of 1200 on a slow
 # host; its geo phase 166 s): moves and adds 10 000 + 5 000 -> 5 000 +
-# 2 500, searches a round 1 000 + 100 -> 500 + 50
-GEO_MOVES = 5_000      # points deleted and set again at a new place
-GEO_ADDS = 2_500
-GEO_SEARCHES = ((500.0, -1, 500), (5000.0, 100, 50))  # (m, count, n)
+# 2 500, searches a round 1 000 + 100 -> 500 + 50; again when the
+# cluster phase took on the duplication and admin legs: 2 500 + 1 250,
+# searches 250 + 25
+GEO_MOVES = 2_500      # points deleted and set again at a new place
+GEO_ADDS = 1_250
+GEO_SEARCHES = ((500.0, -1, 250), (5000.0, 100, 25))  # (m, count, n)
 GEO_THREADS = 8
 GEO_MIN_LEVEL, GEO_MAX_LEVEL = 12, 16   # GeoClient's and geo_bench's
 GEO_APPS = (("geo_main", 5), ("geo_idx", 6))
@@ -4184,7 +4271,8 @@ def _free_ports(n: int) -> list:
     return ports
 
 
-def cluster_ini(work: str, device, fd: dict = None) -> tuple:
+def cluster_ini(work: str, device, fd: dict = None,
+                clusters: dict = None) -> tuple:
     """onebox.ini cut to one meta, replica1..3 and the collector on fixed
     free ports (replica1's http_port too), data under `work`,
     compaction_backend = cuda (`device = cpu` when the phase rehearses on
@@ -4194,9 +4282,10 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
     (8 partitions x 3), and the scheduler stays off (the scheduler leg
     runs its ticks in this process). Left out: the offload service, and
     the toollets (a middleware sends every frame per frame, and the
-    read-backs are measured batched). -> (ini path, meta address,
-    {replica name: address}, {"collector": address, "http_port": n,
-    "collector_http_port": n})."""
+    read-backs are measured batched). `clusters` ({name: meta address})
+    becomes its [pegasus.clusters] section, the duplication targets.
+    -> (ini path, meta address, {replica name: address}, {"collector":
+    address, "http_port": n, "collector_http_port": n})."""
     import configparser
 
     import torch
@@ -4229,10 +4318,36 @@ def cluster_ini(work: str, device, fd: dict = None) -> tuple:
         cp["pegasus.server"]["device"] = "cpu"
     for k, v in (fd or {}).items():
         cp["failure_detector"][k] = str(v)
+    if clusters:
+        cp["pegasus.clusters"] = dict(clusters)
     path = os.path.join(work, "cluster.ini")
     with open(path, "w") as f:
         cp.write(f)
     return path, meta, nodes, extra
+
+
+WEST = "west"          # the duplication's destination cluster
+DUP_AUDIT_WAIT_S = 180.0   # a duplication confirming through an anchor
+WEST_CLUSTER_ID = 2
+
+
+def west_ini(work: str, device, fd: dict = None) -> tuple:
+    """The destination cluster `west`: cluster_ini's meta and replica1..3
+    on ports of their own with data under `work`, [pegasus.server]
+    cluster_id = 2, no collector and no http port. -> (ini path, meta
+    address, {replica name: address})."""
+    import configparser
+
+    os.makedirs(work, exist_ok=True)
+    path, meta, nodes, _ = cluster_ini(work, device, fd)
+    cp = configparser.ConfigParser()
+    cp.read(path)
+    cp.remove_section("apps.collector")
+    cp.remove_option("apps.replica1", "http_port")
+    cp["pegasus.server"]["cluster_id"] = str(WEST_CLUSTER_ID)
+    with open(path, "w") as f:
+        cp.write(f)
+    return path, meta, nodes
 
 
 class _App:
@@ -4298,11 +4413,12 @@ def _config(meta: str, app: str):
                       mm.QueryConfigResponse)
 
 
-def _shell(meta: str, line: str) -> str:
-    """One command through the port's Shell.run_line, its meta and node
-    calls allowed CLUSTER_DDL_TIMEOUT_S. The shell prints an error where
-    a command fails (`ERROR: ...`, `... failed: ...`, a usage line): any
-    such line raises here. -> the command's output."""
+def _shell(meta: str, line: str, use: str = None) -> str:
+    """One command through the port's Shell.run_line (after `use <use>`),
+    its meta and node calls allowed CLUSTER_DDL_TIMEOUT_S. The shell
+    prints an error where a command fails (`ERROR: ...`, `... failed:
+    ...`, a usage line): any such line raises here. -> the command's
+    output."""
     import io
     import re
 
@@ -4311,6 +4427,8 @@ def _shell(meta: str, line: str) -> str:
     out = io.StringIO()
     sh = Shell([meta], out=out, rpc_timeout=CLUSTER_DDL_TIMEOUT_S)
     try:
+        if use:
+            sh.run_line(f"use {use}")
         sh.run_line(line)
     finally:
         sh.pool.close()
@@ -5259,30 +5377,15 @@ def _heal_audit(meta: str, app_id: int) -> dict:
 
 def _heal_read_back(meta: str, addrs: list, app_id: int, rows: dict) -> dict:
     """Every row read from each of the 3 replicas of its partition
-    (member k of every partition through a StaticResolver, batch_get in
-    waves), each the acknowledged value; fence launches scraped from the
-    nodes around it."""
-    from pegasus_tpu_torch.client import PegasusClient, StaticResolver
-
+    (_read_each_member), each the acknowledged value; fence launches
+    scraped from the nodes around it."""
     keys = list(rows)
     before = _kernel_counts(addrs)
     t0 = time.perf_counter()
     members = [_members_of(meta, HEAL_APP, p) for p in range(HEAL_PARTITIONS)]
-    for k in range(3):
-        cli = PegasusClient(StaticResolver(app_id, [
-            (m[k].rpartition(":")[0], int(m[k].rpartition(":")[2]))
-            for m in members]), timeout=120)
-        try:
-            for lo in range(0, len(keys), 2000):
-                got = cli.batch_get(keys[lo:lo + 2000])
-                bad = [(key, g) for key, g in zip(keys[lo:lo + 2000], got)
-                       if g != rows[key]]
-                if bad:
-                    raise AssertionError(f"replica {k} of the heal table "
-                                         f"read {len(bad)} rows wrong: "
-                                         f"{bad[:3]}")
-        finally:
-            cli.close()
+    _read_each_member("the heal table", app_id, members,
+                      {"rows": (keys, [rows[k] for k in keys], True)},
+                      chunk=2000)
     after = _kernel_counts(addrs)
     return {"seconds": time.perf_counter() - t0, "rows": len(keys),
             "replicas": 3, "fence_launches": _delta(
@@ -5309,9 +5412,315 @@ def _quiet_causes(nodes: list, window: float) -> float:
         time.sleep(min(wait, window))
 
 
+def _meta_state(meta: str) -> dict:
+    caller = _caller(meta)
+    try:
+        state = caller.meta_state()
+    finally:
+        caller.close()
+    if state is None:
+        raise AssertionError(f"meta {meta} answered no cluster state")
+    return state
+
+
+def _hbm_gauges(addrs) -> dict:
+    """{addr: engine.hbm.* counters} of each node."""
+    return {a: json.loads(_remote_command(a, "perf-counters-by-prefix",
+                                          ["engine.hbm."])) for a in addrs}
+
+
+def dup_bootstrap(meta: str, west_meta: str, addrs: list, west_addrs: list,
+                  work: str, app_id: int, n_parts: int,
+                  want_records: int, beside=None) -> dict:
+    """The duplication's set-up: the table created on `west` with the
+    same partitions, `add_dup <table> west -f` (frozen: the entry holds
+    the source logs), the source primaries' memtables flushed (each
+    partition's checkpoint then holds its ingested run and the markers'
+    run; the secondaries keep theirs, so the later compactions of most
+    replicas merge no extra run), bootstrap_remote_cluster (block ship from the source primaries
+    into a provider tree, then west's replicated bulk-load ingest), and
+    `start_dup`. The shipped records must be the table's. West's
+    secondaries ingest when the first shipped writes (the markers, caught
+    up from the source logs) carry the ingest's commit point to them:
+    the leg waits until every west replica applied it, so the run starts
+    on a loaded destination. `beside` (a callable) runs in a thread while
+    this process only polls (start_dup and that wait); its result is the
+    record's `beside`. -> the leg's record, with the dupid and west's
+    kernel counts from just before the bootstrap."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import re
+
+    from pegasus_tpu_torch.replication.bootstrap import \
+        bootstrap_remote_cluster
+
+    t_leg = time.perf_counter()
+    _shell(west_meta, f"create {CLUSTER_APP} -p {n_parts} -r 3")
+    text = _shell(meta, f"add_dup {CLUSTER_APP} {WEST} -f")
+    dupid = int(re.search(r"dupid: (\d+)", text).group(1))
+    led = {}
+    for pc in _config(meta, CLUSTER_APP).partitions:
+        led.setdefault(pc.primary, []).append(f"{app_id}.{pc.pidx}")
+    for a, gpids in led.items():
+        _remote_command(a, "flush-memtable", gpids, timeout=300)
+    west_before = _kernel_counts(west_addrs)
+    t0 = time.perf_counter()
+    boot = bootstrap_remote_cluster(
+        [meta], [west_meta], CLUSTER_APP, os.path.join(work, "bootstrap"),
+        ingest_timeout=CLUSTER_DDL_TIMEOUT_S)
+    boot_s = time.perf_counter() - t0
+    after = _kernel_counts(west_addrs)
+    if boot["partitions"] != n_parts or not boot["blocks"] or \
+            boot["ingested_records"] != want_records:
+        raise AssertionError(f"bootstrap: {boot}, want {want_records} "
+                             f"records in {n_parts} partitions")
+    side = ThreadPoolExecutor(1)
+    beside_job = side.submit(beside) if beside else None
+    _shell(meta, f"start_dup {CLUSTER_APP} {dupid}")
+    t0 = time.perf_counter()
+    west_id = _config(west_meta, CLUSTER_APP).app.app_id
+    while True:
+        applied = {}
+        for a in west_addrs:
+            for g, ent in json.loads(_remote_command(
+                    a, "query-audit", timeout=300)).items():
+                if g.startswith(f"{west_id}."):
+                    applied[(a, g)] = ent["applied"]
+        if len(applied) == 3 * n_parts and min(applied.values()) >= 1:
+            break
+        if time.perf_counter() - t0 > CLUSTER_CHECK_S:
+            raise AssertionError(f"west's secondaries never ingested: "
+                                 f"{applied}")
+        time.sleep(0.2)
+    secondaries_s = time.perf_counter() - t0
+    beside_out = beside_job.result() if beside_job else None
+    side.shutdown()
+    return {"dupid": dupid, "bootstrap": dict(boot, seconds=boot_s),
+            "beside": beside_out,
+            "west_secondaries_ingested_s": secondaries_s,
+            "primary_ingest_merge_launches": _delta(
+                after, west_before, "kernel.merge_path.launches"),
+            "seconds": time.perf_counter() - t_leg,
+            "west_before": west_before}
+
+
+def _dup_lag(meta: str, dupid: int) -> dict:
+    """{pidx: the table primary's committed decree less the meta's
+    beacon-folded confirmed decree of its partition}."""
+    state = _meta_state(meta)
+    app = state["apps"][CLUSTER_APP]
+    entry = next(e for e in state["dups"][str(app["app_id"])]
+                 if e["dupid"] == dupid)
+    lag = {}
+    for pc in app["partitions"]:
+        st = state["replica_states"].get(pc["primary"], {}).get(
+            f"{app['app_id']}.{pc['pidx']}", {})
+        lag[pc["pidx"]] = max(0, st.get("committed", 0) - int(
+            entry.get("confirmed", {}).get(str(pc["pidx"]), 0)))
+    return lag
+
+
+def dup_audit(meta: str, west_meta: str, addrs: list, west_addrs: list,
+              names: dict, dup: dict, pool, on_card: bool) -> dict:
+    """After the run and its read-back, writes quiesced: the
+    confirmed-decree lag (each source primary's committed decree less the
+    meta's beacon-folded confirmed decree of its partition), then
+    run_cross_cluster_audit anchored at the confirmed decrees (it waits
+    until the duplication confirmed through every anchor): match, equal
+    record counts. West's merge launches since the bootstrap (every
+    replica's ingest) must be above 0. Then every acknowledged update
+    read from each of west's 3 replicas and the untouched sample from
+    the first (_client_read_members), its fence launches above 0 on the
+    card; engine.hbm.* on both clusters."""
+    from pegasus_tpu_torch.collector.cluster_doctor import \
+        run_cross_cluster_audit
+
+    lag = _dup_lag(meta, dup["dupid"])
+    t0 = time.perf_counter()
+    report = run_cross_cluster_audit(
+        [meta], [west_meta], CLUSTER_APP, dupid=dup["dupid"],
+        wait_s=DUP_AUDIT_WAIT_S, confirm_wait_s=DUP_AUDIT_WAIT_S,
+        timeout=CLUSTER_CHECK_S)
+    audit_s = time.perf_counter() - t0
+    wnames = {a: f"west.{n}" for n, a in
+              zip(("replica1", "replica2", "replica3"), west_addrs)}
+    # each node's digest times (audit.digest_us) on both sides
+    digest_us = {side: {nm[a]: json.loads(_remote_command(
+        a, "perf-counters-by-prefix", ["audit."])) for a in side_addrs}
+        for side, nm, side_addrs in (("source", names, addrs),
+                                     ("west", wnames, west_addrs))}
+    # no promoted shipper met a log that skipped unconfirmed decrees
+    gaps = {names[a]: json.loads(_remote_command(
+        a, "perf-counters-by-prefix", ["dup.gap"])) for a in addrs}
+    if any(v for g in gaps.values() for v in g.values()):
+        raise AssertionError(f"a shipper refused a log gap: {gaps}")
+    if report["match"] is not True or not report["src"]["records"] or \
+            report["src"]["records"] != report["dst"]["records"]:
+        raise AssertionError(
+            f"cross-cluster audit: match {report['match']}, src "
+            f"{report['src']}, dst {report['dst']}, inconclusive "
+            f"{report['inconclusive']}, mismatches {report['mismatches']}, "
+            f"anchors {report['anchors']}, confirmed {report['confirmed']}, "
+            f"steps {report.get('seconds')}")
+    after = _kernel_counts(west_addrs)
+    ingest = _delta(after, dup["west_before"], "kernel.merge_path.launches")
+    if on_card and not sum(ingest.values()):
+        raise AssertionError(f"west's ingest launched no merge kernel: "
+                             f"{ingest}")
+    cfg = _config(west_meta, CLUSTER_APP)
+    members = [[pc.primary] + list(pc.secondaries)
+               for pc in sorted(cfg.partitions, key=lambda pc: pc.pidx)]
+    if any(len(m) != 3 for m in members):
+        raise AssertionError(f"west partitions without 3 members: {members}")
+    t0 = time.perf_counter()
+    rb = pool.apply(_client_read_members, ("west", cfg.app.app_id, members))
+    rb["fence_launches"] = _delta(_kernel_counts(west_addrs), after,
+                                  "kernel.fence_lookup.launches")
+    if on_card and not sum(rb["fence_launches"].values()):
+        raise AssertionError("west's read-back launched no fence kernel")
+    return {
+        "confirmed_lag_at_audit": {"max": max(lag.values()),
+                                   "sum": sum(lag.values()),
+                                   "partitions_behind": sum(
+                                       1 for v in lag.values() if v)},
+        "audit": {"seconds": audit_s, "match": report["match"],
+                  "steps_s": report["seconds"], "digest_us": digest_us,
+                  "src": report["src"], "dst": report["dst"],
+                  "anchors": len(report["anchors"])},
+        "ingest_merge_launches": ingest,
+        "west_read_back": rb,
+        "hbm": {"source": {names[a]: g for a, g in
+                           _hbm_gauges(addrs).items()},
+                "west": {wnames[a]: g for a, g in
+                         _hbm_gauges(west_addrs).items()}},
+        "read_back_s": time.perf_counter() - t0}
+
+
+def _primaries(meta: str) -> dict:
+    """{node: primaries it leads} over every table of the cluster."""
+    state = _meta_state(meta)
+    counts = {a: 0 for a, n in state["nodes"].items() if n["alive"]}
+    for app in state["apps"].values():
+        for pc in app["partitions"]:
+            counts[pc["primary"]] = counts.get(pc["primary"], 0) + 1
+    return counts
+
+
+def check_balance(meta: str, addrs: list, names: dict, pool) -> dict:
+    """The balance leg, after the restarted node relearned (it leads no
+    partition): the shell's `balance` (primary moves, then the
+    copy-secondary stage) moves at least one primary and leaves every
+    node within one primary of the others; then one `propose` moves a
+    table partition led by the busiest node to its secondary on the
+    least busy one. A sample of the acknowledged writes read back after
+    the moves."""
+    import re
+
+    before = _primaries(meta)
+    t0 = time.perf_counter()
+    text = _shell(meta, "balance")
+    balance_s = time.perf_counter() - t0
+    moved = int(re.search(r"moved (\d+) primaries", text).group(1))
+    after = _primaries(meta)
+    if moved < 1 or max(after.values()) - min(after.values()) > 1:
+        raise AssertionError(f"balance moved {moved}: {before} -> {after}")
+    heavy = max(after, key=lambda a: (after[a], a))
+    light = min(after, key=lambda a: (after[a], a))
+    cfg = _config(meta, CLUSTER_APP)
+    pc = next(pc for pc in cfg.partitions
+              if pc.primary == heavy and light in pc.secondaries)
+    t0 = time.perf_counter()
+    text = _shell(meta, f"propose {pc.pidx} {light}", use=CLUSTER_APP)
+    propose_s = time.perf_counter() - t0
+    if _config(meta, CLUSTER_APP).partitions[pc.pidx].primary != light:
+        raise AssertionError(f"propose {pc.pidx} {light}: {text}")
+    proposed = _primaries(meta)
+    rb = pool.apply(_client_read_back, ("after the balance",),
+                    {"sample": True, "limit": 5000})
+    return {"seconds": balance_s, "moved": moved,
+            "primaries_before": {names.get(a, a): v
+                                 for a, v in before.items()},
+            "primaries_after": {names.get(a, a): v for a, v in after.items()},
+            "propose": {"seconds": propose_s, "pidx": pc.pidx,
+                        "from": names[heavy], "to": names[light],
+                        "primaries_after": {names.get(a, a): v
+                                            for a, v in proposed.items()}},
+            "read_back": rb}
+
+
+def check_recall(meta: str, addrs: list, app_id: int, rows: dict) -> dict:
+    """`drop heal -r 3600`: the table leaves routing (its config query
+    answers an error), its replicas' data stays on disk; `recall
+    <app_id>` brings it back under its name; the audit of the table
+    (its mutation carries the commit point to the reopened secondaries,
+    which re-staged their logged tail) is conclusive, and every row reads
+    back with its acknowledged value from each of its 3 replicas."""
+    t0 = time.perf_counter()
+    _shell(meta, f"drop {HEAL_APP} -r 3600")
+    if not _config(meta, HEAL_APP).error:
+        raise AssertionError("the dropped heal table is still routed")
+    text = _shell(meta, f"recall {app_id}")
+    if f"recall app {app_id} succeed, name={HEAL_APP}" not in text:
+        raise AssertionError(f"recall: {text}")
+    recall_s = time.perf_counter() - t0
+    return {"seconds": recall_s, "audit": _heal_audit(meta, app_id),
+            "read_back": _heal_read_back(meta, addrs, app_id, rows)}
+
+
+def check_recover(meta: str, meta_app, work: str, addrs: list, pool,
+                  apps_expected: list) -> dict:
+    """The meta's state lost: meta1 SIGKILLed, its state dir emptied, a
+    fresh meta started on the same address (the nodes' beacons reach it
+    before any recover; it must neither create nor drop a partition for
+    them), then the shell's `recover <node>...` rebuilds every table from
+    the nodes' replicas, and a sample of the split table and of the
+    restored table reads back through the new meta."""
+    import signal
+
+    t0 = time.perf_counter()
+    meta_app.proc.send_signal(signal.SIGKILL)
+    meta_app.proc.wait()
+    state_dir = os.path.join(work, "meta")
+    shutil.rmtree(state_dir, ignore_errors=True)
+    os.makedirs(state_dir)
+    meta_app.start()
+    meta_app.wait_started(time.monotonic() + 300)
+    from pegasus_tpu_torch.meta import messages as mm
+    from pegasus_tpu_torch.meta.meta_server import RPC_CM_LIST_NODES
+
+    deadline = time.monotonic() + 120
+    while True:
+        r = _meta_call(meta, RPC_CM_LIST_NODES, mm.ListNodesRequest(),
+                       mm.ListNodesResponse)
+        if sum(n.alive for n in r.nodes) == len(addrs):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"nodes never beaconed the new meta: "
+                                 f"{r.nodes}")
+        time.sleep(0.2)
+    if _meta_state(meta)["apps"]:
+        raise AssertionError("the fresh meta made tables from beacons")
+    restart_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    text = _shell(meta, "recover " + " ".join(addrs))
+    recover_s = time.perf_counter() - t1
+    recovered = sorted(_meta_state(meta)["apps"])
+    if not set(apps_expected) <= set(recovered):
+        raise AssertionError(f"recover: {text.strip()}; tables {recovered}")
+    rb = pool.apply(_client_read_back, ("after recover",),
+                    {"sample": True, "limit": 2000})
+    rr = pool.apply(_client_read_back, ("restored table after recover",
+                                        4000, CLUSTER_RESTORED, True),
+                    {"limit": 2000})
+    return {"seconds": time.perf_counter() - t0, "restart_s": restart_s,
+            "recover_s": recover_s, "tables": recovered,
+            "read_back": rb, "restored_read_back": rr}
+
+
 def check_heal(meta: str, coll: str, coll_http: int, addrs: list,
                names: dict, work: str, incident_dir: str,
-               n_rows: int = HEAL_ROWS, on_card: bool = True) -> dict:
+               n_rows: int = HEAL_ROWS, on_card: bool = True,
+               recall: bool = False) -> dict:
     """The integrity loop on the cluster, a table `heal` of
     HEAL_PARTITIONS partitions x 3 replicas, n_rows rows written through
     the client and flushed on every replica (flush-memtable).
@@ -5335,7 +5744,8 @@ def check_heal(meta: str, coll: str, coll_http: int, addrs: list,
     collector lists the incident, its first cause the fail point's arm
     on audit.digest, and the shell's flight_recorder lists it; the fail
     point disarmed, the re-seed lands, the re-audit is conclusive and
-    the read-back whole."""
+    the read-back whole. With `recall`, then the recall drill
+    (check_recall): the table soft-dropped, recalled and read back."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5515,6 +5925,8 @@ def check_heal(meta: str, coll: str, coll_http: int, addrs: list,
     if on_card and not sum(auto["read_back"]["fence_launches"].values()):
         raise AssertionError("the heal read-back launched no fence kernel")
     out["autoheal"] = auto
+    if recall:
+        out["recall"] = check_recall(meta, addrs, app_id, rows)
     out["seconds"] = time.perf_counter() - t_leg
     return out
 
@@ -5548,7 +5960,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
                 kill_at: int = CLUSTER_KILL_AT,
                 restart_at: int = CLUSTER_RESTART_AT,
                 fd: dict = None, lifecycle: bool = False,
-                heal: bool = False, heal_rows: int = HEAL_ROWS) -> dict:
+                heal: bool = False, heal_rows: int = HEAL_ROWS,
+                dup: bool = False, admin: bool = False) -> dict:
     """BASELINE config #3 with its three replicas, as a cluster of
     processes: one meta and replica1..3 (cluster_ini), each `python -m
     pegasus_tpu_torch.server` on the card. Through the port's shell:
@@ -5592,7 +6005,22 @@ def run_cluster(device, work: str, provider: str, counts: list,
     query_restore_status to ok), the read-back keys read from it with
     their values at backup time, and `batched-manual-compact <app_id>` on
     every node (the batched merge kernel), each replica's output held to
-    the cpu backend. Kernel launches are scraped from each process
+    the cpu backend.
+
+    With `dup`, a second cluster `west` (west_ini: one meta and
+    replica1..3, cluster_id 2) boots beside the source, whose ini names
+    it under [pegasus.clusters]. After the bulk-load session the table
+    is duplicated into it (dup_bootstrap: the table created there, a
+    frozen add_dup, the block-ship bootstrap and west's replicated
+    ingest, start_dup); the run goes with the duplication live through
+    the kill and the restart; after the read-back, the cross-cluster
+    audit and every acknowledged write read from west's 3 replicas
+    (dup_audit); `remove_dup` before the split. With `admin`: the balance
+    leg after that (check_balance), the recall drill in the heal leg
+    (check_recall), and last, the recover leg (check_recover: the
+    collector stopped, the meta SIGKILLed, its state dir emptied, a
+    fresh meta on the same address, `recover` with the 3 nodes, read-
+    backs through it). Kernel launches are scraped from each process
     (perf-counters-by-prefix kernel.)."""
     import multiprocessing
     import signal
@@ -5610,7 +6038,20 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
     on_card = torch.device(device).type == "cuda"
     os.makedirs(work, exist_ok=True)
-    ini, meta, node_addr, extra = cluster_ini(work, device, fd)
+    west_meta, west_nodes = None, {}
+    if dup:
+        w_ini, west_meta, west_nodes = west_ini(os.path.join(work, WEST),
+                                                device, fd)
+    taken = {west_meta} | set(west_nodes.values())
+    while True:   # two _free_ports calls may hand out one port twice
+        ini, meta, node_addr, extra = cluster_ini(
+            work, device, fd, clusters={WEST: west_meta} if dup else None)
+        mine = {meta, extra["collector"], *node_addr.values(),
+                f"127.0.0.1:{extra['http_port']}",
+                f"127.0.0.1:{extra['collector_http_port']}"}
+        if not mine & taken:
+            break
+    west_addrs = list(west_nodes.values())
     coll = extra["collector"]
     names = {a: n for n, a in node_addr.items()}
     addrs = list(node_addr.values())
@@ -5662,16 +6103,23 @@ def run_cluster(device, work: str, provider: str, counts: list,
         deadline = time.monotonic() + 300
         for name in ["meta1"] + list(node_addr):
             apps[name] = _App(ini, name, work, env=lock_env)
+        if dup:   # booted at once with the source's processes
+            for name in ["meta1"] + list(west_nodes):
+                apps[f"{WEST}.{name}"] = _App(w_ini, name,
+                                              os.path.join(work, WEST),
+                                              env=lock_env)
         for name, app in apps.items():
             app.wait_started(deadline)
-        while True:
-            r = _meta_call(meta, RPC_CM_LIST_NODES, mm.ListNodesRequest(),
-                           mm.ListNodesResponse)
-            if sum(n.alive for n in r.nodes) == 3:
-                break
-            if time.monotonic() > deadline:
-                raise AssertionError(f"nodes never beaconed: {r.nodes}")
-            time.sleep(0.2)
+        for m in [meta] + ([west_meta] if dup else []):
+            while True:
+                r = _meta_call(m, RPC_CM_LIST_NODES, mm.ListNodesRequest(),
+                               mm.ListNodesResponse)
+                if sum(n.alive for n in r.nodes) == 3:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"nodes never beaconed {m}: "
+                                         f"{r.nodes}")
+                time.sleep(0.2)
         # the collector once every node is alive: its canary table gets
         # its 3 replicas
         apps["collector"] = _App(ini, "collector", work,
@@ -5756,19 +6204,39 @@ def run_cluster(device, work: str, provider: str, counts: list,
                                  f"want {3 * n_parts * (SERVE_FILES - 1)}")
         t0 = time.perf_counter()
 
+        # the runs as the session left them (files are immutable; the
+        # bootstrap's flush adds one beside them)
+        from pegasus_tpu_torch.engine.sstable import read_sst
+
+        ingested = {(n, p): engine_files(os.path.join(
+            work, n, f"{app_id}.{p}", "data"))
+            for n in node_addr for p in range(n_parts)}
+
         def check_one(item):
             name, p = item
-            path = os.path.join(work, name, f"{app_id}.{p}", "data")
             want = ingest_want(provider, CLUSTER_APP, n_parts, p, 8, 2)
-            got = block_digest(engine_blocks(path))
+            got = block_digest([read_sst(f)[0] for f in ingested[item]])
             if got != want:
                 raise AssertionError(f"{name} partition {p}: ingested run "
                                      f"{got} != cpu backend {want}")
 
-        _parallel(check_one, [(n, p) for n in node_addr
-                              for p in range(n_parts)])
-        out["load"]["check_s"] = time.perf_counter() - t0
-        step("ingest checked")
+        def check_ingest_runs():
+            t = time.perf_counter()
+            _parallel(check_one, list(ingested))
+            return time.perf_counter() - t
+
+        if dup:
+            # the cpu-backend check of the ingested runs (this process)
+            # runs while the leg waits for west's secondaries to ingest
+            out["dup"] = dup_bootstrap(meta, west_meta, addrs, west_addrs,
+                                       work, app_id, n_parts,
+                                       sum(counts) + len(markers),
+                                       beside=check_ingest_runs)
+            out["load"]["check_s"] = out["dup"].pop("beside")
+            step("ingest checked; west bootstrapped, duplication started")
+        else:
+            out["load"]["check_s"] = check_ingest_runs()
+            step("ingest checked")
 
         # ---- the run, a kill and a restart inside it
         ctx = multiprocessing.get_context("spawn")
@@ -5853,6 +6321,7 @@ def run_cluster(device, work: str, provider: str, counts: list,
                        "ship.delta_skipped_blocks"],
                    "tail_mutations_replayed": learn[
                        "ship.replay_mutations"]})
+        run["duplication_live"] = dup
         out["run"] = run
 
         # ---- read-back through batch dispatch and the kernel
@@ -5866,6 +6335,17 @@ def run_cluster(device, work: str, provider: str, counts: list,
                                  "fence-lookup kernel")
         out["read_back"] = rb
         step("read back")
+        if admin:
+            # with the duplication live: the moved primaries' shippers are
+            # rebuilt at the meta's confirmed decrees, and the relearned
+            # node's from the log its learn kept back to them
+            out["balance"] = check_balance(meta, addrs, names, pool)
+            step("balance leg")
+        if dup:
+            out["dup"].update(dup_audit(meta, west_meta, addrs, west_addrs,
+                                        names, out["dup"], pool, on_card))
+            out["dup"].pop("west_before")
+            step("cross-cluster audit, west read back")
         out["residency"] = check_residency(meta, coll, pool, progress,
                                            addrs, on_card)
         out["collector"] = check_collector(meta, coll, extra["http_port"],
@@ -5877,6 +6357,22 @@ def run_cluster(device, work: str, provider: str, counts: list,
         out["sched"] = check_scheduler(meta, addrs, names, app_id, markers,
                                        loader, on_card)
         step("scheduler leg")
+        if dup:
+            # the reference defines no split of a duplicated table
+            t0 = time.perf_counter()
+            _shell(meta, f"remove_dup {CLUSTER_APP} {out['dup']['dupid']}")
+            left = {a: json.loads(_remote_command(
+                a, "perf-counters-by-prefix", ["dup.lag."])) for a in addrs}
+            if any(left.values()):
+                raise AssertionError(f"shippers left after remove_dup: "
+                                     f"{left}")
+            out["dup"]["remove_s"] = time.perf_counter() - t0
+            # west has served its legs: its processes end here (exit 0
+            # checked with the others')
+            for name in [n for n in apps if n.startswith(f"{WEST}.")]:
+                apps[name].proc.send_signal(signal.SIGTERM)
+            for name in [n for n in apps if n.startswith(f"{WEST}.")]:
+                apps[name].proc.wait(timeout=120)
 
         parts, life = n_parts, {}
         if lifecycle:
@@ -6036,7 +6532,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
         if heal:
             out["heal"] = check_heal(
                 meta, coll, extra["collector_http_port"], addrs, names, work,
-                coll_env["PEGASUS_INCIDENT_DIR"], heal_rows, on_card)
+                coll_env["PEGASUS_INCIDENT_DIR"], heal_rows, on_card,
+                recall=admin)
             step("heal leg")
 
         if lifecycle:
@@ -6078,15 +6575,17 @@ def run_cluster(device, work: str, provider: str, counts: list,
                                     timeout=CLUSTER_CHECK_S)), addrs)))
             node_s = time.perf_counter() - t0
             after = _kernel_counts(addrs)
-            checked = _check_outputs(work, names, r_id, kept, 0)
+            # the cpu-backend check (this process) runs beside the legs
+            # that follow; its result is read before the processes stop
+            node_checker = ThreadPoolExecutor(1)
+            node_checking = node_checker.submit(_check_outputs, work, names,
+                                                r_id, kept, 0)
             calls = _delta(after, before, "kernel.merge_path.launches")
             rows = _delta(after, before, "kernel.merge_path.rows")
             life["node_compaction"] = {
                 "seconds": node_s, "stats": {names[a]: s
                                              for a, s in stats.items()},
-                "merge_calls": calls, "merge_rows": rows,
-                "check_s": checked["seconds"],
-                "output_records": checked["output_records"]}
+                "merge_calls": calls, "merge_rows": rows}
             if any(s["fallback"] or not s["batched"] for s in stats.values()):
                 raise AssertionError(f"node compaction fell back: {stats}")
             if on_card and not all(rows[a] > calls[a] for a in addrs):
@@ -6102,6 +6601,24 @@ def run_cluster(device, work: str, provider: str, counts: list,
             a, "perf-counters-by-prefix", ["lockrank."])) for a in addrs}
         out["collector_lockrank"] = json.loads(_remote_command(
             coll, "perf-counters-by-prefix", ["lockrank."]))
+        if admin:
+            # the collector stops first: its canary must not create a
+            # table on the fresh meta before the recover
+            apps["collector"].proc.send_signal(signal.SIGTERM)
+            apps["collector"].proc.wait(timeout=120)
+            expected = [CLUSTER_APP] + ([CLUSTER_RESTORED] if lifecycle
+                                        else []) + ([HEAL_APP] if heal
+                                                    else [])
+            out["recover"] = check_recover(meta, apps["meta1"], work, addrs,
+                                           pool, expected)
+            step("recovered")
+        if lifecycle:
+            checked = node_checking.result()
+            node_checker.shutdown()
+            life["node_compaction"].update(
+                check_s=checked["seconds"],
+                output_records=checked["output_records"])
+            step("restored table's outputs checked")
         if on_card:
             # this script's own process holds a context on the card too
             out["device_mib"] = {
@@ -6119,7 +6636,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
         if loader is not None:
             loader.close()
         rcs = {}
-        for name in [n for n in apps if n != "meta1"] + ["meta1"]:
+        for name in [n for n in apps if not n.endswith("meta1")] + \
+                [n for n in apps if n.endswith("meta1")]:
             app = apps.get(name)
             if app is None:
                 continue
@@ -6258,6 +6776,18 @@ def main(argv=()) -> int:
     fence, fence_dr, fence_keys = check_fence_kernel(device)
     emit("kernel", **kern, batched=kern_b, fence_lookup=fence)
 
+    # the 10M-record provider that replicate and cluster load is pure
+    # numpy and file writes: a process of its own writes it while the
+    # phases from fill to serve run (after the timed kernel phase)
+    import multiprocessing
+
+    provider_dir = os.path.join(ROOT, ".scratch", "chip_smoke_provider")
+    shutil.rmtree(provider_dir, ignore_errors=True)
+    writer = multiprocessing.get_context("spawn").Pool(1)
+    provider_job = writer.apply_async(write_provider, (
+        provider_dir, "usertable", SERVE_RECORDS, SERVE_PARTITIONS,
+        SERVE_FILES))
+
     t0 = time.perf_counter()
     runs = fill(N_RECORDS)
     emit("fill", seconds=time.perf_counter() - t0,
@@ -6293,8 +6823,15 @@ def main(argv=()) -> int:
         eng.close()
         del eng
         torch.cuda.empty_cache()
-        eng, comp_v = run_compaction(os.path.join(work, "db_values"), runs,
-                                     device, want, device_values=True)
+        # a quarter of the fill (the clock): its own runs and cpu digest
+        runs_v = fill(N_RECORDS // VALUES_FRACTION)
+        want_v, cpu_v_s = cpu_digest(runs_v)
+        eng, comp_v = run_compaction(os.path.join(work, "db_values"),
+                                     runs_v, device, want_v,
+                                     device_values=True)
+        del runs_v
+        comp_v.update(records=N_RECORDS // VALUES_FRACTION,
+                      cpu_backend_s=cpu_v_s)
         gather = comp_v["stages"]["gather"]
         if comp_v["merge_launches"] == 0 or gather["bytes"] == 0:
             raise AssertionError("device_values compaction did not gather "
@@ -6356,7 +6893,14 @@ def main(argv=()) -> int:
 
     os.makedirs(work, exist_ok=True)
     try:
-        serve = run_serve(device, os.path.join(work, "serve"))
+        t0 = time.perf_counter()
+        provider_counts = provider_job.get()
+        writer.close()
+        writer.join()
+        provider_wait_s = time.perf_counter() - t0
+        serve = run_serve(device, os.path.join(work, "serve"),
+                          n_records=SERVE_RECORDS // SERVE_FRACTION)
+        serve["provider_wait_s"] = provider_wait_s
         emit("serve", **serve)
         # the fence kernel on a serve partition's run at the probe size
         # the serve read-backs' batches had (read.batch.size p50)
@@ -6373,7 +6917,7 @@ def main(argv=()) -> int:
                 f"{serve['compaction']['merge_launches']}")
         torch.cuda.empty_cache()
         replicate = run_replicate(device, os.path.join(work, "replicate"),
-                                  os.path.join(work, "serve", "provider"))
+                                  provider_dir)
         emit("replicate", **replicate)
         # every replica ingests 4 raw sets (3 merges) and compacts each of
         # its runs but the first into one (a merge per extra run)
@@ -6393,12 +6937,13 @@ def main(argv=()) -> int:
         shutil.rmtree(os.path.join(work, "geo"), ignore_errors=True)
         torch.cuda.empty_cache()
         cluster = run_cluster(device, os.path.join(work, "cluster"),
-                              os.path.join(work, "serve", "provider"),
-                              serve["partition_records"], lifecycle=True,
-                              heal=True)
+                              provider_dir,
+                              provider_counts, lifecycle=True,
+                              heal=True, dup=True, admin=True)
         emit("cluster", **cluster)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(provider_dir, ignore_errors=True)
 
     emit("elapsed", seconds=time.perf_counter() - started)
     # the kernel line: per launch, averaged over the compaction's own
@@ -6437,7 +6982,11 @@ def main(argv=()) -> int:
         "cluster.heal": {
             leg: sum(cluster["heal"][leg]["read_back"]
                      ["fence_launches"].values())
-            for leg in ("scrub", "autoheal")}}
+            for leg in ("scrub", "autoheal")},
+        "cluster.heal_recall": sum(cluster["heal"]["recall"]["read_back"]
+                                   ["fence_launches"].values()),
+        "cluster.west_read_back": sum(cluster["dup"]["west_read_back"]
+                                      ["fence_launches"].values())}
     # the merge's launches on every path of the main run, per phase (the
     # cluster's scraped from its processes)
     node = life["node_compaction"]
@@ -6454,7 +7003,9 @@ def main(argv=()) -> int:
             cluster["load"]["merge_launches"].values()),
             "scheduler_leg": sum(cluster["sched"]["merge_launches"].values()),
             "split_gc_compaction": sum(
-                cluster["compaction"]["merge_launches"].values())},
+                cluster["compaction"]["merge_launches"].values()),
+            "west_bootstrap_ingest": sum(
+                cluster["dup"]["ingest_merge_launches"].values())},
         "geo": {"ingest": geo["ingest_merge_launches"],
                 "compaction": geo["compaction"]["merge_launches"]}}
     batched_launches = {

@@ -57,6 +57,10 @@ ROCKSDB_ITERATION_THRESHOLD_COUNT = "replica.rocksdb_max_iteration_count"
 ROCKSDB_ITERATION_THRESHOLD_SIZE = "replica.rocksdb_max_iteration_size"
 ROCKSDB_ITERATION_THRESHOLD_TIME_MS = ITERATION_THRESHOLD_TIME_MS
 
+# duplication config travels to replicas as a reserved app-env (the meta
+# pushes it with the normal env spread; replicas reconcile duplicators)
+ENV_DUPLICATION_KEY = "__duplication__"
+
 # per-table throttles and abnormal-size read tracing thresholds
 # (hot-applied app-envs; 0 = disabled)
 ENV_READ_THROTTLING = "replica.read_throttling"

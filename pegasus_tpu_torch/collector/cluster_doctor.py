@@ -1,6 +1,6 @@
 """Cluster doctor: fold what the cluster exports into ONE verdict.
 
-Port of pegasus_tpu/collector/cluster_doctor.py. Two consumers of the
+Port of pegasus_tpu/collector/cluster_doctor.py. Consumers of the
 cluster's RPC surfaces:
 
 - ``run_cluster_audit``: the decree-anchored consistency audit.
@@ -21,7 +21,13 @@ cluster's RPC surfaces:
   breakers, dispatch queue depth) and the cluster-wide slow-request
   rollup. The shell's ``cluster_doctor`` prints it.
 
-Both are plain functions over RPC surfaces, so the shell, tests and
+- ``run_cross_cluster_audit``: a duplication leg's table-level compare
+  between two clusters, anchored at the duplicator's confirmed decree
+  (the source's audit, a wait until the meta's beacon-folded confirmed
+  decree reaches every anchor, the destination's audit, and the folded
+  digests compared). The shell's ``cross_cluster_audit`` prints it.
+
+All are plain functions over RPC surfaces, so the shell, tests and
 chip_smoke.py call the same code against either package's cluster.
 
 After each verdict the doctor runs the reference's two hooks: the
@@ -30,8 +36,7 @@ a healthy -> degraded / critical transition, and the auto-healer
 (collector/auto_heal.py) quarantines the one replica an audit isolates;
 their results ride the verdict as ``incident`` and ``autoheal``.
 
-Not ported yet: the cross-cluster audit (it needs duplication; ROADMAP
-Queue 1 item 5). The port has no lane guard, so no port node exports
+The port has no lane guard, so no port node exports
 ``*.lane.breaker_open`` and the breaker check never fires against one.
 """
 
@@ -40,6 +45,7 @@ import os
 import threading
 import time
 
+from ..base.utils import epoch_now
 from ..meta import messages as mm
 from ..meta.meta_server import RPC_CM_QUERY_CLUSTER_STATE
 from ..rpc import codec
@@ -249,6 +255,149 @@ def fold_table_digest(entries) -> dict:
         add = (add + int(digest[16:32], 16)) & 0xFFFFFFFFFFFFFFFF
         n += int(records)
     return {"digest": f"{xor:016x}{add:016x}", "records": n}
+
+
+def run_cross_cluster_audit(src_meta_addrs, dst_meta_addrs, app: str,
+                            dupid: int = None, wait_s: float = 20.0,
+                            confirm_wait_s: float = 30.0,
+                            pool: ConnectionPool = None,
+                            timeout: float = 5.0) -> dict:
+    """Cross-CLUSTER consistency compare for a duplication leg,
+    anchored at the duplicator's confirmed decree. Requires the
+    caller to have QUIESCED writes to `app` (the chaos harness runs it
+    after the load stops): shipping is asynchronous, so the compare
+    waits for the duplicators to confirm through the anchor rather than
+    assuming they are caught up.
+
+    Protocol:
+
+    1. decree-anchored audit on the SOURCE cluster: every partition's
+       primary digests its owned live state at an anchor decree;
+    2. wait until the meta's beacon-folded dup ``confirmed`` decree
+       reaches each partition's anchor — every mutation below the
+       anchor has then been shipped AND acked by the remote cluster
+       (the remote acks only after its own PacificA commit+apply);
+    3. decree-anchored audit on the DESTINATION cluster;
+    4. fold both sides' per-partition digests into one table-level
+       digest each (fold_table_digest) and compare.
+
+    -> ``{"app", "match": True|False|None, "src", "dst",
+    "anchors": {gpid: decree}, "confirmed": {pidx: decree},
+    "inconclusive": [reason...], "mismatches": [...]}`` — ``match`` is
+    None when any step was inconclusive (never a false mismatch).
+    The port adds ``"seconds": {"source_audit", "confirm_wait",
+    "destination_audit"}``, each step's wall time as far as the compare
+    got, and `timeout`, which bounds each meta query and remote command
+    of both audits, as ClusterCaller's does: a primary's trigger-audit
+    digests its whole partition inside the call."""
+    report = {"app": app, "match": None, "src": None, "dst": None,
+              "anchors": {}, "confirmed": {}, "inconclusive": [],
+              "mismatches": []}
+    caller = ClusterCaller(src_meta_addrs, pool=pool, timeout=timeout)
+    try:
+        state = caller.meta_state()
+        if state is None or app not in state.get("apps", {}):
+            report["inconclusive"].append(
+                f"source cluster state unavailable or no app {app!r}")
+            return report
+        app_id = state["apps"][app]["app_id"]
+        entry = _pick_dup_entry(state, app_id, dupid)
+        if entry is None:
+            report["inconclusive"].append(
+                f"no active duplication on {app!r} "
+                f"(dupid={dupid if dupid is not None else 'any'})")
+            return report
+        report["dupid"] = entry["dupid"]
+        # ONE expiry anchor for both sides: the audits run seconds apart,
+        # and a TTL record expiring in between would otherwise diverge
+        # the two digests on byte-identical data (false mismatch)
+        audit_now = epoch_now()
+        t0 = time.perf_counter()
+        src_audit = run_cluster_audit(src_meta_addrs, apps=[app],
+                                      wait_s=wait_s, caller=caller,
+                                      now=audit_now)
+        seconds = report["seconds"] = {
+            "source_audit": time.perf_counter() - t0}
+        if len(src_audit["ok"]) != src_audit["partitions"] \
+                or not src_audit["primaries"]:
+            report["inconclusive"].append(
+                "source audit incomplete: "
+                f"{len(src_audit['ok'])}/{src_audit['partitions']} "
+                "partitions conclusive")
+            report["src_audit"] = {k: src_audit[k]
+                                   for k in ("mismatches", "inconclusive")}
+            return report
+        report["anchors"] = {g: p["decree"]
+                             for g, p in src_audit["primaries"].items()}
+        t0 = time.perf_counter()
+        lagging = _wait_confirmed(caller, app, app_id, entry["dupid"],
+                                  src_audit["primaries"], confirm_wait_s,
+                                  report)
+        seconds["confirm_wait"] = time.perf_counter() - t0
+        if lagging:
+            report["inconclusive"].append(
+                "duplicator confirmed decree never reached the anchor "
+                f"within {confirm_wait_s:.0f}s for partition(s) {lagging}")
+            return report
+    finally:
+        caller.close()
+    dst_caller = ClusterCaller(dst_meta_addrs, pool=pool, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        dst_audit = run_cluster_audit(dst_meta_addrs, apps=[app],
+                                      wait_s=wait_s, caller=dst_caller,
+                                      now=audit_now)
+    finally:
+        dst_caller.close()
+    seconds["destination_audit"] = time.perf_counter() - t0
+    if len(dst_audit["ok"]) != dst_audit["partitions"] \
+            or not dst_audit["primaries"]:
+        report["inconclusive"].append(
+            "destination audit incomplete: "
+            f"{len(dst_audit['ok'])}/{dst_audit['partitions']} "
+            "partitions conclusive")
+        return report
+    report["src"] = fold_table_digest(
+        (p["digest"], p["records"]) for p in src_audit["primaries"].values())
+    report["dst"] = fold_table_digest(
+        (p["digest"], p["records"]) for p in dst_audit["primaries"].values())
+    report["match"] = report["src"]["digest"] == report["dst"]["digest"] \
+        and report["src"]["records"] == report["dst"]["records"]
+    if not report["match"]:
+        report["mismatches"].append(
+            {"app": app, "src": report["src"], "dst": report["dst"],
+             "anchors": report["anchors"]})
+    return report
+
+
+def _pick_dup_entry(state, app_id: int, dupid):
+    for e in state.get("dups", {}).get(str(app_id), []):
+        if dupid is not None and e.get("dupid") != dupid:
+            continue
+        if dupid is not None or e.get("status") == "start":
+            return e
+    return None
+
+
+def _wait_confirmed(caller, app, app_id, dupid, primaries, confirm_wait_s,
+                    report):
+    """Poll the source meta until the dup entry's beacon-folded confirmed
+    decree reaches every partition's anchor. -> list of lagging pidx
+    (empty = fully confirmed)."""
+    anchors = {int(g.split(".")[1]): p["decree"] for g, p in primaries.items()}
+    deadline = time.monotonic() + confirm_wait_s
+    while True:
+        state = caller.meta_state()
+        conf = {}
+        if state is not None:
+            e = _pick_dup_entry(state, app_id, dupid)
+            conf = (e or {}).get("confirmed", {})
+        report["confirmed"] = conf
+        lagging = [p for p, d in sorted(anchors.items())
+                   if int(conf.get(str(p), 0)) < d]
+        if not lagging or time.monotonic() >= deadline:
+            return lagging
+        time.sleep(0.2)
 
 
 # ===================================================== periodic audit rounds

@@ -100,7 +100,8 @@ _UNRESOLVED = object()  # get_batch: "not answered yet"
 # and PEGASUS_DEVICE_READ_MIN_BATCH override it.
 DEVICE_READ_MIN_BATCH = 2
 # state_digest's array path: the most rows the sources newer than the
-# base run may hold (each is looked up in the base one at a time)
+# base run may hold for a lookup of each in the base one at a time; a
+# wider overlay is matched against the base by sorting
 DIGEST_OVERLAY_MAX = 4096
 
 
@@ -981,8 +982,9 @@ class LsmEngine:
         (the writes flushed since the load, which a split's learns and a
         backup's checkpoint carry). The digest ignores order, so the rows
         are the base's live rows whose keys nothing newer holds, plus the
-        newer sources' newest live rows. None when the newer sources hold
-        more than DIGEST_OVERLAY_MAX rows."""
+        newer sources' newest live rows. Past DIGEST_OVERLAY_MAX rows in
+        the newer sources the keys are matched by sorting
+        (_wide_overlay_digest_rows). None without an SST."""
         with self._lock:
             levels = [self._levels[lv] for lv in sorted(self._levels)
                       if self._levels[lv]]
@@ -998,40 +1000,80 @@ class LsmEngine:
                 for k, ved in mem.items():
                     newest.setdefault(k, ved)
         if len(newest) + sum(f.n for f in newer) > DIGEST_OVERLAY_MAX:
-            return None
+            return self._wide_overlay_digest_rows(base, newer, newest, now,
+                                                  pmask)
         for sst in newer:  # newest first, as the merged scan ranks them
             b = self._sst_block(sst)
             for i in range(b.n):
                 newest.setdefault(b.key(i), (b.value(i), int(b.expire_ts[i]),
                                              bool(b.deleted[i])))
-        mem_rows = [
-            struct.pack("<I", len(k)) + k + struct.pack("<q", int(e)) + v
-            for k, (v, e, d) in sorted(newest.items())
-            if not d and not check_if_ts_expired(now, e)
-            and (not pmask or key_hash(k) % (pmask + 1) == self.opts.pidx)]
-
         def chunks():
             for sst in base:
-                yield from self._live_digest_rows(sst, now, pmask, newest)
-            if mem_rows:
-                lens = np.fromiter(map(len, mem_rows), np.int64,
-                                   len(mem_rows))
-                yield crc64_batch(np.frombuffer(b"".join(mem_rows), np.uint8),
-                                  np.cumsum(lens) - lens, lens)
+                b = self._sst_block(sst)
+                keep = np.ones(b.n, dtype=bool)
+                for k in newest:
+                    i = b.lower_bound(k)
+                    if i < b.n and b.key(i) == k:
+                        keep[i] = False
+                yield from self._live_digest_rows(b, keep, now, pmask)
+            yield from self._mem_digest_rows(newest, now, pmask)
 
         return chunks()
 
-    def _live_digest_rows(self, sst, now: int, pmask: int, shadowed):
-        """The crc64s of one file's live rows as digest records, without
-        the keys in `shadowed` (newer versions in a memtable or a newer
-        file)."""
-        b = self._sst_block(sst)
+    def _wide_overlay_digest_rows(self, base, newer, mem: dict, now: int,
+                                  pmask: int):
+        """_single_run_digest_rows' chunks over an overlay too wide to look
+        up key by key: every source's keys as fixed-width byte rows
+        (_key_rows), deduplicated and matched by sorting. The newer files
+        come newest first (one level's files are disjoint), so a key's
+        first row among them is its newest file version, which counts
+        unless a memtable holds the key; a base row counts unless any
+        newer source holds its key."""
+        blocks = [self._sst_block(s) for s in newer]
+        bases = [self._sst_block(s) for s in base]
+        width = max([int(b.key_len.max()) for b in blocks + bases if b.n]
+                    + [len(k) for k in mem] + [1])
+        mem_keys = _key_rows(_KeyList(list(mem)), width)
+        file_keys = np.concatenate([_key_rows(b, width) for b in blocks]
+                                   + [mem_keys[:0]])
+        src = np.repeat(np.arange(len(blocks)), [b.n for b in blocks])
+        row = np.concatenate([np.arange(b.n) for b in blocks]
+                             + [np.zeros(0, np.int64)])
+        uniq, first = np.unique(file_keys, return_index=True)
+        first = first[~np.isin(uniq, mem_keys)]
+        shadow = np.concatenate([uniq, mem_keys])
+
+        def chunks():
+            for b in bases:
+                keep = ~np.isin(_key_rows(b, width), shadow)
+                yield from self._live_digest_rows(b, keep, now, pmask)
+            for i, b in enumerate(blocks):
+                keep = np.zeros(b.n, dtype=bool)
+                keep[row[first[src[first] == i]]] = True
+                yield from self._live_digest_rows(b, keep, now, pmask)
+            yield from self._mem_digest_rows(mem, now, pmask)
+
+        return chunks()
+
+    def _mem_digest_rows(self, mem: dict, now: int, pmask: int):
+        """The crc64s of the memtables' newest live rows (`mem`: key ->
+        (value, expire_ts, deleted)) as digest records."""
+        rows = [
+            struct.pack("<I", len(k)) + k + struct.pack("<q", int(e)) + v
+            for k, (v, e, d) in sorted(mem.items())
+            if not d and not check_if_ts_expired(now, e)
+            and (not pmask or key_hash(k) % (pmask + 1) == self.opts.pidx)]
+        if rows:
+            lens = np.fromiter(map(len, rows), np.int64, len(rows))
+            yield crc64_batch(np.frombuffer(b"".join(rows), np.uint8),
+                              np.cumsum(lens) - lens, lens)
+
+    def _live_digest_rows(self, b: KVBlock, keep, now: int, pmask: int):
+        """The crc64s of block b's rows in `keep` (a mask: the rows no
+        newer source shadows) that are live and owned, as digest
+        records."""
         exp = b.expire_ts.astype(np.int64)
-        keep = ~b.deleted & ~((exp > 0) & (exp <= now))
-        for k in shadowed:
-            i = b.lower_bound(k)
-            if i < b.n and b.key(i) == k:
-                keep[i] = False
+        keep = keep & ~b.deleted & ~((exp > 0) & (exp <= now))
         if pmask:
             hashes = _batch_key_hashes(b.key_arena, b.key_off, b.key_len)
             keep &= hashes % np.uint64(pmask + 1) == np.uint64(self.opts.pidx)
@@ -2088,6 +2130,34 @@ def _split_block(block: KVBlock, target_bytes: int) -> list:
         start = cut
         base = int(cum[cut - 1])
     return [block.gather(np.arange(s, e, dtype=np.int64)) for s, e in bounds]
+
+
+class _KeyList:
+    """Python byte-string keys in the arena form _key_rows reads."""
+
+    def __init__(self, keys):
+        self.n = len(keys)
+        self.key_len = np.fromiter(map(len, keys), np.int64, self.n)
+        self.key_off = np.cumsum(self.key_len) - self.key_len
+        self.key_arena = np.frombuffer(b"".join(keys), np.uint8)
+
+
+def _key_rows(b, width: int, chunk: int = 1 << 16) -> np.ndarray:
+    """Each key of b (a KVBlock or _KeyList) as one fixed-width void
+    scalar: the key zero-padded to `width` bytes, then its length as
+    big-endian u16, so equal rows are equal keys (a trailing zero byte
+    cannot alias a shorter key)."""
+    out = np.zeros((b.n, width + 2), np.uint8)
+    cols = np.arange(width, dtype=np.int64)
+    kl_all = b.key_len.astype(np.int64)
+    for lo in range(0, b.n, chunk):
+        kl = kl_all[lo: lo + chunk]
+        inside = cols[None, :] < kl[:, None]
+        at = b.key_off[lo: lo + chunk].astype(np.int64)[:, None] + cols
+        out[lo: lo + chunk, :width][inside] = b.key_arena[at[inside]]
+    out[:, width] = kl_all >> 8
+    out[:, width + 1] = kl_all & 0xFF
+    return out.view(np.dtype((np.void, width + 2))).ravel()
 
 
 def _digest_crcs(b: KVBlock, idx: np.ndarray) -> np.ndarray:

@@ -6,9 +6,8 @@ defaults: a pegasus_tpu peer and a pegasus_tpu_torch peer read each
 other's bytes (tests/test_torch_meta.py). Covers table DDL,
 partition-config queries, app envs, the beacon failure detector, the
 meta-to-replica lifecycle proposals and the replication prepare and
-learn frames; the duplication, backup, bulk-load, recovery and
-diagnosis messages are here too, though the port's meta does not serve
-those codes yet. Addresses travel as "host:port" strings.
+learn frames, and the duplication, backup, bulk-load, recovery,
+balance and diagnosis messages. Addresses travel as "host:port" strings.
 """
 
 from dataclasses import dataclass, field

@@ -12,12 +12,13 @@ Served: create, drop, list and query-config of apps, app envs, list
 nodes, the meta level, the beacon, the cluster-state snapshot the doctor
 and the compaction scheduler fold, and the table lifecycle: partition
 split, cold backup and restore, meta-driven bulk-load sessions and
-backup policies (run by the meta app's policy timer). Not ported yet, so
-their codes stay unregistered and answer ERR_HANDLER_NOT_FOUND:
-duplication, recall and purge of dropped apps, recover, ddd_diagnose,
-balance and propose. The
-state file's entries for those planes (duplications, soft-dropped apps)
-are kept as loaded and written back unchanged.
+backup policies (run by the meta app's policy timer), and the admin and
+duplication planes: recall and purge of soft-dropped apps, propose and
+balance (primary moves, then the copy-secondary stage), recover from the
+nodes' replicas into an empty meta, ddd_diagnose of memberless
+partitions, and the duplication entries (add, query, modify) the meta
+mirrors into each table's reserved app env, with the confirmed decrees
+the beacons fold in and the policy timer re-pushes (push_dup_envs).
 """
 
 import json
@@ -25,6 +26,7 @@ import os
 import threading
 import time
 
+from ..base import consts
 from ..rpc import codec
 from ..rpc.transport import (ConnectionPool, ERR_FORWARD_TO_PRIMARY,
                              ERR_INVALID_STATE, RpcError)
@@ -108,8 +110,6 @@ class MetaServer:
         self._policies = {}      # name -> dict (BackupPolicyInfo fields)
         self._bulk_loads = {}    # app_id -> bulk-load session dict
         self._restores = {}      # new_app_name -> restore status dict
-        # planes not ported yet, kept as loaded so the state file
-        # round-trips: duplication entries, soft drops
         self._dups = {}          # app_id -> list[dict] duplication entries
         self._dropped = {}       # app_id -> {"app","parts","expire_ts"}
         self.level = "lively"    # freezed | steady | lively (see META_LEVELS)
@@ -182,10 +182,18 @@ class MetaServer:
             RPC_CM_QUERY_BULK_LOAD: self._on_query_bulk_load,
             RPC_CM_CONTROL_BULK_LOAD: self._on_control_bulk_load,
             RPC_CM_QUERY_RESTORE: self._on_query_restore,
+            RPC_CM_PROPOSE: self._on_propose,
+            RPC_CM_BALANCE: self._on_balance,
+            RPC_CM_ADD_DUPLICATION: self._on_add_dup,
+            RPC_CM_QUERY_DUPLICATION: self._on_query_dup,
+            RPC_CM_MODIFY_DUPLICATION: self._on_modify_dup,
             RPC_CM_ADD_BACKUP_POLICY: self._on_add_backup_policy,
             RPC_CM_LS_BACKUP_POLICY: self._on_ls_backup_policy,
             RPC_CM_MODIFY_BACKUP_POLICY: self._on_modify_backup_policy,
+            RPC_CM_RECOVER: self._on_recover,
+            RPC_CM_RECALL_APP: self._on_recall_app,
             RPC_CM_CONTROL_META: self._on_control_meta,
+            RPC_CM_DDD_DIAGNOSE: self._on_ddd_diagnose,
             RPC_FD_BEACON: self._on_beacon,
         }
 
@@ -229,10 +237,8 @@ class MetaServer:
     def _on_drop_app(self, header, body) -> bytes:
         """drop [-r reserve_seconds]: reserve_seconds > 0 soft-drops — the
         app disappears from routing/DDL but its replicas' data stays on
-        disk and a recall can restore it until the hold expires
-        (reference drop/recall with hold_seconds_for_dropped_app; the
-        port records the soft drop in the state file and does not serve
-        the recall yet)."""
+        disk and recall_app can restore it until the hold expires
+        (reference drop/recall with hold_seconds_for_dropped_app)."""
         req = codec.decode(mm.DropAppRequest, body)
         with self._lock:
             app = self._apps.pop(req.app_name, None)
@@ -253,6 +259,34 @@ class MetaServer:
                                    ignore_errors=True)
         return codec.encode(mm.DropAppResponse())
 
+    def _on_recall_app(self, header, body) -> bytes:
+        """recall <app_id> [new_name]: restore a soft-dropped app; replicas
+        reopen from their preserved on-disk state."""
+        req = codec.decode(mm.RecallAppRequest, body)
+        with self._lock:
+            ent = self._dropped.get(req.app_id)
+            if ent is None:
+                return codec.encode(mm.RecallAppResponse(
+                    error=1, error_text=f"no dropped app with id "
+                                        f"{req.app_id} [or hold expired]"))
+            name = req.new_app_name or ent["app"]["app_name"]
+            if name in self._apps:
+                return codec.encode(mm.RecallAppResponse(
+                    error=1, error_text=f"app {name} already exists"))
+            del self._dropped[req.app_id]
+            app = mm.AppInfo(**ent["app"])
+            app.app_name = name
+            app.status = "AS_AVAILABLE"
+            parts = [mm.PartitionConfig(**pc) for pc in ent["parts"]]
+            for pc in parts:
+                pc.ballot += 1
+            self._apps[name] = app
+            self._parts[app.app_id] = parts
+            self._persist_locked()
+        for pc in parts:
+            self._install_partition(app, pc)
+        return codec.encode(mm.RecallAppResponse(app_name=name))
+
     def _on_control_meta(self, header, body) -> bytes:
         """get/set the meta function level (reference meta_function_level
         + shell get_meta_level/set_meta_level): `freezed` stops every
@@ -270,6 +304,19 @@ class MetaServer:
                 self.level = req.set_level
                 self._persist_locked()
             return codec.encode(mm.ControlMetaResponse(level=self.level))
+
+    def purge_expired_dropped(self, now: int = None) -> list:
+        """Forget soft-dropped apps past their hold (timer tick); their
+        data dirs on replica nodes become garbage for operator GC."""
+        now = int(time.time()) if now is None else now
+        with self._lock:
+            gone = [aid for aid, e in self._dropped.items()
+                    if e["expire_ts"] <= now]
+            for aid in gone:
+                del self._dropped[aid]
+            if gone:
+                self._persist_locked()
+        return gone
 
     def _on_list_apps(self, header, body) -> bytes:
         with self._lock:
@@ -290,8 +337,9 @@ class MetaServer:
         """One-RPC cluster snapshot: node liveness, every app's partition
         config and the beacon-folded per-replica lag, audit and compaction
         debt states; what the cluster doctor and the compaction scheduler
-        fold. Served at level `blind` too (a pure query). `dups` stays {}
-        until duplication is ported."""
+        fold, with the duplication entries and their beacon-folded
+        confirmed decrees (the cross-cluster audit's anchors). Served at
+        level `blind` too (a pure query)."""
         with self._lock:
             now = time.monotonic()
             nodes = {addr: {"alive": (now - last) < self.fd_grace,
@@ -308,10 +356,14 @@ class MetaServer:
                         "primary": pc.primary,
                         "secondaries": list(pc.secondaries)}
                         for pc in self._parts[app.app_id]]}
+            # deep-copied: the beacon fold mutates `confirmed` meanwhile
+            dups = {str(aid): [dict(e, confirmed=dict(e.get("confirmed", {})))
+                               for e in entries]
+                    for aid, entries in self._dups.items() if entries}
             state = {"nodes": nodes, "apps": apps,
                      "replica_states": {n: dict(s) for n, s
                                         in self._node_states.items()},
-                     "dups": {},
+                     "dups": dups,
                      "meta_level": self.level}
         return codec.encode(mm.QueryClusterStateResponse(
             state_json=json.dumps(state)))
@@ -761,6 +813,246 @@ class MetaServer:
                     error=1, error_text=f"unknown action {req.action!r}"))
         return codec.encode(mm.ControlBulkLoadResponse())
 
+    # --------------------------------------------------------------- balance
+
+    def _on_propose(self, header, body) -> bytes:
+        """Move one partition's primary to a named secondary (the
+        greedy_load_balancer's move_primary proposal, shell `propose`)."""
+        req = codec.decode(mm.ProposeRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.ProposeResponse(error=1,
+                                                       error_text="no such app"))
+            parts = self._parts[app.app_id]
+            if not (0 <= req.pidx < len(parts)):
+                return codec.encode(mm.ProposeResponse(error=1,
+                                                       error_text="bad pidx"))
+            pc = parts[req.pidx]
+            if req.target not in pc.secondaries:
+                return codec.encode(mm.ProposeResponse(
+                    error=1, error_text=f"{req.target} is not a secondary"))
+            pc.ballot += 1
+            pc.secondaries.remove(req.target)
+            pc.secondaries.append(pc.primary)
+            pc.primary = req.target
+            self._persist_locked()
+        self._install_partition(app, pc)
+        return codec.encode(mm.ProposeResponse())
+
+    def _on_balance(self, header, body) -> bytes:
+        """Greedy primary balancing: while the most-loaded node holds 2+
+        more primaries than the least-loaded, demote one whose partition
+        has a secondary on the lighter node (the greedy_load_balancer's
+        primary-count equalization)."""
+        with self._lock:
+            if self.level != "lively":
+                return codec.encode(mm.BalanceResponse(
+                    error=1, moved=0,
+                    error_text=f"meta level is {self.level}; balancing "
+                               "needs lively (set_meta_level lively)"))
+        moved = 0
+        for _ in range(64):  # bounded passes
+            with self._lock:
+                alive = self._alive_nodes_locked()
+                if len(alive) < 2:
+                    break
+                counts = {a: 0 for a in alive}
+                for parts in self._parts.values():
+                    for pc in parts:
+                        if pc.primary in counts:
+                            counts[pc.primary] += 1
+                heavy = max(alive, key=lambda a: counts[a])
+                light = min(alive, key=lambda a: counts[a])
+                if counts[heavy] - counts[light] < 2:
+                    break
+                move = None
+                for app in self._apps.values():
+                    for pc in self._parts[app.app_id]:
+                        if pc.primary == heavy and light in pc.secondaries:
+                            move = (app, pc)
+                            break
+                    if move:
+                        break
+                if move is None:
+                    break
+                app, pc = move
+                pc.ballot += 1
+                pc.secondaries.remove(light)
+                pc.secondaries.append(pc.primary)
+                pc.primary = light
+                self._persist_locked()
+            self._install_partition(app, pc)
+            moved += 1
+        moved += self._balance_copy_secondary()
+        return codec.encode(mm.BalanceResponse(moved=moved))
+
+    def _balance_copy_secondary(self) -> int:
+        """Total-replica equalization (greedy_load_balancer's copy_secondary
+        stage): while the most-loaded node holds 2+ more REPLICAS than the
+        least-loaded, migrate one secondary heavy->light — seed the light
+        node as a learner (synchronous checkpoint+log-tail learn), admit it
+        as a secondary, then drop the heavy copy. Primary moves alone
+        equalize leadership but leave replica-count (disk/IO) skew."""
+        moved = 0
+        for _ in range(64):
+            with self._lock:
+                alive = self._alive_nodes_locked()
+                if len(alive) < 2:
+                    break
+                loads = {a: self._node_load_locked(a) for a in alive}
+                heavy = max(alive, key=lambda a: loads[a])
+                light = min(alive, key=lambda a: loads[a])
+                if loads[heavy] - loads[light] < 2:
+                    break
+                move = None
+                for app in self._apps.values():
+                    for pc in self._parts[app.app_id]:
+                        if (heavy in pc.secondaries and pc.primary != light
+                                and light not in pc.secondaries):
+                            move = (app, pc)
+                            break
+                    if move:
+                        break
+                if move is None:
+                    break
+                app, pc = move
+                pc.ballot += 1
+                self._persist_locked()
+            # seed the light node (learn is synchronous inside the RPC),
+            # then admit it and re-push so it starts receiving prepares
+            self._install_partition(app, pc, learners=[light])
+            with self._lock:
+                pc.secondaries.append(light)
+                self._persist_locked()
+            self._install_partition(app, pc)
+            # now drop the heavy copy
+            with self._lock:
+                pc.ballot += 1
+                pc.secondaries.remove(heavy)
+                self._persist_locked()
+            self._install_partition(app, pc)
+            self._send_to_node(heavy, RPC_CLOSE_REPLICA,
+                               mm.CloseReplicaRequest(app.app_id, pc.pidx),
+                               ignore_errors=True)
+            moved += 1
+        return moved
+
+    # ---------------------------------------------------------- duplication
+
+    def _refresh_dup_env_locked(self, app) -> None:
+        """Mirror the app's dup entries into the reserved app-env; replicas
+        reconcile their shippers from it on every view/env install."""
+        envs = json.loads(app.envs_json)
+        # always present (possibly "[]"): replica-side env application is a
+        # MERGE, so deleting the key would leave stale entries live forever
+        envs[consts.ENV_DUPLICATION_KEY] = json.dumps(
+            self._dups.get(app.app_id, []))
+        app.envs_json = json.dumps(envs)
+
+    def _on_add_dup(self, header, body) -> bytes:
+        """add_dup <app> <remote_cluster> [freeze] (reference
+        duplication.cpp:32-96 via meta_duplication_service::add_duplication).
+        freeze=True creates the dup in DS_INIT: registered but not shipping
+        until start_dup."""
+        req = codec.decode(mm.AddDuplicationRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.AddDuplicationResponse(
+                    error=1, error_text="no such app"))
+            dups = self._dups.setdefault(app.app_id, [])
+            for e in dups:
+                if e["remote"] == req.remote_cluster:
+                    return codec.encode(mm.AddDuplicationResponse(
+                        error=1,
+                        error_text=f"duplication to {req.remote_cluster} "
+                                   f"already exists (dupid {e['dupid']})"))
+            dupid = self._next_dupid
+            self._next_dupid += 1
+            entry = {"dupid": dupid, "remote": req.remote_cluster,
+                     "status": "init" if req.freeze else "start",
+                     "fail_mode": "slow",
+                     "create_ts_ms": int(time.time() * 1000)}
+            dups.append(entry)
+            self._refresh_dup_env_locked(app)
+            parts = list(self._parts[app.app_id])
+            self._persist_locked()
+        self._push_app_envs(app, parts)
+        return codec.encode(mm.AddDuplicationResponse(
+            app_id=app.app_id, dupid=dupid))
+
+    def _on_query_dup(self, header, body) -> bytes:
+        req = codec.decode(mm.QueryDuplicationRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.QueryDuplicationResponse(
+                    error=1, error_text="no such app"))
+            entries = [mm.DupEntry(dupid=e["dupid"], remote=e["remote"],
+                                   status=e["status"],
+                                   fail_mode=e["fail_mode"],
+                                   create_ts_ms=e["create_ts_ms"])
+                       for e in self._dups.get(app.app_id, [])]
+        return codec.encode(mm.QueryDuplicationResponse(
+            app_id=app.app_id, entries=entries))
+
+    def _on_modify_dup(self, header, body) -> bytes:
+        """start_dup / pause_dup / remove_dup / set_dup_fail_mode
+        (reference change_dup_status + set_dup_fail_mode,
+        duplication.cpp:174-260)."""
+        req = codec.decode(mm.ModifyDuplicationRequest, body)
+        with self._lock:
+            app = self._apps.get(req.app_name)
+            if app is None:
+                return codec.encode(mm.ModifyDuplicationResponse(
+                    error=1, error_text="no such app"))
+            dups = self._dups.get(app.app_id, [])
+            entry = next((e for e in dups if e["dupid"] == req.dupid), None)
+            if entry is None:
+                return codec.encode(mm.ModifyDuplicationResponse(
+                    error=1, error_text=f"no dup {req.dupid} [duplication "
+                                        "not found]"))
+            # validate EVERYTHING before mutating anything: a half-applied
+            # modify must not survive in memory after an error response
+            if req.status and req.status not in ("start", "pause", "removed"):
+                return codec.encode(mm.ModifyDuplicationResponse(
+                    error=1, error_text=f"bad status {req.status}"))
+            if req.fail_mode and req.fail_mode not in ("slow", "skip"):
+                return codec.encode(mm.ModifyDuplicationResponse(
+                    error=1, error_text=f"bad fail_mode {req.fail_mode}"))
+            if req.status == "removed":
+                dups.remove(entry)
+            elif req.status:
+                entry["status"] = req.status
+            if req.fail_mode:
+                entry["fail_mode"] = req.fail_mode
+            self._refresh_dup_env_locked(app)
+            parts = list(self._parts[app.app_id])
+            self._persist_locked()
+        self._push_app_envs(app, parts)
+        return codec.encode(mm.ModifyDuplicationResponse())
+
+    def push_dup_envs(self) -> None:
+        """Periodic refresh of dup entries (incl. beacon-folded confirmed
+        decrees) to every replica of dup'd apps — the reference's dup-sync
+        cadence. Without this, secondaries' plog-GC floors only advance on
+        view changes and the log pins at the dup-creation decree forever."""
+        with self._lock:
+            targets = [(self._apps_by_id_locked(aid), entries)
+                       for aid, entries in self._dups.items() if entries]
+            targets = [(app, list(self._parts[app.app_id]))
+                       for app, entries in targets if app is not None]
+            for app, _ in targets:
+                self._refresh_dup_env_locked(app)
+            self._persist_locked()
+        for app, parts in targets:
+            self._push_app_envs(app, parts)
+
+    def _apps_by_id_locked(self, app_id: int):
+        return next((a for a in self._apps.values() if a.app_id == app_id),
+                    None)
+
     # ------------------------------------------------------- backup policies
 
     def _on_add_backup_policy(self, header, body) -> bytes:
@@ -875,6 +1167,125 @@ class MetaServer:
                 self._persist_locked()
         return ran
 
+    # -------------------------------------------------- disaster recovery
+
+    def _on_recover(self, header, body) -> bytes:
+        """Rebuild app + partition state from the replicas the given nodes
+        actually hold — the reference `recover` command for a meta that
+        lost its state (recovery.cpp / meta_service recover-from-replicas).
+        Only apps unknown to this meta are recovered; the member with the
+        highest (ballot, last_committed) becomes primary."""
+        req = codec.decode(mm.RecoverRequest, body)
+        reports = {}
+        for node in req.nodes:
+            out = self._send_to_node(node, RPC_QUERY_REPLICA_INFO,
+                                     mm.QueryReplicaInfoRequest(),
+                                     ignore_errors=True)
+            if out is None:
+                continue
+            resp = codec.decode(mm.QueryReplicaInfoResponse, out)
+            with self._lock:
+                self._nodes.setdefault(node, time.monotonic())
+            for ri in resp.replicas:
+                reports.setdefault(ri.app_id, {}).setdefault(
+                    ri.pidx, []).append((node, ri))
+        recovered = []
+        with self._lock:
+            known_ids = {a.app_id for a in self._apps.values()}
+            for app_id in sorted(reports):
+                if app_id in known_ids:
+                    continue
+                by_pidx = reports[app_id]
+                any_ri = next(iter(by_pidx.values()))[0][1]
+                if not any_ri.app_name or any_ri.app_name in self._apps:
+                    continue
+                pcount = max(r.partition_count
+                             for rs in by_pidx.values() for _, r in rs)
+                pcount = max(pcount, max(by_pidx) + 1)
+                app = mm.AppInfo(app_name=any_ri.app_name, app_id=app_id,
+                                 partition_count=pcount,
+                                 replica_count=max(len(rs) for rs
+                                                   in by_pidx.values()),
+                                 envs_json=any_ri.envs_json)
+                parts = []
+                for pidx in range(pcount):
+                    holders = sorted(
+                        by_pidx.get(pidx, []),
+                        key=lambda t: (t[1].ballot, t[1].last_committed),
+                        reverse=True)
+                    if holders:
+                        primary = holders[0][0]
+                        ballot = holders[0][1].ballot + 1
+                        secondaries = [n for n, _ in holders[1:]]
+                    else:
+                        primary, ballot, secondaries = "", 1, []
+                    parts.append(mm.PartitionConfig(
+                        pidx=pidx, ballot=ballot, primary=primary,
+                        secondaries=secondaries))
+                self._apps[app.app_name] = app
+                self._parts[app_id] = parts
+                self._next_app_id = max(self._next_app_id, app_id + 1)
+                recovered.append(app.app_name)
+            self._persist_locked()
+        for name in recovered:
+            app = self._apps[name]
+            for pc in self._parts[app.app_id]:
+                if pc.primary:
+                    self._install_partition(app, pc)
+        return codec.encode(mm.RecoverResponse(recovered_apps=recovered))
+
+    def _on_ddd_diagnose(self, header, body) -> bytes:
+        """Diagnose 'double-dead' partitions — every member lost, primary
+        left empty by reconfiguration — and (with force) promote the
+        best-qualified holder among currently-alive nodes (reference
+        ddd_diagnose, shell/commands/recovery.cpp + ddd_partition_info)."""
+        req = codec.decode(mm.DddDiagnoseRequest, body)
+        with self._lock:
+            if req.app_name and req.app_name not in self._apps:
+                # a typo with force=True must NOT widen to a cluster-wide fix
+                return codec.encode(mm.DddDiagnoseResponse(
+                    error=1, error_text=f"no such app {req.app_name}"))
+            apps = ([self._apps[req.app_name]] if req.app_name
+                    else list(self._apps.values()))
+            alive = self._alive_nodes_locked()
+            dead_parts = []
+            for app in apps:
+                for pc in self._parts[app.app_id]:
+                    members = [m for m in [pc.primary] + pc.secondaries if m]
+                    if not members or not any(m in alive for m in members):
+                        dead_parts.append((app, pc))
+        out = []
+        for app, pc in dead_parts:
+            info = mm.DddPartitionInfo(
+                app_name=app.app_name, pidx=pc.pidx,
+                reason="no alive member in config")
+            holders = []
+            for node in alive:
+                key = f"{app.app_id}.{pc.pidx}"
+                with self._lock:
+                    has = key in self._node_replicas.get(node, ())
+                if not has:
+                    continue
+                st = self._query_replica_state(node, app.app_id, pc.pidx)
+                if st is not None and not st.error:
+                    holders.append((node, st))
+                    info.candidates.append(
+                        f"{node} ballot={st.ballot} lc={st.last_committed}")
+            if req.force and holders:
+                holders.sort(key=lambda t: (t[1].ballot, t[1].last_committed),
+                             reverse=True)
+                best = holders[0][0]
+                with self._lock:
+                    pc.ballot = max(pc.ballot,
+                                    max(st.ballot for _, st in holders)) + 1
+                    pc.primary = best
+                    pc.secondaries = [n for n, _ in holders[1:]]
+                    self._persist_locked()
+                self._install_partition(app, pc)
+                info.action = f"promoted {best}"
+            out.append(info)
+        return codec.encode(mm.DddDiagnoseResponse(partitions=out))
+
     def _on_list_nodes(self, header, body) -> bytes:
         with self._lock:
             nodes = []
@@ -930,6 +1341,21 @@ class MetaServer:
                     continue
             self._node_states[req.node] = states
             self._node_tables[req.node] = tables
+            # fold primary-reported dup confirmed decrees into the entries
+            # (the reference's duplication progress sync); not persisted
+            # per beacon: losing it on a meta restart only means extra
+            # log retention and at-least-once re-shipping, both safe
+            for item in req.dup_progress:
+                try:
+                    ids, decree = item.split(":")
+                    app_id, pidx, dupid = (int(x) for x in ids.split("."))
+                    decree = int(decree)
+                except ValueError:
+                    continue
+                for e in self._dups.get(app_id, []):
+                    if e["dupid"] == dupid:
+                        conf = e.setdefault("confirmed", {})
+                        conf[str(pidx)] = max(conf.get(str(pidx), 0), decree)
         # deliberately NO _persist() here: beacons reach followers too
         # (the leader-only RPC guard exempts RPC_FD_BEACON so takeover
         # starts with a warm liveness map), and _load() rebuilds _nodes
@@ -1166,6 +1592,12 @@ class MetaServer:
         synchronous inside the open RPC, so a non-error reply means the
         checkpoint + log tail were copied); member pushes stay
         best-effort."""
+        with self._lock:
+            # fresh dup entries (with the beacon-folded confirmed decrees)
+            # ride every install: a promoted primary starts its shippers
+            # at the meta-confirmed floor instead of from zero
+            if self._dups.get(app.app_id) is not None:
+                self._refresh_dup_env_locked(app)
         req = mm.OpenReplicaRequest(
             app_name=app.app_name, app_id=app.app_id, pidx=pc.pidx,
             ballot=pc.ballot, primary=pc.primary, secondaries=pc.secondaries,

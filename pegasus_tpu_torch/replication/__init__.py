@@ -1,6 +1,7 @@
 """Replica-node planes: PacificA replication (mutation log, replica,
-streamed learn, the in-process replica group) and the compaction-offload
-service with its client."""
+streamed learn, the in-process replica group), cross-cluster duplication
+(duplicator.py, bootstrap.py) and the compaction-offload service with its
+client."""
 
 from .group import ReplicaGroup
 from .mutation_log import LogMutation, MutationLog

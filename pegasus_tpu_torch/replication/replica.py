@@ -32,14 +32,21 @@ replica onto the cpu backend. A learned engine primes its resident runs
 right after the swap, so the learner serves device reads as its peers
 do.
 
-Not ported yet: the request and job tracer hooks, and the duplication
-hooks (commit hooks, duplicators and their log-GC floor).
+Duplication rides the commit path: every applied mutation, in decree
+order and including each decree of a batched window, goes to
+`commit_hooks` (a shipper's on_commit only enqueues, so nothing blocks
+under the replica's lock); the stub keeps the primary's shippers in
+`duplicators`; and gc_log holds the log at each live duplication's
+confirmed decree, so a promoted primary can catch its shipper up from
+its own log.
 """
 
+import json
 import os
 import time
 from dataclasses import dataclass
 
+from ..base import consts
 from ..engine.db import EngineOptions
 from ..engine.replica_service import WRITE_CODES
 from ..engine.server_impl import PegasusServer
@@ -113,6 +120,8 @@ class Replica:
         self.cluster_id = cluster_id
         self.app_name = ""       # set by the replica stub at open
         self.partition_count = 0
+        self.commit_hooks = []   # fn(LogMutation) after commit (duplication)
+        self.duplicators = {}    # dupid -> MutationDuplicator (stub-managed)
         self.quorum = quorum
         self.peers = peers or (lambda n: (_ for _ in ()).throw(
             ConnectionError(n)))
@@ -465,14 +474,23 @@ class Replica:
         except Exception:
             # a mid-window engine failure leaves the engine at its own
             # committed point: re-stage what was not applied, so a later
-            # view change or retry can still commit it
+            # view change or retry can still commit it, and fire the
+            # commit hooks for what was applied (a shipper advances past
+            # this window on the next commit, so a decree skipped here
+            # would never ship)
             applied = self.server.engine.last_committed_decree()
             for d, _, _, m in window:
                 if d > applied:
                     self._uncommitted[d] = m
+                else:
+                    for hook in self.commit_hooks:
+                        hook(m)
             self.last_committed = max(self.last_committed, applied)
             raise
         self.last_committed = decree
+        for _, _, _, m in window:
+            for hook in self.commit_hooks:
+                hook(m)
         return resps
 
     # --------------------------------------------------------------- learner
@@ -641,7 +659,13 @@ class Replica:
             self.plog.reset()
             self.last_committed = self.server.engine.last_committed_decree()
             self.last_prepared = self.last_committed
-            # replay only the log tail beyond the checkpoint decree
+            # replay only the log tail beyond the checkpoint decree; what
+            # lies at or below it (the primary's duplication floor reaching
+            # back) is logged, not applied: a promoted shipper catches up
+            # from it
+            ckpt_decree = self.last_prepared
+            self.plog.append_window([m for m in tail_state["tail"]
+                                     if m.decree <= ckpt_decree])
             for m in tail_state["tail"]:
                 if m.decree <= self.last_prepared:
                     continue
@@ -745,13 +769,20 @@ class Replica:
                 for (name, off, ln) in reqs]
 
     def fetch_learn_tail(self, learn_id: int) -> dict:
-        """The log tail above the pinned checkpoint decree + watermarks;
-        the replay runs lock-free (gc_log's pin floor holds the
+        """The log tail above the pinned checkpoint decree + watermarks,
+        reaching back to the duplication floor where a live duplication
+        still needs older decrees shipped: the learner keeps them in its
+        log (unapplied), so promoted it can catch its shippers up. The
+        replay runs lock-free (gc_log's pin and dup floors hold the
         segments)."""
         pin = self._learn_pin(learn_id)
         with self._lock:
             ballot, committed = self.ballot, self.last_committed
-        tail = list(self.plog.replay(pin["decree"]))
+        start = pin["decree"]
+        dup_floor = self._dup_log_floor()
+        if dup_floor is not None:
+            start = min(start, dup_floor)
+        tail = list(self.plog.replay(start))
         return {"tail": tail, "last_committed": committed, "ballot": ballot}
 
     def finish_learn(self, learn_id: int) -> None:
@@ -812,16 +843,48 @@ class Replica:
 
     def gc_log(self, flush: bool = False):
         """Drop log segments the durable SSTs cover, never past a live
-        learn pin. flush=True forces the memtable down first."""
+        learn pin nor a live duplication's confirmed decree: a restarted
+        or promoted shipper must be able to catch_up() from this log.
+        flush=True forces the memtable down first."""
         if flush:
             self.server.engine.flush()
         floor = self.server.engine.last_durable_decree()
-        pin_floor = self._live_learn_pin_floor()
-        if pin_floor is not None:
-            floor = min(floor, pin_floor)
+        for f in (self._live_learn_pin_floor(), self._dup_log_floor()):
+            if f is not None:
+                floor = min(floor, f)
         self.plog.gc(floor)
 
+    def _dup_log_floor(self):
+        """The lowest decree a live duplication may still need shipped
+        (None without one): per dup entry, the meta-confirmed decree the
+        env carries, on a primary too. A replica promoted after holding
+        this log as a secondary, or after learning its tail from it,
+        builds its shipper at the meta-confirmed decree and catches up
+        from its own log, so every member keeps the log back to there
+        (the reference's primary kept it only back to its own shipper's
+        progress, which runs ahead of the meta). The meta re-pushes the
+        entries, so the floor advances on a stable cluster."""
+        entries = {e["dupid"]: e for e in self._dup_env_entries()
+                   if e.get("status") in ("init", "start", "pause")}
+        floors = [int(e.get("confirmed", {}).get(str(self.pidx), 0))
+                  for e in entries.values()]
+        for dupid, d in dict(self.duplicators).items():
+            if dupid not in entries:  # shipper ahead of the env snapshot
+                floors.append(d.last_shipped_decree)
+        return min(floors, default=None)
+
+    def _dup_env_entries(self) -> list:
+        try:
+            return json.loads(
+                self.server.app_envs.get(consts.ENV_DUPLICATION_KEY, "[]"))
+        except ValueError:
+            return []
+
     def close(self):
+        for dupid, d in self.duplicators.items():
+            d.stop()
+            counters.remove(f"dup.lag.{self.app_id}.{self.pidx}.{dupid}")
+        self.duplicators.clear()
         # a closed replica's frozen gauges must not keep feeding readers
         for name in ("inflight", "backlog", "committed_decree",
                      "applied_decree", "secondary_gap_max", "learning"):

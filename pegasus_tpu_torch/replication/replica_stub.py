@@ -40,9 +40,17 @@ the meta's `repair_quarantined` re-seeds it. Knobs:
 PEGASUS_SCRUB_INTERVAL_S (300; 0 turns the background scrub off),
 PEGASUS_SCRUB_BPS (0: unthrottled) and PEGASUS_QUARANTINE_KEEP (4).
 
+Duplication: `remote_clusters` (the [pegasus.clusters] section) names
+each remote cluster's metas; on every view or env install
+_sync_duplications reconciles the replica's shippers with the dup
+entries the meta mirrors into the reserved app env. Only a primary
+ships; a promoted one builds its shippers at the meta's confirmed decree
+and catches them up from its own log. The beacon reports each shipper's
+confirmed decree (`dup_progress`) and refreshes its `dup.lag.*` gauge.
+
 Not ported yet (ROADMAP Queue 1): partition groups (a group_spec raises,
 naming the module; the socket adoption loop, and with it the scheduler's
-per-group split of the device cap) and duplication.
+per-group split of the device cap).
 """
 
 import json
@@ -50,6 +58,8 @@ import os
 import threading
 import time
 
+from ..base import consts
+from ..client import MetaResolver
 from ..engine.db import EngineOptions
 from ..engine.replica_service import ReplicaService
 from ..meta import messages as mm
@@ -68,6 +78,7 @@ from ..runtime.perf_counters import counters
 from ..runtime.remote_command import RemoteCommandService
 from ..runtime.table_stats import TABLE_STATS
 from ..runtime.tasking import spawn_thread
+from .duplicator import DuplicationGap, MutationDuplicator
 from .mutation_log import LogMutation
 from .replica import GroupView, PRIMARY, PrepareRejected, Replica, ReplicaError
 
@@ -188,7 +199,7 @@ class ReplicaStub:
     def __init__(self, root: str, meta_addrs, host: str = "127.0.0.1",
                  port: int = 0, options_factory=None, cluster_id: int = 1,
                  block_service_provider: str = "local_service",
-                 group_spec=None):
+                 group_spec=None, remote_clusters: dict = None):
         if group_spec is not None:
             raise NotImplementedError(
                 "group_spec: partition groups (replication/serve_groups.py) "
@@ -197,6 +208,10 @@ class ReplicaStub:
         self.block_service_provider = block_service_provider
         self.meta_addrs = list(meta_addrs)
         self.cluster_id = cluster_id
+        # [pegasus.clusters]: remote cluster name -> meta address list, the
+        # duplication targets (dup entries name clusters, this resolves them)
+        self.remote_clusters = {k: (v if isinstance(v, list) else [v])
+                                for k, v in (remote_clusters or {}).items()}
         # the card unless the caller asks otherwise (the reference's stub
         # defaults to the cpu backend)
         self.options_factory = options_factory or EngineOptions
@@ -321,11 +336,20 @@ class ReplicaStub:
     # ------------------------------------------------------------- beacons
 
     def _beacon_fragment_locked(self):  #: requires self._lock
-        """-> (alive gpids, per-replica state JSONs): the beacon fields
-        the meta reads."""
+        """-> (alive gpids, dup progress, per-replica state JSONs): the
+        beacon fields the meta reads."""
         alive = [f"{a}.{p}" for (a, p) in self._replicas]
+        progress = []
         states = []
         for (a, p), rep in self._replicas.items():
+            # dict() snapshot: _sync_duplications swaps the mapping
+            # copy-on-write, so this iteration never sees a resize
+            for dupid, d in dict(rep.duplicators).items():
+                progress.append(f"{a}.{p}.{dupid}:{d.last_shipped_decree}")
+                # the shipper's lag: decrees committed here but not yet
+                # confirmed shipped (refreshed every beacon tick)
+                counters.number(f"dup.lag.{a}.{p}.{dupid}").set(
+                    max(0, rep.last_committed - d.last_shipped_decree))
             st = {"gpid": f"{a}.{p}", "status": rep.status,
                   "ballot": rep.ballot,
                   "committed": rep.last_committed,
@@ -347,7 +371,7 @@ class ReplicaStub:
         frag = self._table_stats_fragment_locked()
         if frag is not None:
             states.append(frag)
-        return alive, states
+        return alive, progress, states
 
     def _table_stats_fragment_locked(self):  #: requires self._lock
         """A beacon entry (JSON) carrying TABLE_STATS.snapshot(), or None
@@ -381,9 +405,10 @@ class ReplicaStub:
 
     def send_beacon(self):
         with self._lock:
-            alive, states = self._beacon_fragment_locked()
+            alive, progress, states = self._beacon_fragment_locked()
         body = codec.encode(mm.BeaconRequest(
-            node=self.address, alive_replicas=alive, replica_states=states))
+            node=self.address, alive_replicas=alive, dup_progress=progress,
+            replica_states=states))
 
         # every configured meta: followers absorb beacons too (a warm
         # liveness map makes a takeover instant), concurrently so a
@@ -514,8 +539,84 @@ class ReplicaStub:
         envs = json.loads(req.envs_json or "{}")
         if envs:
             rep.server.update_app_envs(envs)
+        self._sync_duplications(rep)
         return codec.encode(mm.OpenReplicaResponse(
             last_committed=rep.last_committed, last_prepared=rep.last_prepared))
+
+    def _sync_duplications(self, rep) -> None:
+        """Reconcile the replica's mutation shippers with the dup entries
+        the meta mirrors into the reserved app env. Only the primary
+        ships (as the reference's duplication runs on primaries); a
+        demoted or removed primary tears its shippers down, a promoted one
+        builds them and catches up from its log past the persisted or the
+        meta-confirmed decree."""
+        try:
+            entries = json.loads(
+                rep.server.app_envs.get(consts.ENV_DUPLICATION_KEY, "[]"))
+        except ValueError:
+            entries = []
+        is_primary = rep.view is not None and rep.view.primary == rep.name
+        want = {}
+        if is_primary:
+            for e in entries:
+                if e.get("status") in ("start", "pause"):
+                    want[int(e["dupid"])] = e
+        # copy-on-write: the beacon thread and gc_log snapshot the
+        # mapping, so reconcile into a copy and swap it in at the end
+        dups = dict(rep.duplicators)
+        for dupid in list(dups):
+            if dupid not in want:
+                d = dups.pop(dupid)
+                try:
+                    rep.commit_hooks.remove(d.on_commit)
+                except ValueError:
+                    pass
+                d.stop()
+                counters.remove(f"dup.lag.{rep.app_id}.{rep.pidx}.{dupid}")
+        for dupid, e in want.items():
+            d = dups.get(dupid)
+            if d is None:
+                metas = self.remote_clusters.get(e["remote"])
+                if not metas:
+                    print(f"[dup {dupid}] unknown remote cluster "
+                          f"{e['remote']!r} (configure [pegasus.clusters])",
+                          flush=True)
+                    continue
+                try:
+                    resolver = MetaResolver(list(metas), rep.app_name)
+                except Exception as ex:  # the remote may be down: retried
+                    print(f"[dup {dupid}] remote resolve failed: {ex!r}",
+                          flush=True)   # on the next view or env install
+                    continue
+                floor = int(e.get("confirmed", {}).get(str(rep.pidx), 0))
+                # born paused: catch_up must order the log's backlog ahead
+                # of live hook traffic before anything ships, or a live
+                # decree would advance the confirmed point past it
+                d = MutationDuplicator(
+                    resolver, cluster_id=self.cluster_id,
+                    fail_mode=e.get("fail_mode", "slow"), dupid=dupid,
+                    progress_dir=os.path.join(rep.path, "dup"),
+                    confirmed_floor=floor, paused=True)
+                rep.commit_hooks.append(d.on_commit)
+                try:
+                    d.catch_up(rep.plog, committed=rep.last_committed)
+                except DuplicationGap as ex:
+                    # never ship past a hole: the shipper is not built, the
+                    # confirmed decree stays, and the gap is counted and
+                    # reported (retried on the next view or env install)
+                    rep.commit_hooks.remove(d.on_commit)
+                    d.stop()
+                    counters.number("dup.gap_count").increment()
+                    events.emit("dup.gap", severity="error",
+                                gpid=f"{rep.app_id}.{rep.pidx}", dupid=dupid,
+                                error=str(ex))
+                    print(f"[dup {dupid}] {rep.app_id}.{rep.pidx}: {ex}",
+                          flush=True)
+                    continue
+                dups[dupid] = d
+            d.fail_mode = e.get("fail_mode", "slow")
+            d.set_paused(e.get("status") == "pause")
+        rep.duplicators = dups
 
     def _seed_from_restore(self, replica_path: str, restore_dir: str) -> None:
         """Pre-open restore: download the backup's checkpoint files into

@@ -306,10 +306,12 @@ class MetaApp:
     (check_leases) and re-seeds partitions below their replica count
     (repair_under_replication), so a restarted node is re-added. A
     second timer, every max(check_interval_seconds, 5) s, runs the
-    backup policies that are due (run_backup_policies): a long backup
-    must not stall lease checks. The reference's timer also purges
-    expired soft drops and refreshes duplication envs; the port serves
-    neither plane yet."""
+    backup policies that are due (run_backup_policies), re-pushes the
+    duplication entries with their beacon-folded confirmed decrees
+    (push_dup_envs: without it the secondaries' log-GC floors pin at a
+    duplication's creation decree) and purges expired soft drops
+    (purge_expired_dropped): a long backup must not stall lease
+    checks."""
 
     def __init__(self, name, config: Config, section: str):
         from ..meta.meta_server import MetaServer
@@ -399,6 +401,8 @@ class MetaApp:
         try:
             if self._is_leader():
                 self.meta.run_backup_policies()
+                self.meta.push_dup_envs()
+                self.meta.purge_expired_dropped()
         except Exception as e:  # a policy failure must not kill the timer
             print(f"[meta] maintenance tick failed: {e!r}", flush=True)
         if not self._stopped:
@@ -451,12 +455,20 @@ class ReplicaApp:
             return EngineOptions(backend=backend, compression=compression,
                                  device=device)
 
+        # [pegasus.clusters]: name = comma-separated meta list, the
+        # duplication targets (the reference's config.ini cluster section)
+        remote_clusters = {}
+        if "pegasus.clusters" in config.sections():
+            for key in config.keys("pegasus.clusters"):
+                remote_clusters[key] = config.get_list("pegasus.clusters",
+                                                       key, [])
         self.stub = ReplicaStub(
             data_dir, list(metas),
             host=config.get_string(section, "host", "127.0.0.1"),
             port=config.get_int(section, "port", 0),
             options_factory=options_factory,
-            cluster_id=config.get_int("pegasus.server", "cluster_id", 1))
+            cluster_id=config.get_int("pegasus.server", "cluster_id", 1),
+            remote_clusters=remote_clusters)
         self._beacon = config.get_float("failure_detector",
                                         "beacon_interval_seconds", 1.0)
         # the stub starts and stops the metric history itself

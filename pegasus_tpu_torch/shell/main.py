@@ -17,10 +17,12 @@ round, `slow_requests --cluster`'s rollup and `flight_recorder`'s
 listing and captures in its own process, as the reference's does;
 `slo <collector>` reads the collector's verdicts.
 
-A command whose plane the port does not have yet (duplication, balance,
-recover, ddd_diagnose, ...) prints one error line
-naming the missing module and, in
-one-shot mode, exits non-zero. The reference shell has no split command:
+The duplication verbs (add_dup, query_dup, start_dup, pause_dup,
+remove_dup, set_dup_fail_mode, cross_cluster_audit) and the meta's admin
+verbs (recall, propose, balance, recover, ddd_diagnose) print the
+reference's lines too. A command whose plane the port does not have yet
+(NOT_PORTED, empty now) prints one error line naming the missing module
+and, in one-shot mode, exits non-zero. The reference shell has no split command:
 a split is the RPC_CM_START_PARTITION_SPLIT DDL.
 """
 
@@ -43,21 +45,7 @@ from ..runtime.table_stats import fold_snapshots, top_k
 
 
 # commands whose plane is not ported yet -> the module they need
-NOT_PORTED = {
-    "recall": "the meta's recall of soft-dropped apps "
-              "(meta/meta_server.py RPC_CM_RECALL_APP)",
-    "cross_cluster_audit": "duplication (replication/duplicator.py)",
-    "propose": "balance (meta/meta_server.py RPC_CM_PROPOSE_BALANCER)",
-    "balance": "balance (meta/meta_server.py RPC_CM_START_BALANCE)",
-    "add_dup": "duplication (replication/duplicator.py)",
-    "query_dup": "duplication (replication/duplicator.py)",
-    "start_dup": "duplication (replication/duplicator.py)",
-    "pause_dup": "duplication (replication/duplicator.py)",
-    "remove_dup": "duplication (replication/duplicator.py)",
-    "set_dup_fail_mode": "duplication (replication/duplicator.py)",
-    "recover": "recover (meta/meta_server.py RPC_CM_START_RECOVERY)",
-    "ddd_diagnose": "ddd_diagnose (meta/meta_server.py RPC_CM_DDD_DIAGNOSE)",
-}
+NOT_PORTED = {}
 
 
 class NotPorted(Exception):
@@ -84,7 +72,7 @@ class Shell:
             "create": (self.cmd_create, "create <name> [-p N] [-r N]"),
             "drop": (self.cmd_drop,
                      "drop <name> [-r seconds] — -r keeps it recallable"),
-            "recall": (self._not_ported("recall"),
+            "recall": (self.cmd_recall,
                        "recall <app_id> [new_name] — restore a soft-dropped app"),
             "use": (self.cmd_use, "use <name> — select table for data ops"),
             "nodes": (self.cmd_nodes, "list replica nodes"),
@@ -197,23 +185,23 @@ class Shell:
                                "arm/heal a fail point in live server "
                                "processes (chaos harness; action e.g. "
                                "'sleep(40)', '20%raise(x)', 'off()')"),
-            "cross_cluster_audit": (self._not_ported("cross_cluster_audit"),
+            "cross_cluster_audit": (self.cmd_cross_cluster_audit,
                                     "cross_cluster_audit <app> "
                                     "<dst_meta[,dst_meta...]> [dupid] — "
                                     "table-level digest compare against a "
                                     "duplication target cluster, anchored "
                                     "at the duplicator's confirmed decree "
                                     "(quiesce writes first)"),
-            "propose": (self._not_ported("propose"),
+            "propose": (self.cmd_propose,
                         "propose <pidx> <target_node> — move primary"),
-            "balance": (self._not_ported("balance"), "equalize primary counts"),
-            "add_dup": (self._not_ported("add_dup"),
+            "balance": (self.cmd_balance, "equalize primary counts"),
+            "add_dup": (self.cmd_add_dup,
                         "add_dup <app> <remote_cluster> [-f] — freeze=no ship yet"),
-            "query_dup": (self._not_ported("query_dup"), "query_dup <app>"),
-            "start_dup": (self._not_ported("start_dup"), "start_dup <app> <dupid>"),
-            "pause_dup": (self._not_ported("pause_dup"), "pause_dup <app> <dupid>"),
-            "remove_dup": (self._not_ported("remove_dup"), "remove_dup <app> <dupid>"),
-            "set_dup_fail_mode": (self._not_ported("set_dup_fail_mode"),
+            "query_dup": (self.cmd_query_dup, "query_dup <app>"),
+            "start_dup": (self.cmd_start_dup, "start_dup <app> <dupid>"),
+            "pause_dup": (self.cmd_pause_dup, "pause_dup <app> <dupid>"),
+            "remove_dup": (self.cmd_remove_dup, "remove_dup <app> <dupid>"),
+            "set_dup_fail_mode": (self.cmd_set_dup_fail_mode,
                                   "set_dup_fail_mode <app> <dupid> <slow|skip>"),
             "backup_app": (self.cmd_backup_app,
                            "backup_app <app> <backup_root> — one-shot backup"),
@@ -243,9 +231,9 @@ class Shell:
                                   "restart_bulk_load <app> — resume a paused session"),
             "cancel_bulk_load": (self.cmd_cancel_bulk_load,
                                  "cancel_bulk_load <app>"),
-            "recover": (self._not_ported("recover"),
+            "recover": (self.cmd_recover,
                         "recover <node> [node...] — rebuild meta state from nodes"),
-            "ddd_diagnose": (self._not_ported("ddd_diagnose"),
+            "ddd_diagnose": (self.cmd_ddd_diagnose,
                              "ddd_diagnose [app] [-f] — find/fix double-dead partitions"),
             "version": (self.cmd_version, "server + shell version"),
             "timeout": (self.cmd_timeout,
@@ -417,6 +405,16 @@ class Shell:
         self._clients.pop(ns.name, None)
         self.p(f"ERROR: {r.error_text}" if r.error
                else f"drop app {ns.name} succeed")
+
+    def cmd_recall(self, args):
+        from ..meta.meta_server import RPC_CM_RECALL_APP
+
+        new_name = args[1] if len(args) > 1 else ""
+        r = self._meta_call(RPC_CM_RECALL_APP,
+                            mm.RecallAppRequest(int(args[0]), new_name),
+                            mm.RecallAppResponse)
+        self.p(f"recall app {args[0]} failed, error={r.error_text}" if r.error
+               else f"recall app {args[0]} succeed, name={r.app_name}")
 
     def cmd_use(self, args):
         self.current_app = args[0]
@@ -833,6 +831,114 @@ class Shell:
     # backup / restore ----------------------------------------------------
     # (reference src/shell/commands/cold_backup.cpp incl. policy surface)
 
+    def cmd_cross_cluster_audit(self, args):
+        from ..collector.cluster_doctor import run_cross_cluster_audit
+
+        if len(args) < 2:
+            self.p("usage: cross_cluster_audit <app> "
+                   "<dst_meta[,dst_meta...]> [dupid]")
+            return
+        app, dst = args[0], args[1].split(",")
+        dupid = int(args[2]) if len(args) > 2 else None
+        report = run_cross_cluster_audit(self.meta_addrs, dst, app,
+                                         dupid=dupid,
+                                         timeout=self.rpc_timeout)
+        # the reference's report, without the port's step seconds
+        self.p(json.dumps({k: v for k, v in report.items()
+                           if k != "seconds"}, indent=1))
+        if report["match"] is True:
+            self.p(f"cross-cluster audit OK: {report['src']['records']} "
+                   "records, table digests identical at the confirmed "
+                   "decree anchors")
+        elif report["match"] is False:
+            self.p("cross-cluster audit MISMATCH")
+        else:
+            self.p("cross-cluster audit inconclusive: "
+                   + "; ".join(report["inconclusive"]))
+
+    def cmd_propose(self, args):
+        from ..meta.meta_server import RPC_CM_PROPOSE
+
+        r = self._meta_call(RPC_CM_PROPOSE,
+                            mm.ProposeRequest(self.current_app, int(args[0]),
+                                              args[1]),
+                            mm.ProposeResponse)
+        self.p(f"ERROR: {r.error_text}" if r.error else "OK")
+
+    def cmd_balance(self, args):
+        from ..meta.meta_server import RPC_CM_BALANCE
+
+        r = self._meta_call(RPC_CM_BALANCE, mm.BalanceRequest(),
+                            mm.BalanceResponse)
+        if r.error:
+            self.p(f"ERROR: {r.error_text or 'balance refused'}")
+        else:
+            self.p(f"moved {r.moved} primaries")
+
+    # duplication ---------------------------------------------------------
+    # (reference src/shell/commands/duplication.cpp:32-260)
+
+    def cmd_add_dup(self, args):
+        from ..meta.meta_server import RPC_CM_ADD_DUPLICATION
+
+        freeze = "-f" in args or "--freeze" in args
+        pos = [a for a in args if not a.startswith("-")]
+        r = self._meta_call(RPC_CM_ADD_DUPLICATION,
+                            mm.AddDuplicationRequest(pos[0], pos[1], freeze),
+                            mm.AddDuplicationResponse)
+        if r.error:
+            self.p(f"adding duplication failed: {r.error_text}")
+        else:
+            self.p(f"adding duplication succeed [app: {pos[0]}, remote: "
+                   f"{pos[1]}, appid: {r.app_id}, dupid: {r.dupid}, "
+                   f"freeze: {str(freeze).lower()}]")
+
+    def cmd_query_dup(self, args):
+        from ..meta.meta_server import RPC_CM_QUERY_DUPLICATION
+
+        r = self._meta_call(RPC_CM_QUERY_DUPLICATION,
+                            mm.QueryDuplicationRequest(args[0]),
+                            mm.QueryDuplicationResponse)
+        if r.error:
+            self.p(f"ERROR: {r.error_text}")
+            return
+        self.p(f"duplications of app [{args[0]}]:")
+        for e in r.entries:
+            created = time.strftime("%Y-%m-%d %H:%M:%S",
+                                    time.localtime(e.create_ts_ms / 1000))
+            self.p(f"  dupid={e.dupid} status={e.status} remote={e.remote} "
+                   f"fail_mode={e.fail_mode} create_time={created}")
+        if not r.entries:
+            self.p("  (none)")
+
+    def _modify_dup(self, app, dupid, status="", fail_mode="", verb=""):
+        from ..meta.meta_server import RPC_CM_MODIFY_DUPLICATION
+
+        r = self._meta_call(RPC_CM_MODIFY_DUPLICATION,
+                            mm.ModifyDuplicationRequest(
+                                app, int(dupid), status, fail_mode),
+                            mm.ModifyDuplicationResponse)
+        self.p(f"{verb} failed: {r.error_text}" if r.error else f"{verb} succeed")
+
+    def cmd_start_dup(self, args):
+        self._modify_dup(args[0], args[1], status="start",
+                         verb=f"starting duplication({args[1]})")
+
+    def cmd_pause_dup(self, args):
+        self._modify_dup(args[0], args[1], status="pause",
+                         verb=f"pausing duplication({args[1]})")
+
+    def cmd_remove_dup(self, args):
+        self._modify_dup(args[0], args[1], status="removed",
+                         verb=f"removing duplication({args[1]})")
+
+    def cmd_set_dup_fail_mode(self, args):
+        if args[2] not in ("slow", "skip"):
+            self.p('fail_mode must be "slow" or "skip"')
+            return
+        self._modify_dup(args[0], args[1], fail_mode=args[2],
+                         verb=f"setting fail_mode({args[2]})")
+
     def cmd_backup_app(self, args):
         from ..meta.meta_server import RPC_CM_BACKUP_APP
 
@@ -981,6 +1087,36 @@ class Shell:
             self.p(f"restore of {args[0]}: {r.status}, from "
                    f"{r.old_app_name}@{r.backup_id}, "
                    f"{r.done_partitions}/{r.total_partitions} partitions")
+
+    def cmd_recover(self, args):
+        from ..meta.meta_server import RPC_CM_RECOVER
+
+        r = self._meta_call(RPC_CM_RECOVER, mm.RecoverRequest(list(args)),
+                            mm.RecoverResponse)
+        if r.error:
+            self.p(f"recover failed: {r.error_text}")
+        else:
+            self.p(f"recovered apps: {r.recovered_apps or '(none)'}")
+
+    def cmd_ddd_diagnose(self, args):
+        from ..meta.meta_server import RPC_CM_DDD_DIAGNOSE
+
+        force = "-f" in args or "--force" in args
+        pos = [a for a in args if not a.startswith("-")]
+        r = self._meta_call(RPC_CM_DDD_DIAGNOSE,
+                            mm.DddDiagnoseRequest(pos[0] if pos else "", force),
+                            mm.DddDiagnoseResponse)
+        if r.error:
+            self.p(f"ERROR: {r.error_text}")
+            return
+        if not r.partitions:
+            self.p("no double-dead partitions")
+            return
+        for d in r.partitions:
+            self.p(f"[{d.app_name}.{d.pidx}] {d.reason}")
+            for c in d.candidates:
+                self.p(f"  candidate: {c}")
+            self.p(f"  action: {d.action or '(none; rerun with -f to fix)'}")
 
     def cmd_version(self, args):
         from ..runtime.remote_command import VERSION

@@ -41,33 +41,44 @@ from pegasus_tpu_torch.rpc.transport import RpcConnection, RpcServer
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _port_stub(root, meta_addr, port=0, **opts):
+def _port_stub(root, meta_addr, port=0, cluster_id=1, remote_clusters=None,
+               **opts):
     return ReplicaStub(str(root), [meta_addr], port=port,
                        options_factory=lambda: EngineOptions(device="cpu",
-                                                             **opts)
+                                                             **opts),
+                       cluster_id=cluster_id,
+                       remote_clusters=remote_clusters
                        ).start(beacon_interval=0.2)
 
 
-def _ref_stub(root, meta_addr, port=0, **opts):
+def _ref_stub(root, meta_addr, port=0, cluster_id=1, remote_clusters=None,
+              **opts):
     from pegasus_tpu.engine import EngineOptions as RefOptions
     from pegasus_tpu.replication.replica_stub import ReplicaStub as RefStub
 
     return RefStub(str(root), [meta_addr], port=port,
-                   options_factory=lambda: RefOptions(backend="cpu", **opts)
+                   options_factory=lambda: RefOptions(backend="cpu", **opts),
+                   cluster_id=cluster_id, remote_clusters=remote_clusters
                    ).start(beacon_interval=0.2)
 
 
 class Cluster:
     """A meta (the port's, or pegasus_tpu's with ref_meta=True) and
     replica nodes; `kinds` names each node's package, `options` the
-    EngineOptions fields every node's engines take."""
+    EngineOptions fields every node's engines take, `cluster_id` and
+    `remote_clusters` (name -> meta addresses, the duplication targets)
+    what every node's stub takes."""
 
     options = {}
+    stub_args = {}
 
     def __init__(self, root, kinds=("port",) * 3, ref_meta=False,
-                 fd_grace=60.0, options=None):
+                 fd_grace=60.0, options=None, cluster_id=1,
+                 remote_clusters=None):
         self.root = root
         self.options = dict(options or {})
+        self.stub_args = {"cluster_id": cluster_id,
+                          "remote_clusters": remote_clusters}
         if ref_meta:
             from pegasus_tpu.meta import MetaServer as RefMeta
             from pegasus_tpu.rpc.transport import RpcServer as RefRpc
@@ -93,7 +104,8 @@ class Cluster:
 
     def start_node(self, path, kind, port=0):
         make = _ref_stub if kind == "reference" else _port_stub
-        stub = make(path, self.meta_addr, port, **self.options)
+        stub = make(path, self.meta_addr, port, **self.stub_args,
+                    **self.options)
         self.nodes[stub.address] = stub
         self.kinds[stub.address] = kind
         self.dirs[stub.address] = path

@@ -297,6 +297,9 @@ def test_on_get_batch_equal_to_on_get_and_reference(tmp_path):
                                 b"v%d" % i, 0)) for i in range(200)]
             srv.on_batched_write_requests(1, 1000, reqs)
             srv.engine.flush()
+        # a flush primes its run asynchronously: under load the batch
+        # could otherwise arrive before the run is resident
+        port.engine.wait_primes()
         keys = [key_schema.generate_key(b"h%d" % (i % 5), b"s%03d" % i)
                 for i in range(0, 240, 3)]
         with COMPACT_TRACER.session() as sess:

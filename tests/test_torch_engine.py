@@ -232,6 +232,58 @@ def _assert_digests_agree(ref, port, pmask):
     assert fast == ref.state_digest(now=NOW, pmask=pmask)
 
 
+@pytest.mark.parametrize("compacted,mem_rows", [(False, 0), (True, 0),
+                                                 (False, 600), (True, 600)])
+def test_wide_overlay_digest_equals_the_merged_scan_and_reference(
+        tmp_path, compacted, mem_rows):
+    """A base run under newer files holding far more rows than
+    DIGEST_OVERLAY_MAX (a replica that learned a checkpoint with a second
+    large run): the array path matches the overlay's keys by sorting
+    (_wide_overlay_digest_rows) and its digest equals the merged scan's
+    and the reference engine's, with updates, deletes, expired rows, keys
+    that differ only by trailing zero bytes, an ownership mask and a
+    memtable over it all."""
+    ref = _ref_engine(str(tmp_path / "ref"))
+    port = _port_engine(str(tmp_path / "port"))
+    port.opts.memtable_bytes = 1 << 30       # one file per flush below
+    port.opts.l0_compaction_trigger = 1 << 10
+    rng = np.random.default_rng(11)
+    n = 2 * port_db.DIGEST_OVERLAY_MAX
+    try:
+        steps = [[(k, 0) for k in range(n)],
+                 [(int(k), int(op)) for k, op in zip(
+                     rng.integers(0, n, n), rng.integers(0, 4, n))],
+                 [(int(k), int(op)) for k, op in zip(
+                     rng.integers(0, n, mem_rows), rng.integers(0, 4, mem_rows))]]
+        for decree, step in enumerate(steps, 1):
+            for eng, batch_cls in ((ref, RefBatch), (port, WriteBatch)):
+                wb = batch_cls()
+                for k, op in step:
+                    key = generate_key(b"h%03d" % (k % 61),
+                                       b"s%d" % (k // 3) + b"\0" * (k % 3))
+                    exp = NOW - 1 if op == 1 else 0
+                    if op == 3:
+                        wb.delete(key)
+                    else:
+                        wb.put(key, SCHEMAS[2].generate_value(
+                            exp, 0, b"v%d.%d" % (decree, k)), exp)
+                if step:
+                    eng.write_batch([(wb, decree)])
+                if decree < 3:
+                    eng.flush()
+                if decree == 1 and compacted:
+                    eng.manual_compact(now=NOW)
+        newer = len(port._mem) + sum(
+            f.n for f in (port._l0 if compacted else port._l0[:-1]))
+        assert newer > port_db.DIGEST_OVERLAY_MAX
+        for pmask in (0, 3):
+            assert port._single_run_digest_rows(NOW, pmask) is not None
+            _assert_digests_agree(ref, port, pmask)
+    finally:
+        ref.close()
+        port.close()
+
+
 def test_single_l0_file_digest_takes_the_array_path(tmp_path):
     """An engine whose one SST is an L0 flush (a checkpoint of a freshly
     loaded replica) digests with array ops too, equal to the merged scan

@@ -5,8 +5,10 @@ Every script below runs twice against one port cluster (the harness of
 tests/test_torch_cluster.py): through pegasus_tpu_torch.shell.Shell on
 one table and through pegasus_tpu.shell.Shell on a twin table. The two
 print the same lines once table names, node addresses, ids, times and
-the version string are masked. Commands whose plane the port lacks
-print one error line naming the module, and fail a one-shot run.
+the version string are masked. The duplication and admin verbs print
+the reference shell's lines too. A command whose plane the port lacks
+(none now) would print one error line naming the module, and fail a
+one-shot run.
 `python -m pegasus_tpu_torch.sample` prints the reference sample's
 lines.
 """
@@ -273,15 +275,153 @@ def test_offline_debuggers(tmp_path):
     assert "decree=1" in text and "not found" in text
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_command_names_its_module(name):
+# the 12 verbs of the duplication and admin planes: each script runs on
+# its own twin tables (`{t}`), its lines given as strings or as
+# fn(cluster, table) -> line, evaluated when the line runs
+def _app_id(c, t):
+    return c.meta._apps[t].app_id
+
+
+def _dupid(c, t):
+    return c.meta._dups[_app_id(c, t)][-1]["dupid"]
+
+
+def _dropped_id(c, t):
+    return next(aid for aid, e in c.meta._dropped.items()
+                if e["app"]["app_name"] == t)
+
+
+def _secondary(c, t):
+    return c.meta._parts[_app_id(c, t)][0].secondaries[0]
+
+
+_DUP = ["create {t} -p 2", "add_dup {t} west -f"]
+VERBS = {
+    "add_dup": ["create {t} -p 2", "add_dup {t} west -f",
+                "add_dup {t} west", "add_dup nosuch west", "add_dup {t}",
+                "query_dup {t}"],
+    "query_dup": ["create {t} -p 2", "query_dup {t}", "add_dup {t} west",
+                  "query_dup {t}", "query_dup nosuch", "query_dup"],
+    "start_dup": _DUP + [lambda c, t: f"start_dup {t} {_dupid(c, t)}",
+                         "start_dup {t} 999", "start_dup nosuch 1",
+                         "query_dup {t}"],
+    "pause_dup": _DUP + [lambda c, t: f"pause_dup {t} {_dupid(c, t)}",
+                         "pause_dup {t} 999", "pause_dup {t}",
+                         "query_dup {t}"],
+    "remove_dup": _DUP + [lambda c, t: f"remove_dup {t} {_dupid(c, t)}",
+                          "remove_dup {t} 1000", "query_dup {t}"],
+    "set_dup_fail_mode": _DUP + [
+        lambda c, t: f"set_dup_fail_mode {t} {_dupid(c, t)} skip",
+        lambda c, t: f"set_dup_fail_mode {t} {_dupid(c, t)} loud",
+        "set_dup_fail_mode {t} 999 slow", "query_dup {t}"],
+    "cross_cluster_audit": ["create {t} -p 2", "use {t}", "set k s v",
+                            "cross_cluster_audit {t} 127.0.0.1:1",
+                            "cross_cluster_audit nosuch 127.0.0.1:1",
+                            "cross_cluster_audit {t}"],
+    "propose": ["create {t} -p 2", "use {t}",
+                lambda c, t: f"propose 0 {_secondary(c, t)}",
+                "propose 0 127.0.0.1:1", "propose 9 127.0.0.1:1",
+                "propose 0"],
+    "balance": ["set_meta_level freezed", "balance", "set_meta_level lively",
+                "balance"],
+    "recover": ["recover 127.0.0.1:1",
+                lambda c, t: "recover " + " ".join(sorted(c.nodes))],
+    "ddd_diagnose": ["create {t} -p 2", "ddd_diagnose {t}",
+                     "ddd_diagnose nosuch -f", "ddd_diagnose {t} -f"],
+    "recall": ["create {t} -p 2", "use {t}", "set k s v", "drop {t} -r 3600",
+               lambda c, t: f"recall {_dropped_id(c, t)} {t}2",
+               lambda c, t: f"recall {_app_id(c, t + '2')}",
+               "use {t}2", "get k s", "recall 99999", "recall x"],
+}
+
+
+def _mask_verbs(lines, table) -> list:
+    out = []
+    for line in _mask(lines, table):
+        line = re.sub(r"(recall app |dupid[=:] ?|\(dupid |appid: |duplication\()\d+",
+                      r"\1N", line)
+        line = re.sub(r"create_time=[\d: -]+", "create_time=T", line)
+        line = re.sub(r"id \d+ \[or hold", "id N [or hold", line)
+        out.append(line)
+    return out
+
+
+def _run_script(shell_cls, cluster, meta, script, t) -> list:
     out = io.StringIO()
-    sh = Shell(["127.0.0.1:1"], out=out)
-    sh.run_line(f"{name} a b c")
-    assert out.getvalue() == (f"ERROR: {name}: not ported to "
-                              f"pegasus_tpu_torch yet (needs "
-                              f"{NOT_PORTED[name]})\n")
-    assert sh.failed
+    sh = shell_cls([meta], out=out)
+    try:
+        for line in script:
+            sh.run_line(line(cluster, t) if callable(line)
+                        else line.format(t=t))
+    finally:
+        sh.pool.close()
+    return _mask_verbs(out.getvalue().splitlines(), t)
+
+
+@pytest.mark.parametrize("verb", sorted(VERBS))
+def test_admin_and_dup_verbs_print_the_reference_lines(cluster, verb,
+                                                       tmp_path):
+    """Each verb of the duplication and admin planes, through the port's
+    shell on one table and the reference shell on its twin, prints the
+    same lines (ids, addresses and times masked) against equal clusters;
+    none answers NotPorted. `balance` runs on a settled cluster, and
+    `recover` on a cluster of its own, each shell asking an empty meta of
+    its own."""
+    from pegasus_tpu.shell.main import Shell as RefShell
+    from pegasus_tpu_torch.meta import MetaServer
+    from pegasus_tpu_torch.meta import messages as mm
+    from pegasus_tpu_torch.rpc import codec
+    from pegasus_tpu_torch.rpc.transport import RpcServer
+
+    assert not NOT_PORTED
+    script = VERBS[verb]
+    c, metas, servers = cluster, {}, []
+    if verb == "balance":
+        cluster.meta._on_balance(None, codec.encode(mm.BalanceRequest()))
+    if verb == "recover":
+        from tests.test_torch_cluster import make_client
+
+        c = Cluster(tmp_path / "own")
+        make_client(c, "rc", partitions=2).close()
+        for k in ("p", "r"):
+            m = MetaServer(str(tmp_path / f"meta_{k}" / "state.json"))
+            srv = RpcServer().start()
+            for code, fn in m.rpc_handlers().items():
+                srv.register(code, fn)
+            servers.append(srv)
+            metas[k] = f"{srv.address[0]}:{srv.address[1]}"
+    try:
+        table = verb[:8]
+        got = _run_script(Shell, c, metas.get("p", c.meta_addr), script,
+                          table + "_p")
+        want = _run_script(RefShell, c, metas.get("r", c.meta_addr), script,
+                           table + "_r")
+    finally:
+        for srv in servers:
+            srv.stop()
+        if c is not cluster:
+            c.stop()
+    assert got == want
+    text = "\n".join(got)
+    assert "not ported" not in text
+    expect = {
+        "add_dup": "adding duplication succeed [app: T, remote: west, "
+                   "appid: N, dupid: N, freeze: true]",
+        "query_dup": "  dupid=N status=start remote=west fail_mode=slow "
+                     "create_time=T",
+        "start_dup": "starting duplication(N) succeed",
+        "pause_dup": "pausing duplication(N) succeed",
+        "remove_dup": "removing duplication(N) succeed",
+        "set_dup_fail_mode": 'fail_mode must be "slow" or "skip"',
+        "cross_cluster_audit": "cross-cluster audit inconclusive: no "
+                               "active duplication on 'T' (dupid=any)",
+        "propose": "OK",
+        "balance": "moved 0 primaries",
+        "recover": "recovered apps: ['rc']",
+        "ddd_diagnose": "no double-dead partitions",
+        "recall": "recall app N succeed, name=T2",
+    }[verb]
+    assert expect in got, got
 
 
 def _py(args, **kw):
@@ -295,12 +435,17 @@ def test_one_shot_shell_and_exit_codes(cluster):
              "create", "oneshot", "-p", "2"])
     assert r.returncode == 0
     assert r.stdout.startswith("create app oneshot succeed, id=")
+    # an app that was never dropped: the reference one-shot's answer and
+    # exit code
     r = _py(["pegasus_tpu_torch.shell", "--meta", cluster.meta_addr,
              "recall", "1"])
-    assert r.returncode == 1 and "Traceback" not in r.stderr
-    assert r.stdout == ("ERROR: recall: not ported to pegasus_tpu_torch "
-                        "yet (needs the meta's recall of soft-dropped apps "
-                        "(meta/meta_server.py RPC_CM_RECALL_APP))\n")
+    want = _py(["pegasus_tpu.shell", "--meta", cluster.meta_addr,
+                "recall", "1"])
+    assert r.returncode == want.returncode == 0
+    assert "Traceback" not in r.stderr
+    assert r.stdout == want.stdout == (
+        "recall app 1 failed, error=no dropped app with id 1 "
+        "[or hold expired]\n")
 
 
 def test_sample_prints_the_reference_lines(cluster):

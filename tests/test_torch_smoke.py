@@ -490,7 +490,14 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     restore into a new table read back with the backup-time values, and
     the restored table's node compaction through the batched path, each
     replica held to the cpu backend (run_cluster raises on any
-    mismatch)."""
+    mismatch). With the new legs: a second onebox `west` bootstrapped by
+    block ship and duplicated into through the kill and the restart, the
+    cross-cluster audit matching and every acknowledged write read from
+    west's 3 replicas, `remove_dup` before the split; `balance` and one
+    `propose` after the restart; the heal table dropped, recalled and
+    read back; and last, the meta SIGKILLed, its state emptied, a fresh
+    meta on its address and `recover` with the 3 nodes, the split and
+    the restored tables read back through it."""
     provider = str(tmp_path / "provider")
     counts = chip_smoke.write_provider(provider, "usertable", 6000, 4,
                                        chip_smoke.SERVE_FILES)
@@ -500,7 +507,7 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
         restart_at=700, fd={"beacon_interval_seconds": 0.2,
                             "grace_seconds": 2,
                             "check_interval_seconds": 0.5}, lifecycle=True,
-        heal=True, heal_rows=600)
+        heal=True, heal_rows=600, dup=True, admin=True)
     life = rep["lifecycle"]
     assert "4/4 partitions, 6000 records" in rep["load"]["session"]
     assert life["backup"]["bytes"] > 0
@@ -537,6 +544,33 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     assert auto["doctor"]["autoheal"] == [{"gpid": auto["gpid"],
                                            "node": auto["victim"]}]
     assert auto["incident"]["id"] == auto["doctor"]["incident"]
+    dup = rep["dup"]
+    assert rep["run"]["duplication_live"]
+    assert dup["bootstrap"]["partitions"] == 4
+    assert dup["bootstrap"]["blocks"] > 0 and dup["bootstrap"]["bytes"] > 0
+    assert dup["bootstrap"]["ingested_records"] == 6000 + 4   # + markers
+    assert dup["audit"]["match"] is True and dup["audit"]["anchors"] == 4
+    assert dup["audit"]["src"] == dup["audit"]["dst"]
+    assert set(dup["audit"]["steps_s"]) == {
+        "source_audit", "confirm_wait", "destination_audit"}
+    assert {side: len(nodes) for side, nodes in
+            dup["audit"]["digest_us"].items()} == {"source": 3, "west": 3}
+    west = dup["west_read_back"]
+    assert west["replicas"] == 3 and west["updated_keys"] > 0
+    assert west["sampled_keys"] == 300
+    bal = rep["balance"]
+    assert bal["moved"] >= 1 and bal["primaries_before"][
+        rep["run"]["victim"]] == 0
+    after = bal["primaries_after"].values()
+    assert max(after) - min(after) <= 1
+    assert bal["propose"]["to"] != bal["propose"]["from"]
+    recall = heal["recall"]
+    assert recall["read_back"] == dict(recall["read_back"], rows=600,
+                                       replicas=3)
+    rec = rep["recover"]
+    assert {"usertable", "usertable_r", "heal"} <= set(rec["tables"])
+    assert rec["read_back"]["updated_keys"] > 0
+    assert rec["restored_read_back"]["sampled_keys"] > 0
     assert (auto["incident"]["first_cause"], auto["incident"]["point"],
             auto["incident"]["node"]) == ("failpoint.arm", "audit.digest",
                                           auto["victim"])
