@@ -1418,11 +1418,51 @@ def serve_measure(tree: str) -> dict:
             "batch_size": rep["read_back_after_run"].get("batch_size")}
 
 
-MEASURES = {"fence": "fence_measure", "serve": "serve_measure"}
+def compact_measure(tree: str) -> dict:
+    """`chip_smoke.py compact-measure TREE`: the fill, the cpu backend and
+    the compact phase (run_compaction of the 10 M-record fill) of the
+    checkout at TREE, measured by that tree's own chip_smoke.py with its
+    own package, both imported ahead of this one's. -> the fill's,
+    the cpu backend's and the compaction's seconds, the prime's, and the
+    compaction's stages as the engine's trace reports them (pack, device,
+    gather, sst_write, ...)."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, tree)
+    sys.modules.pop("chip_smoke", None)
+    cs = importlib.import_module("chip_smoke")
+    if os.path.realpath(cs.__file__) != os.path.realpath(
+            os.path.join(tree, "chip_smoke.py")):
+        raise AssertionError(f"imported {cs.__file__}, not {tree}'s")
+    cs._parallel_build(cs.BUILT)
+    t0 = time.perf_counter()
+    runs = cs.fill(cs.N_RECORDS)
+    fill_s = time.perf_counter() - t0
+    want, cpu_s = cs.cpu_digest(runs)
+    work = os.path.join(tree, ".scratch", "compact_measure")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        eng, comp = cs.run_compaction(os.path.join(work, "db"), runs,
+                                      torch.device("cuda"), want)
+        eng.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"tree": tree, "fill_s": fill_s, "cpu_backend_s": cpu_s,
+            "prime_s": comp["prime_s"], "compact_s": comp["compact_s"],
+            "merge_launches": comp["merge_launches"],
+            "stages": comp["stages"], "digest": comp["digest"]}
+
+
+MEASURES = {"fence": "fence_measure", "serve": "serve_measure",
+            "compact": "compact_measure"}
 
 
 def ab(phase: str, trees) -> list:
-    """`chip_smoke.py <phase>-ab TREE [TREE ...]` (phase fence or serve):
+    """`chip_smoke.py <phase>-ab TREE [TREE ...]` (phase fence, serve or
+    compact):
     <phase>-measure of each tree in the order given (list a pair twice,
     reversed, to cancel the card's drift), each in a process of its own
     on the same card; one TREE means TREE and this checkout in turns
@@ -1465,9 +1505,10 @@ def _device_events(prof) -> list:
 def profile_device_stage(runs, device) -> dict:
     """The compaction's device stage alone on the bench-scale runs, primed
     once: one warm-up pass, then one pass under torch.profiler. -> its
-    wall ms, the device busy ms within it, device time by kernel, and the
+    wall ms, the device busy ms within it, device time by kernel, the
     stage's own merges (kernel against plain merge on the operands the
-    compaction gave them, both timed)."""
+    compaction gave them, both timed) and its survivor index (numpy, into
+    the runs' concat; main() pops it for the host phase)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1495,11 +1536,12 @@ def profile_device_stage(runs, device) -> dict:
         else [])
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        _, count = backend.survivors_cached_device(drs, *fargs)
+        dev_idx, count = backend.survivors_cached_device(drs, *fargs)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _device_events(prof)
     busy_ms = sum(k[1] for k in kernels)
-    del drs
+    survivors = dev_idx[:count].cpu().numpy()
+    del drs, dev_idx
     merges = [_time_merge(a, b, nk) for a, b, nk in operands]
     del operands
     torch.cuda.empty_cache()
@@ -1507,7 +1549,147 @@ def profile_device_stage(runs, device) -> dict:
             "idle_share": max(0.0, 1 - busy_ms / wall_ms), "survivors": count,
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": c}
                             for k, ms, c in kernels[:12]],
-            "merges": merges}
+            "merges": merges, "survivor_index": survivors}
+
+
+# ------------------------------------------------------ the host loops
+
+HOST_TWIN_ROWS = 1_000_000   # rows the pack and CRC twins are timed on
+
+
+def _host_pair(name: str, c_fn, twin_fn, rows: int, twin_rows: int,
+               c_twin_fn=None) -> dict:
+    """Time a C loop and its numpy twin, each once, and hold their
+    outputs byte-equal (every array in the same order). c_twin_fn, when
+    the twin runs on fewer rows, is the C loop on the twin's rows: it is
+    timed too and it is what the twin's output is held to."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    got, c_ms = timed(c_fn)
+    rec = {"c_ms": c_ms, "rows": rows, "twin_rows": twin_rows}
+    if c_twin_fn is not None:
+        got, rec["c_ms_twin_rows"] = timed(c_twin_fn)
+    want, rec["twin_ms"] = timed(twin_fn)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want) or any(
+            np.asarray(a).dtype != np.asarray(b).dtype
+            or np.ascontiguousarray(a).tobytes()
+            != np.ascontiguousarray(b).tobytes()
+            for a, b in zip(got, want)):
+        raise AssertionError(f"host loop {name}: the C loop and its numpy "
+                             "twin differ")
+    rec["byte_equal"] = True
+    return rec
+
+
+def run_host(runs, survivors, twin_rows: int = HOST_TWIN_ROWS) -> dict:
+    """The host loops of csrc/hostops.cpp on the host's CPU, each
+    held byte-equal to its numpy twin at the compaction's own shapes:
+    pack_prefixes (w 7) and crc64_batch over every fill key, crc64_update
+    continuing those registers over every value (the state digest hashes
+    a record in parts so), the twins on the first `twin_rows` rows of
+    the first run (the C loops timed on those rows as well); the gathers
+    by the compaction's survivor index into the runs' concat
+    (gather_arena over the value arena, whose twin takes its 2-D path on
+    this uniform arena); merge_counts over the first two runs' sort keys
+    at both sides. -> {function: c_ms, twin_ms, rows, twin_rows, ...}."""
+    from pegasus_tpu_torch import native
+    from pegasus_tpu_torch.base.crc64 import (MASK, crc64_batch_plain,
+                                              crc64_update_plain)
+    from pegasus_tpu_torch.engine.block import KVBlock, _gather_arena_plain
+    from pegasus_tpu_torch.ops.compact import (gather_keys_uniform_plain,
+                                               merge_counts_plain)
+    from pegasus_tpu_torch.ops.packing import (pack_key_prefixes_plain,
+                                               pack_sbytes)
+
+    t_start = time.perf_counter()
+    w = 7  # 26-byte keys, as presort_run
+    n_keys = sum(b.n for b in runs)
+    head = runs[0]
+    m = min(twin_rows, head.n)
+    out = {}
+    out["pack_prefixes"] = _host_pair(
+        "pack_prefixes",
+        lambda: [native.pack_prefixes(b.key_arena, b.key_off, b.key_len, w)
+                 for b in runs][0][:m],
+        lambda: pack_key_prefixes_plain(head.key_arena, head.key_off[:m],
+                                        head.key_len[:m], w),
+        n_keys, m,
+        lambda: np.ascontiguousarray(native.pack_prefixes(
+            head.key_arena, head.key_off[:m], head.key_len[:m], w)))
+    out["crc64_batch"] = _host_pair(
+        "crc64_batch",
+        lambda: [native.crc64_batch(b.key_arena, b.key_off, b.key_len)
+                 for b in runs][0][:m],
+        lambda: crc64_batch_plain(head.key_arena, head.key_off[:m],
+                                  head.key_len[:m]),
+        n_keys, m,
+        lambda: native.crc64_batch(head.key_arena, head.key_off[:m],
+                                   head.key_len[:m]))
+    regs = [native.crc64_batch(b.key_arena, b.key_off, b.key_len)
+            ^ np.uint64(MASK) for b in runs]
+    out["crc64_update"] = _host_pair(
+        "crc64_update",
+        lambda: [native.crc64_update(r, b.val_arena, b.val_off, b.val_len)
+                 for r, b in zip(regs, runs)][0][:m],
+        lambda: crc64_update_plain(regs[0][:m], head.val_arena,
+                                   head.val_off[:m], head.val_len[:m]),
+        n_keys, m,
+        lambda: native.crc64_update(regs[0][:m], head.val_arena,
+                                    head.val_off[:m], head.val_len[:m]))
+    del regs
+    concat = KVBlock.concat(runs)
+    kl0, vl0 = concat.uniform_layout()
+    idx = np.asarray(survivors)
+    count = len(idx)
+    out["gather_block_uniform"] = _host_pair(
+        "gather_block_uniform",
+        lambda: native.gather_block_uniform(
+            concat.key_arena, kl0, concat.val_arena, vl0, concat.expire_ts,
+            concat.hash32, concat.deleted, idx),
+        lambda: (lambda g: (g.key_arena, g.val_arena, g.expire_ts,
+                            g.hash32, g.deleted))(concat.gather_plain(idx)),
+        count, count)
+    out["gather_keys_uniform"] = _host_pair(
+        "gather_keys_uniform",
+        lambda: native.gather_keys_uniform(
+            concat.key_arena, kl0, concat.expire_ts, concat.hash32,
+            concat.deleted, idx),
+        lambda: gather_keys_uniform_plain(concat, kl0, idx), count, count)
+    # a variable-width arena: the values cut to alternate widths (the
+    # engine gathers a uniform arena with the 2-D index, not this loop)
+    var_len = concat.val_len - (np.arange(concat.n) % 2).astype(np.int32)
+    tw = min(twin_rows, count)
+    out["gather_arena"] = _host_pair(
+        "gather_arena",
+        lambda: native.gather_arena(concat.val_arena, concat.val_off,
+                                    var_len, idx),
+        lambda: _gather_arena_plain(concat.val_arena, concat.val_off,
+                                    var_len, idx[:tw]), count, tw,
+        lambda: native.gather_arena(concat.val_arena, concat.val_off,
+                                    var_len, idx[:tw]))
+    del concat, var_len
+    sb = [pack_sbytes([p[:, j] for j in range(w)],
+                      b.key_len.astype(np.uint32))
+          for p, b in ((native.pack_prefixes(b.key_arena, b.key_off,
+                                             b.key_len, w), b)
+                       for b in runs[:2])]
+    # run 1 against the newer run 0 counts equal keys ("right"), run 0
+    # against run 1 does not ("left"), as the cpu backend's merge
+    pairs = ((sb[1], sb[0], "right"), (sb[0], sb[1], "left"))
+    out["merge_counts"] = _host_pair(
+        "merge_counts",
+        lambda: tuple(native.merge_counts(a, b, side)
+                      for a, b, side in pairs),
+        lambda: tuple(merge_counts_plain(a, b, side)
+                      for a, b, side in pairs),
+        len(sb[0]) + len(sb[1]), len(sb[0]) + len(sb[1]))
+    out["seconds"] = time.perf_counter() - t_start
+    return out
 
 
 # ---------------------------------------------------- engine main path
@@ -4459,6 +4641,13 @@ def _kernel_counts(addrs) -> dict:
             for a in addrs}
 
 
+def _host_calls(addrs, names: dict) -> dict:
+    """{node name: {host.<function>.calls: n}}: the host loops' calls in
+    each node process, scraped with perf-counters-by-prefix."""
+    return {names[a]: json.loads(_remote_command(
+        a, "perf-counters-by-prefix", ["host."])) for a in addrs}
+
+
 def _delta(after: dict, before: dict, name: str) -> dict:
     return {a: after[a].get(name, 0) - before.get(a, {}).get(name, 0)
             for a in after}
@@ -5635,8 +5824,14 @@ def check_balance(meta: str, addrs: list, names: dict, pool) -> dict:
     if _config(meta, CLUSTER_APP).partitions[pc.pidx].primary != light:
         raise AssertionError(f"propose {pc.pidx} {light}: {text}")
     proposed = _primaries(meta)
-    rb = pool.apply(_client_read_back, ("after the balance",),
-                    {"sample": True, "limit": 5000})
+    committed = {a: json.loads(_remote_command(
+        a, "perf-counters-by-prefix", ["replica."])) for a in addrs}
+    try:
+        rb = pool.apply(_client_read_back, ("after the balance",),
+                        {"sample": True, "limit": 5000})
+    except AssertionError as e:
+        raise AssertionError(f"{e}; replicas behind their partition's "
+                             f"commit point: {_behind(committed, names)}")
     return {"seconds": balance_s, "moved": moved,
             "primaries_before": {names.get(a, a): v
                                  for a, v in before.items()},
@@ -5646,6 +5841,19 @@ def check_balance(meta: str, addrs: list, names: dict, pool) -> dict:
                         "primaries_after": {names.get(a, a): v
                                             for a, v in proposed.items()}},
             "read_back": rb}
+
+
+def _behind(counters_by_node: dict, names: dict) -> dict:
+    """{gpid: {node: committed decree}} of the partitions whose replicas'
+    committed decrees differ, from perf-counters-by-prefix replica.
+    scrapes ({node: {replica.<app>.<pidx>.committed_decree: d}})."""
+    by_gpid = {}
+    for a, rec in counters_by_node.items():
+        for key, d in rec.items():
+            if key.endswith(".committed_decree"):
+                gpid = key[len("replica."):-len(".committed_decree")]
+                by_gpid.setdefault(gpid, {})[names.get(a, a)] = d
+    return {g: v for g, v in by_gpid.items() if len(set(v.values())) > 1}
 
 
 def check_recall(meta: str, addrs: list, app_id: int, rows: dict) -> dict:
@@ -6369,6 +6577,8 @@ def run_cluster(device, work: str, provider: str, counts: list,
             out["dup"]["remove_s"] = time.perf_counter() - t0
             # west has served its legs: its processes end here (exit 0
             # checked with the others')
+            out["dup"]["host_calls_per_process"] = _host_calls(
+                west_addrs, {a: n for n, a in west_nodes.items()})
             for name in [n for n in apps if n.startswith(f"{WEST}.")]:
                 apps[name].proc.send_signal(signal.SIGTERM)
             for name in [n for n in apps if n.startswith(f"{WEST}.")]:
@@ -6597,6 +6807,7 @@ def run_cluster(device, work: str, provider: str, counts: list,
 
         out["launches_per_process"] = {
             names[a]: c for a, c in _kernel_counts(addrs).items()}
+        out["host_calls_per_process"] = _host_calls(addrs, names)
         lock_graphs = {names[a]: json.loads(_remote_command(
             a, "perf-counters-by-prefix", ["lockrank."])) for a in addrs}
         out["collector_lockrank"] = json.loads(_remote_command(
@@ -6688,17 +6899,27 @@ def ptxas_usage(report: str,
     return usage
 
 
-BUILT = ("merge_path", "fence_lookup")   # the sources under csrc/
+# the sources under csrc/: the two kernels (.cu, nvcc) and the host
+# loops (hostops.cpp, g++)
+BUILT = ("merge_path", "fence_lookup", "hostops")
+BUILD_S = {}   # each source's compile seconds in _parallel_build
 
 
 def _parallel_build(names) -> list:
-    """nvcc for every source at once (ops/_build.py). -> ptxas reports."""
+    """The compiler for every source at once (ops/_build.py), each
+    source's seconds kept in BUILD_S. -> the compilers' reports."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pegasus_tpu_torch.ops import _build
 
+    def timed(name):
+        t0 = time.perf_counter()
+        report = _build.build(name)
+        BUILD_S[name] = time.perf_counter() - t0
+        return report
+
     with ThreadPoolExecutor(len(names)) as ex:
-        return list(ex.map(_build.build, names))
+        return list(ex.map(timed, names))
 
 
 def _nvidia_smi() -> str:
@@ -6716,8 +6937,8 @@ def ab_main(argv) -> int:
     phase, _, mode = argv[0].partition("-") if argv else ("", "", "")
     if phase not in MEASURES or mode not in ("measure", "ab") or (
             len(argv) < 2 or mode == "measure" and len(argv) != 2):
-        print("usage: chip_smoke.py [fence|serve]-measure TREE | "
-              "[fence|serve]-ab TREE [TREE ...]", file=sys.stderr)
+        print("usage: chip_smoke.py [fence|serve|compact]-measure TREE | "
+              "[fence|serve|compact]-ab TREE [TREE ...]", file=sys.stderr)
         return 2
     if mode == "measure":
         print(json.dumps(globals()[MEASURES[phase]](argv[1])), flush=True)
@@ -6743,6 +6964,7 @@ def main(argv=()) -> int:
     if argv:
         return ab_main(list(argv))
     sys.path.insert(0, ROOT)
+    from pegasus_tpu_torch import native
     from pegasus_tpu_torch.ops import _build
     from pegasus_tpu_torch.ops.merge_path import LAUNCHES
 
@@ -6762,7 +6984,8 @@ def main(argv=()) -> int:
     ptxas_fence = ptxas_usage(reports["fence_lookup"],
                               r"(fence_search_kernelILi\d+)")
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-         ptxas_fence_lookup=ptxas_fence)
+         ptxas_fence_lookup=ptxas_fence, seconds_by_source=BUILD_S,
+         gxx_report=reports["hostops"][-2000:])
     for src, usage in (("merge_path", ptxas), ("fence_lookup", ptxas_fence)):
         spills = {k: v for k, v in usage.items()
                   if v["spill_stores"] or v["spill_loads"]}
@@ -6794,15 +7017,21 @@ def main(argv=()) -> int:
          records=sum(r.n for r in runs), runs=len(runs))
 
     stage = profile_device_stage(runs, device)
+    survivors = stage.pop("survivor_index")
     emit("device_stage", **stage)
     want, cpu_s = cpu_digest(runs)
     emit("cpu_backend", seconds=cpu_s, digest=want)
+    # the host loops against their numpy twins at the compaction's shapes
+    emit("host", **run_host(runs, survivors))
+    del survivors
 
     work = os.path.join(ROOT, ".scratch", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
         LAUNCHES["merge_path"] = LAUNCHES["merge_path_rows"] = 0
+        for name in native.CALLS:
+            native.CALLS[name] = 0
         eng, comp = run_compaction(os.path.join(work, "db"), runs, device,
                                    want)
         launches = LAUNCHES["merge_path"]
@@ -6945,6 +7174,12 @@ def main(argv=()) -> int:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(provider_dir, ignore_errors=True)
 
+    # the host loops' calls on the main path: this process's phases from
+    # the compaction on, and the cluster's nodes as scraped before they
+    # stopped (a node restarted in a leg counts from its restart)
+    emit("host_calls", in_process=dict(native.CALLS),
+         cluster=_host_call_sums(cluster["host_calls_per_process"]),
+         west=_host_call_sums(cluster["dup"]["host_calls_per_process"]))
     emit("elapsed", seconds=time.perf_counter() - started)
     # the kernel line: per launch, averaged over the compaction's own
     # merges (its operands, not synthetic keys)
@@ -7085,6 +7320,17 @@ def main(argv=()) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _host_call_sums(per_process: dict) -> dict:
+    """{function: calls} summed over scraped {process: {host.<f>.calls:
+    n}} records."""
+    sums = {}
+    for rec in per_process.values():
+        for key, n in rec.items():
+            name = key[len("host."):-len(".calls")]
+            sums[name] = sums.get(name, 0) + n
+    return sums
 
 
 def _total(counts) -> int:

@@ -16,7 +16,9 @@ pegasus_tpu's, and so is every message on its wire.
 Rules of the port:
   - It imports torch and numpy, never jax, and nothing of pegasus_tpu (not
     even its host-only modules or native extensions): it keeps its own
-    copies of what it needs, on numpy paths.
+    copies of what it needs. Its host loops (CRC-64, prefix packing, the
+    output gathers, the cpu merge's ranks) are its own C++
+    (csrc/hostops.cpp, bound in native/), each with a numpy twin.
   - The device is explicit: EngineOptions(backend="cuda", device=None) and
     CompactOptions(device=None), where None means torch.device("cuda").
     Tests pass device="cpu".
@@ -24,6 +26,7 @@ Rules of the port:
     device failure propagates to the caller. The cpu backend
     (backend="cpu") runs only when the caller asks for it; on CPU tensors
     the kernels' plain PyTorch versions run.
-  - CUDA sources build at first use (ops/_build.py) into <repo>/.torch_ext/.
+  - CUDA and C++ sources build at first use (ops/_build.py) into
+    <repo>/.torch_ext/; a failed build raises.
   - carry.py turns pegasus_tpu's resident runs (as numpy) into the port's.
 """

@@ -5,13 +5,20 @@ CRC-64/XZ parameters (reflected poly 0xC96C5795D7870F42, init/xorout
 partition routing and split-era ownership checks, so both packages route
 every key identically.
 
-The batched form is vectorized numpy: the port carries no native
-extension, and the numpy path is byte-identical to the slice-by-8 C
-kernel the JAX package may use. It is the cost of every state digest
-(learn verification, audits) and of partition hashing.
+The batched forms run the port's slice-by-8 C loop (csrc/hostops.cpp
+through pegasus_tpu_torch.native): they are the cost of every state
+digest (audits, learn and split proofs) and of partition hashing. The
+vectorized numpy forms beside them, `crc64_batch_plain` and
+`crc64_update_plain`, are the twins tests hold the C loop to.
 """
 
 import numpy as np
+
+# the batched forms, in C: crc64_batch(arena, offsets, lengths) -> the
+# uint64 crc64 of each slice; crc64_update(registers, arena, offsets,
+# lengths) continues n registers (before the final xor) over one slice
+# each, so a record hashed in parts equals the record hashed whole
+from ..native import crc64_batch, crc64_update  # noqa: F401
 
 _POLY = 0xC96C5795D7870F42
 
@@ -43,20 +50,18 @@ def crc64(data: bytes, initial: int = 0) -> int:
     return (crc ^ MASK) & MASK
 
 
-def crc64_batch(arena: np.ndarray, offsets: np.ndarray,
-                lengths: np.ndarray) -> np.ndarray:
-    """Hash many byte strings packed in one uint8 arena.
-
-    arena: uint8[total]; offsets/lengths: int[n]. Returns uint64[n]."""
+def crc64_batch_plain(arena: np.ndarray, offsets: np.ndarray,
+                      lengths: np.ndarray) -> np.ndarray:
+    """crc64_batch's numpy twin."""
     start = np.full(len(offsets), MASK, dtype=np.uint64)
-    return crc64_update(start, arena, offsets, lengths) ^ np.uint64(MASK)
+    return crc64_update_plain(start, arena, offsets, lengths) \
+        ^ np.uint64(MASK)
 
 
-def crc64_update(crc: np.ndarray, arena: np.ndarray, offsets: np.ndarray,
-                 lengths: np.ndarray) -> np.ndarray:
-    """Continue n CRC registers (before the final xor) over one more byte
-    string each, so a record hashed in parts equals the record hashed
-    whole. -> the new registers (uint64[n]).
+def crc64_update_plain(crc: np.ndarray, arena: np.ndarray,
+                       offsets: np.ndarray,
+                       lengths: np.ndarray) -> np.ndarray:
+    """crc64_update's numpy twin.
 
     Vectorized across records byte-position-at-a-time. The records are
     taken longest first, so the records still live at byte i are a

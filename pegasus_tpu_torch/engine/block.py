@@ -12,15 +12,22 @@ Invariants:
   - hash32 is the low 32 bits of the key's partition hash.
   - `deleted` marks tombstones (the value arena entry is empty for them).
 
-The port keeps numpy paths only: every row layout produced here is
-byte-identical to the JAX package's KVBlock.
+Every row layout produced here is byte-identical to the JAX package's
+KVBlock. Gathers of arenas run the port's C loops (pegasus_tpu_torch.
+native); their numpy twins (`_gather_arena_plain`, `KVBlock.gather_plain`)
+are what tests hold them to.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..base.crc64 import crc64_batch
+
+# a gather of at least this many rows from a uniform block takes the
+# fused one-pass loop (native.gather_block_uniform)
+FUSED_GATHER_MIN = 1 << 15
 
 
 def _as_arena(chunks) -> tuple:
@@ -35,10 +42,9 @@ def _as_arena(chunks) -> tuple:
     return arena, offsets, lengths
 
 
-def _gather_arena(arena, offsets, lengths, idx):
-    """Vectorized gather of variable-length slices: new compact arena for
-    idx. Uniform-length row-contiguous arenas take a 2D fancy index (one
-    memcpy per row); anything else the repeat/cumsum construction."""
+def _gather_uniform_2d(arena, offsets, lengths, idx):
+    """The gather of a uniform-length, row-contiguous arena as a 2D fancy
+    index (one memcpy per row); None for any other arena."""
     n = len(lengths)
     if n and len(idx):
         l0 = int(lengths[0])
@@ -48,6 +54,25 @@ def _gather_arena(arena, offsets, lengths, idx):
             out = arena.reshape(n, l0)[idx].reshape(-1)
             new_off = np.arange(len(idx), dtype=np.int64) * l0
             return out, new_off, np.full(len(idx), l0, np.int32)
+    return None
+
+
+def _gather_arena(arena, offsets, lengths, idx):
+    """Gather of variable-length slices: new compact arena for idx.
+    Uniform-length row-contiguous arenas take a 2D fancy index; anything
+    else the C loop (native.gather_arena)."""
+    out = _gather_uniform_2d(arena, offsets, lengths, idx)
+    if out is not None:
+        return out
+    return native.gather_arena(arena, offsets, lengths, idx)
+
+
+def _gather_arena_plain(arena, offsets, lengths, idx):
+    """_gather_arena's numpy twin: the 2D fancy index, else the
+    repeat/cumsum construction."""
+    out = _gather_uniform_2d(arena, offsets, lengths, idx)
+    if out is not None:
+        return out
     sel_off = offsets[idx]
     sel_len = lengths[idx].astype(np.int64)
     total = int(sel_len.sum())
@@ -147,12 +172,39 @@ class KVBlock:
         return None
 
     def gather(self, idx) -> "KVBlock":
-        """New block with rows idx (in that order); arenas compacted."""
+        """New block with rows idx (in that order); arenas compacted.
+        A large gather from a uniform block moves keys, values and aux
+        in one C pass over idx (native.gather_block_uniform); any other
+        gathers each arena (_gather_arena) and fancy-indexes the aux."""
         idx = np.asarray(idx, dtype=np.int64)
+        count = len(idx)
+        uni = self.uniform_layout() \
+            if count >= FUSED_GATHER_MIN and self.n < 1 << 31 else None
+        if uni is not None:
+            kl0, vl0 = uni
+            ka, va, ex, hs, de = native.gather_block_uniform(
+                self.key_arena, kl0, self.val_arena, vl0, self.expire_ts,
+                self.hash32, self.deleted, idx)
+            return KVBlock(
+                ka, np.arange(count, dtype=np.int64) * kl0,
+                np.full(count, kl0, np.int32),
+                va, np.arange(count, dtype=np.int64) * vl0,
+                np.full(count, vl0, np.int32), ex, hs, de)
         ka, ko, kl = _gather_arena(self.key_arena, self.key_off,
                                    self.key_len, idx)
         va, vo, vl = _gather_arena(self.val_arena, self.val_off,
                                    self.val_len, idx)
+        return KVBlock(ka, ko, kl, va, vo, vl,
+                       self.expire_ts[idx], self.hash32[idx],
+                       self.deleted[idx])
+
+    def gather_plain(self, idx) -> "KVBlock":
+        """gather's numpy twin."""
+        idx = np.asarray(idx, dtype=np.int64)
+        ka, ko, kl = _gather_arena_plain(self.key_arena, self.key_off,
+                                         self.key_len, idx)
+        va, vo, vl = _gather_arena_plain(self.val_arena, self.val_off,
+                                         self.val_len, idx)
         return KVBlock(ka, ko, kl, va, vo, vl,
                        self.expire_ts[idx], self.hash32[idx],
                        self.deleted[idx])

@@ -11,6 +11,7 @@ hashkey bloom filter.
 """
 
 import json
+import mmap
 import os
 import struct
 import zlib
@@ -158,7 +159,12 @@ def read_header(path: str) -> dict:
 def _read_section(f, path: str, base: int, name: str, sec: dict) -> bytes:
     """One stored section, crc-checked when the header carries a crc32."""
     f.seek(base + sec["offset"])
-    stored = f.read(sec["nbytes"])
+    return _checked_section(path, name, sec, f.read(sec["nbytes"]))
+
+
+def _checked_section(path: str, name: str, sec: dict, stored):
+    """A section's stored bytes (as read, maybe short) -> its bytes, after
+    the length and crc32 checks, decompressed when stored as zlib."""
     if len(stored) < sec["nbytes"]:
         raise CorruptionError(
             path, f"section {name} truncated "
@@ -179,25 +185,46 @@ def _read_section(f, path: str, base: int, name: str, sec: dict) -> bytes:
 
 
 def read_sst(path: str) -> tuple:
-    """-> (KVBlock, header dict), read with plain file reads."""
+    """-> (KVBlock, header dict), over one mmap of the file: each
+    uncompressed section is a read-only np.frombuffer view of the
+    mapping (no read, no copy, and the page cache's pages are shared by
+    every process that opens the file); a zlib section decompresses into
+    fresh bytes.
+
+    Lifetime: each view's .base chain holds the memoryview, which holds
+    the mmap, which keeps the mapping; a mapped file's data stays valid
+    after its path is unlinked (a compaction removes its inputs while
+    readers may still hold their blocks). So a block read here stays
+    readable as long as any of its arrays is referenced. A write into a
+    view raises: no port code writes into a block it did not gather
+    (the in-place rewrites of compaction rules and the default TTL touch
+    only gathered output blocks)."""
     with open(path, "rb") as f:
         header = _read_header_open(f, path)
         base = f.tell()
-        cols = {}
-        for name, _ in _COLUMNS:
-            try:
-                sec = header["sections"][name]
-            except (KeyError, TypeError) as e:
-                raise CorruptionError(
-                    path, f"header missing section {name}") from e
-            raw = _read_section(f, path, base, name, sec)
-            try:
-                cols[name] = np.frombuffer(
-                    raw, dtype=np.dtype(sec["dtype"])
-                ).reshape(sec["shape"]).copy()
-            except (ValueError, TypeError) as e:
-                raise CorruptionError(
-                    path, f"section {name} unmaterializable: {e}") from e
+        try:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except (ValueError, OSError) as e:  # empty or unmappable file
+            raise CorruptionError(path, f"unmappable: {e}") from e
+    mv = memoryview(mm)
+    cols = {}
+    for name, _ in _COLUMNS:
+        try:
+            sec = header["sections"][name]
+        except (KeyError, TypeError) as e:
+            raise CorruptionError(
+                path, f"header missing section {name}") from e
+        off = base + sec["offset"]
+        # a negative offset would slice from the mapping's end
+        stored = _checked_section(path, name, sec,
+                                  mv[off:off + sec["nbytes"]]
+                                  if off >= base else b"")
+        try:
+            cols[name] = np.frombuffer(
+                stored, dtype=np.dtype(sec["dtype"])).reshape(sec["shape"])
+        except (ValueError, TypeError) as e:
+            raise CorruptionError(
+                path, f"section {name} unmaterializable: {e}") from e
     return KVBlock(**cols), header
 
 

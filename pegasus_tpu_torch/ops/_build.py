@@ -1,13 +1,18 @@
-"""Build the port's CUDA sources (pegasus_tpu_torch/csrc/<name>.cu) at first use.
+"""Build the port's native sources (pegasus_tpu_torch/csrc/<name>.cu or
+<name>.cpp) at first use.
 
-A source compiles with nvcc, for sm_90a, into a shared library with a
-plain C interface under <repo>/.torch_ext/, loaded with ctypes. A library
-is named by the hash of its source, so an edited source rebuilds and an
-unchanged one loads as built.
+A `.cu` source compiles with nvcc, for sm_90a, and a `.cpp` source (the
+host loops, csrc/hostops.cpp) with g++, each into a shared library with
+a plain C interface under <repo>/.torch_ext/, loaded with ctypes. A
+library is named by the hash of its source, so an edited source
+rebuilds and an unchanged one loads as built. Host code gets no
+`-march=native`: a library may be loaded on another host than the one
+that built it.
 
 A plain C interface (pointers and the stream passed as integers) keeps
 PyTorch's headers out of the compile: nvcc then takes seconds per source
-instead of minutes. A build failure raises; nothing falls back.
+instead of minutes. A build failure raises with the compiler's output;
+nothing falls back.
 """
 
 import ctypes
@@ -48,21 +53,31 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> str:
+    """csrc/<name>.cu, else csrc/<name>.cpp."""
+    cu = os.path.join(CSRC, name + ".cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC, name + ".cpp")
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+    with open(_source(name), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
 def _command(name: str, out: str) -> list:
+    src = _source(name)
+    if src.endswith(".cpp"):
+        return ["g++", "-std=c++17", "-O3", "-shared", "-fPIC", "-o", out,
+                src]
     return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out,
-            os.path.join(CSRC, name + ".cu")]
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, src]
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless it is built already. -> nvcc's ptxas
-    report (registers, shared memory, spills), kept beside the library.
+    """Compile csrc/<name>.cu or .cpp unless it is built already. -> the
+    compiler's report (nvcc's ptxas report of registers, shared memory
+    and spills; g++'s warnings, mostly empty), kept beside the library.
     Raises with the compiler output when the build fails."""
     with _lock(name):
         return _build_locked(name)
@@ -75,11 +90,14 @@ def _build_locked(name: str) -> str:
         os.makedirs(BUILD_DIR, exist_ok=True)
         # another process may build the same library beside this one
         tmp = out + f".{os.getpid()}.{threading.get_ident()}.tmp"
-        proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
+        cmd = _command(name, tmp)
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu (rc "
-                               f"{proc.returncode}):\n{proc.stdout}")
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed for "
+                f"{os.path.basename(_source(name))} (rc {proc.returncode}):"
+                f"\n{proc.stdout}")
         with open(report, "w") as f:
             f.write(proc.stdout)
         os.replace(tmp, out)
@@ -88,7 +106,7 @@ def _build_locked(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for csrc/<name>.cu, building it if needed."""
+    """The built library for csrc/<name>, building it if needed."""
     with _lock(name):
         lib = _LOADED.get(name)
         if lib is None:

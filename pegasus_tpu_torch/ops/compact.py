@@ -6,7 +6,8 @@ passes over KVBlock columns:
 
   1. merge of already-sorted runs into full byte order of stored keys,
      newest run first within equal keys. The cpu backend computes the
-     merge permutation with binary search (np.searchsorted per run pair);
+     merge permutation from each run pair's ranks, counted in one C pass
+     over both runs (native.merge_counts; its twin is np.searchsorted);
      the cuda backend merges runs pairwise on the device with the
      merge-path kernel (ops/merge_path.py).
   2. dedup: keep only the first (= newest) version of each key;
@@ -36,6 +37,7 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from .. import native
 from ..base.utils import epoch_now
 from ..engine.block import KVBlock
 from ..runtime.fail_points import inject
@@ -240,10 +242,15 @@ def _filter_keep(keep, gidx, packed: PackedRuns, now, pidx, pmask,
     return keep
 
 
+def merge_counts_plain(a, b, side: str) -> np.ndarray:
+    """native.merge_counts' numpy twin: a binary search per item of a."""
+    return np.searchsorted(b, a, side=side)
+
+
 class CpuBackend:
-    """Vectorized numpy merge: each record's merged rank = own position +
-    count of smaller records in every other run (binary search), then a
-    scatter materializes the merge."""
+    """Vectorized host merge: each record's merged rank = own position +
+    count of smaller records in every other run (native.merge_counts),
+    then a scatter materializes the merge."""
 
     name = "cpu"
 
@@ -269,8 +276,8 @@ class CpuBackend:
                         continue
                     # equal keys order newest-run (lowest index) first
                     side = "right" if j < i else "left"
-                    r += np.searchsorted(packed.sbytes[j], packed.sbytes[i],
-                                         side=side)
+                    r += native.merge_counts(packed.sbytes[i],
+                                             packed.sbytes[j], side)
                 merged_sb[r] = packed.sbytes[i]
                 merged_gidx[r] = packed.gidx[i]
         same = np.zeros(len(merged_sb), dtype=bool)
@@ -613,12 +620,20 @@ def materialize_cached_survivors(concat: KVBlock, device_runs, dev_idx,
         out_v = _cached_val_gather(device_runs, dev_idx[:count],
                                    vl0).cpu().numpy()
         idx = _checked_survivors(dev_idx, count, concat.n)
+        keys, expire, hash32, deleted = native.gather_keys_uniform(
+            concat.key_arena, kl0, concat.expire_ts, concat.hash32,
+            concat.deleted, idx)
         return KVBlock(
-            concat.key_arena.reshape(concat.n, kl0)[idx].reshape(-1),
-            np.arange(count, dtype=np.int64) * kl0,
+            keys, np.arange(count, dtype=np.int64) * kl0,
             np.full(count, kl0, np.int32),
             out_v.reshape(-1), np.arange(count, dtype=np.int64) * vl0,
-            np.full(count, vl0, np.int32),
+            np.full(count, vl0, np.int32), expire, hash32, deleted)
+
+
+def gather_keys_uniform_plain(concat: KVBlock, kl0: int, idx) -> tuple:
+    """native.gather_keys_uniform's numpy twin over a uniform block: four
+    fancy-index sweeps. -> (keys, expire, hash32, deleted) of rows idx."""
+    return (concat.key_arena.reshape(concat.n, kl0)[idx].reshape(-1),
             concat.expire_ts[idx], concat.hash32[idx], concat.deleted[idx])
 
 

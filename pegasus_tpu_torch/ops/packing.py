@@ -27,6 +27,8 @@ import struct
 
 import numpy as np
 
+from .. import native
+
 DEFAULT_PREFIX_U32 = 8  # 32-byte prefix window
 
 # ---------------------------------------------------------------- run wire
@@ -110,7 +112,15 @@ def pack_sbytes(prefix_cols, klen, rank=None):
 
 def pack_key_prefixes(key_arena, key_off, key_len,
                       width_u32: int = DEFAULT_PREFIX_U32):
-    """-> uint32[n, width_u32], big-endian packed, zero-padded."""
+    """-> uint32[n, width_u32], big-endian packed, zero-padded, from the
+    C loop (native.pack_prefixes): the transpose of a column-major
+    [width_u32, n] array, so a column `[:, j]` and `.T` are contiguous."""
+    return native.pack_prefixes(key_arena, key_off, key_len, width_u32)
+
+
+def pack_key_prefixes_plain(key_arena, key_off, key_len,
+                            width_u32: int = DEFAULT_PREFIX_U32):
+    """pack_key_prefixes' numpy twin (row-major)."""
     n = len(key_off)
     w_bytes = width_u32 * 4
     out = np.zeros((n, width_u32), np.uint32)

@@ -94,6 +94,9 @@ class ReplicaGroup:
                 r.assume_view(GroupView(
                     self.ballot, self.primary,
                     self.alive[self.primary].view.secondaries))
+                # the decrees committed since the learn's tail reach the
+                # learner now, not with the next write
+                self.alive[self.primary].broadcast_commit_point()
             else:
                 self.elect()
             return r

@@ -151,6 +151,10 @@ class Replica:
         self.plog = MutationLog(os.path.join(path, "plog"), fsync=fsync)
         # decree -> LogMutation (prepared, not applied)
         self._uncommitted = {}   #: guarded_by self._lock
+        # primary side: secondaries that missed part of a prepare round
+        # (rejected while learning, or unreachable); catch_up_lagging
+        # brings them to the commit point when no later write would
+        self._lagging = set()   #: guarded_by self._lock
         self._batch_cv = lockrank.named_condition("replica.batch")
         self._batch_pending = []  #: guarded_by self._batch_cv
         self._batch_leader_active = False  #: guarded_by self._batch_cv
@@ -198,12 +202,19 @@ class Replica:
     def assume_view(self, view: GroupView):
         """A controller-installed configuration."""
         with self._lock:
+            old = self.view
             self.view = view
             self.ballot = max(self.ballot, view.ballot)
             if view.primary == self.name:
                 self.status = PRIMARY
                 # PacificA failover rule: commit the entire prepare list
                 self._apply_up_to(self.last_prepared)
+                # a secondary new to the view (a learner that joined after
+                # the writes it missed) gets the commit point pushed
+                # (catch_up_lagging), not only with the next write
+                known = set(old.secondaries) if old is not None \
+                    and old.primary == self.name else set()
+                self._lagging.update(set(view.secondaries) - known)
             elif self.name in view.secondaries:
                 self.status = SECONDARY
 
@@ -288,6 +299,11 @@ class Replica:
         # (us included) holds every decree <= d
         acks = [lp for lp in peer_lps if lp is not None]
         self._c_gap.set(max((max(0, dk - lp) for lp in acks), default=0))
+        for s, lp in zip(secs, peer_lps):
+            if lp is None or lp < dk:
+                self._lagging.add(s)
+            else:
+                self._lagging.discard(s)
         commit_d = d0 - 1
         for d in range(d0, dk + 1):
             if 1 + sum(1 for lp in acks if lp >= d) >= self.quorum:
@@ -351,11 +367,12 @@ class Replica:
 
     def _catch_up_peer(self, peer, peer_prepared: int, ms: list):
         """Stream the missing decrees from our log as chunked windows,
-        then retry the current window. -> the acked decree or None."""
+        then retry the current window (none for a commit-point
+        broadcast). -> the acked decree or None."""
         try:
             backlog = {}
             for lm in self.plog.replay(peer_prepared):
-                if lm.decree < ms[0].decree:
+                if not ms or lm.decree < ms[0].decree:
                     backlog[lm.decree] = lm  # dedup, newest copy wins
             chunks = [ms]
             ordered = [backlog[d] for d in sorted(backlog)]
@@ -409,7 +426,10 @@ class Replica:
                 self.last_prepared = fresh[-1].decree
             self._apply_up_to(min(committed_decree, self.last_prepared))
             self._export_gauges()
-            if gap:
+            # an empty window past what this replica holds: it joined
+            # after the decrees it lacks were sent, and only a catch-up
+            # brings them
+            if gap or not ms and committed_decree > self.last_prepared:
                 raise PrepareRejected("gap", self.last_prepared)
             return self.last_prepared
 
@@ -422,14 +442,43 @@ class Replica:
                 return 0
             secs = list(self.view.secondaries)
             ballot, committed = self.ballot, self.last_committed
-        n = 0
-        for s in secs:
+        return sum(self._push_commit_point(s, ballot, committed)
+                   for s in secs)
+
+    def catch_up_lagging(self) -> int:
+        """Push the commit point to the secondaries that missed part of a
+        prepare round, catching each up from this log: a learner whose
+        learn ended after the partition's last write would otherwise stay
+        behind the commit point (and could be promoted so). Peers that
+        still do not ack stay marked. -> the number caught up."""
+        with self._lock:
+            if self.status != PRIMARY or self.view is None:
+                self._lagging.clear()
+                return 0
+            self._lagging &= set(self.view.secondaries)
+            lagging = list(self._lagging)
+            ballot, committed = self.ballot, self.last_committed
+        done = [s for s in lagging
+                if self._push_commit_point(s, ballot, committed)]
+        with self._lock:
+            self._lagging.difference_update(done)
+        return len(done)
+
+    def _push_commit_point(self, name: str, ballot: int,
+                           committed: int) -> bool:
+        """One empty prepare window to a secondary; one that holds less
+        than the commit point answers `gap` and is streamed the rest.
+        -> whether it acked."""
+        try:
+            peer = self.peers(name)
             try:
-                self.peers(s).on_prepare_batch(ballot, [], committed)
-                n += 1
-            except (PrepareRejected, ConnectionError):
-                continue
-        return n
+                peer.on_prepare_batch(ballot, [], committed)
+            except PrepareRejected as rej:
+                return rej.reason == "gap" and self._catch_up_peer(
+                    peer, rej.last_prepared, []) is not None
+            return True
+        except ConnectionError:
+            return False
 
     def on_prepare(self, ballot: int, m: LogMutation, committed_decree: int):
         with REQUEST_TRACER.span("replica.on_prepare", decree=m.decree), \

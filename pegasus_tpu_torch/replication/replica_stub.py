@@ -283,6 +283,9 @@ class ReplicaStub:
         self._maint_thread = spawn_thread(
             self._maintenance_loop, daemon=True, start=False,
             name=f"maintenance:{self.address}")
+        self._catch_up_thread = spawn_thread(
+            self._catch_up_loop, daemon=True, start=False,
+            name=f"catch-up:{self.address}")
 
     def start(self, beacon_interval: float = 1.0,
               maintenance_interval: float = 60.0) -> "ReplicaStub":
@@ -291,6 +294,7 @@ class ReplicaStub:
         self.send_beacon()
         self._beacon_thread.start()
         self._maint_thread.start()
+        self._catch_up_thread.start()
         # every serving process samples its counter registry into the
         # history ring (a refcounted process-wide sampler)
         HISTORY.start()
@@ -402,6 +406,19 @@ class ReplicaStub:
             except Exception as e:  # a dead beacon thread gets this
                 # healthy node declared dead after the grace
                 print(f"[beacon] {self.address}: {e!r}", flush=True)
+
+    def _catch_up_loop(self):
+        """Each beacon interval, the primaries push the commit point to the
+        secondaries a prepare round missed (Replica.catch_up_lagging); a
+        thread of its own, so a slow peer never delays a beacon."""
+        while not self._stop.wait(self._beacon_interval):
+            with self._lock:
+                reps = list(self._replicas.values())
+            for rep in reps:
+                try:
+                    rep.catch_up_lagging()
+                except Exception as e:  # keep the loop alive
+                    print(f"[catch-up] {rep.name}: {e!r}", flush=True)
 
     def send_beacon(self):
         with self._lock:
@@ -1400,7 +1417,8 @@ class ReplicaStub:
             HISTORY.stop()
         self._stop.set()
         self.rpc.stop()
-        for t in (self._beacon_thread, self._maint_thread):
+        for t in (self._beacon_thread, self._maint_thread,
+                  self._catch_up_thread):
             if t.is_alive():
                 t.join(timeout=5.0)
         with self._lock:

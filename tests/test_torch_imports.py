@@ -1,7 +1,10 @@
 """The port's standing rules, checked on the source and on its entry points.
 
 - No module of pegasus_tpu_torch, and not chip_smoke.py, imports jax or
-  anything of pegasus_tpu (an AST walk over every import statement).
+  anything of pegasus_tpu (an AST walk over every import statement), nor
+  opens, loads or builds a file under pegasus_tpu/ (its native library
+  and sources included): the port's host library is built from its own
+  csrc/hostops.cpp.
 - An entry point with no device argument resolves to CUDA: on a machine
   without a card it raises instead of running on the CPU.
 """
@@ -85,8 +88,46 @@ def test_source_walk_covers_the_package():
                 "collector/reporter.py", "collector/auto_heal.py",
                 "collector/flight_recorder.py", "geo/__init__.py",
                 "geo/cells.py", "geo/geo_client.py", "geo/latlng_codec.py",
-                "redis_proxy/__init__.py", "redis_proxy/proxy.py"):
+                "redis_proxy/__init__.py", "redis_proxy/proxy.py",
+                "native/__init__.py"):
         assert os.path.join("pegasus_tpu_torch", mod) in paths
+
+
+def _names_reference_path(text: str) -> bool:
+    """A path string under the JAX package: 'pegasus_tpu' as a whole path
+    component (pegasus_tpu_torch is another name)."""
+    parts = text.replace("\\", "/").split("/")
+    return "pegasus_tpu" in parts and len(parts) > 1 or text == "pegasus_tpu"
+
+
+@pytest.mark.parametrize("path", _sources())
+def test_no_call_names_a_path_under_the_reference(path):
+    """No call takes a string that names a file or directory of
+    pegasus_tpu/ (open, ctypes.CDLL, os.path.join, subprocess, ...)."""
+    tree = ast.parse(open(os.path.join(ROOT, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            for arg in list(node.args) + [k.value for k in node.keywords]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value,
+                                                                str):
+                    assert not _names_reference_path(arg.value), \
+                        f"{path}:{node.lineno} passes {arg.value!r}"
+
+
+def test_the_host_library_builds_from_the_port_sources():
+    from pegasus_tpu_torch import native
+    from pegasus_tpu_torch.ops import _build
+
+    native.crc64_batch(np.zeros(1, np.uint8), [0], [1])
+    src = os.path.realpath(_build._source("hostops"))
+    assert src == os.path.join(os.path.realpath(PKG), "csrc", "hostops.cpp")
+    lib = os.path.realpath(native._LIB._name)
+    assert lib == os.path.realpath(_build._lib_path("hostops"))
+    assert not lib.startswith(os.path.join(os.path.realpath(ROOT),
+                                           "pegasus_tpu") + os.sep)
+    for name in os.listdir(os.path.join(PKG, "csrc")):
+        text = open(os.path.join(PKG, "csrc", name)).read()
+        assert "#include \"" not in text or "pegasus_tpu/" not in text
 
 
 def test_default_device_is_cuda():

@@ -344,6 +344,82 @@ def test_restart_rejoins_as_learner(group):
         assert group.read(K(i)).error == Status.OK
 
 
+def test_restart_catches_up_writes_committed_during_the_learn(
+        group, monkeypatch):
+    """Writes committed after the learn fetched its tail (the learner not
+    yet in the view) reach the learner when it joins, with no later
+    write to carry them."""
+    from pegasus_tpu_torch.replication.replica import Replica
+
+    for i in range(10):
+        group.write(RPC_PUT, put_req(i))
+    victim = [n for n in group.alive if n != group.primary][0]
+    group.kill(victim)
+    swap = Replica._swap_learned_state
+
+    def writes_then_swap(self, ckpt_dir, tail_state):
+        for i in range(10, 15):
+            group.write(RPC_PUT, put_req(i, gen=1))
+        return swap(self, ckpt_dir, tail_state)
+
+    monkeypatch.setattr(Replica, "_swap_learned_state", writes_then_swap)
+    rep = group.restart(victim)
+    prim = group.primary_replica()
+    assert rep.last_committed == prim.last_committed
+    for i in range(15):
+        assert _read(rep, K(i)) == (Status.OK,
+                                    b"val%d.%d" % (i, 1 if i >= 10 else 0))
+
+
+def test_primary_catches_up_a_secondary_that_rejected_while_learning(
+        group):
+    """A secondary that rejected prepares while it learned, with no write
+    after: the primary's catch_up_lagging (the stub calls it every
+    beacon) brings it to the commit point."""
+    for i in range(3):
+        group.write(RPC_PUT, put_req(i))
+    prim = group.primary_replica()
+    sec = next(r for n, r in group.alive.items() if n != group.primary)
+    with sec._lock:
+        sec._learning = True
+    for i in range(3, 6):
+        group.write(RPC_PUT, put_req(i, gen=1))
+    with sec._lock:
+        sec._learning = False
+    assert sec.last_prepared < prim.last_committed
+    assert prim.catch_up_lagging() == 1
+    assert sec.last_committed == prim.last_committed
+    assert prim.catch_up_lagging() == 0
+    for i in range(6):
+        assert _read(sec, K(i)) == (Status.OK,
+                                    b"val%d.%d" % (i, 1 if i >= 3 else 0))
+
+
+def test_primary_catches_up_a_secondary_new_to_its_view(group):
+    """A secondary added to the primary's view after the writes it missed
+    (the meta re-adds a learner once its learn ends) is pushed the commit
+    point by catch_up_lagging, with no write after."""
+    from pegasus_tpu_torch.replication.replica import GroupView
+
+    for i in range(3):
+        group.write(RPC_PUT, put_req(i))
+    prim = group.primary_replica()
+    sec_name = next(n for n in group.alive if n != group.primary)
+    others = [n for n in prim.view.secondaries if n != sec_name]
+    prim.assume_view(GroupView(prim.ballot, prim.name, others))
+    sec = group.alive[sec_name]
+    for i in range(3, 6):
+        group.write(RPC_PUT, put_req(i, gen=1))
+    assert prim.catch_up_lagging() == 0      # no member lags
+    prim.assume_view(GroupView(prim.ballot, prim.name, others + [sec_name]))
+    assert sec.last_prepared < prim.last_committed
+    assert prim.catch_up_lagging() == 1
+    assert sec.last_committed == prim.last_committed
+    for i in range(6):
+        assert _read(sec, K(i)) == (Status.OK,
+                                    b"val%d.%d" % (i, 1 if i >= 3 else 0))
+
+
 def _power_loss(g):
     """Whole-group power loss: no flush, no close."""
     for n in list(g.alive):
@@ -463,6 +539,26 @@ def test_window_gap_triggers_catch_up(group):
     group.write(RPC_PUT, put_req(6))
     assert sec.last_prepared == prim.last_prepared
     assert sec.last_committed >= 6
+
+
+def test_commit_point_broadcast_catches_up_a_lagging_secondary(group):
+    """A secondary that missed decrees and sees no later write (a learner
+    that joined after the last one) is caught up by the commit-point
+    broadcast, not left behind the commit point until the next write."""
+    for i in range(3):
+        group.write(RPC_PUT, put_req(i))
+    prim = group.primary_replica()
+    sec_name = next(n for n in group.alive if n != group.primary)
+    sec = group.alive.pop(sec_name)  # unreachable (not killed: no election)
+    for i in range(3, 6):
+        group.write(RPC_PUT, put_req(i, gen=1))
+    group.alive[sec_name] = sec      # back, with a decree gap, no write
+    assert sec.last_prepared < prim.last_committed
+    assert prim.broadcast_commit_point() == 2
+    assert sec.last_prepared == sec.last_committed == prim.last_committed
+    for i in range(6):
+        assert _read(sec, K(i)) == _read(prim, K(i)) \
+            == (Status.OK, b"val%d.%d" % (i, 1 if i >= 3 else 0))
 
 
 def _trace_keys(trace) -> set:

@@ -257,6 +257,25 @@ def test_device_stage_phase_keeps_each_merge_as_two_d_operands(monkeypatch):
     assert 0 < rep["survivors"] <= sum(r.n for r in runs)
 
 
+def test_host_phase_at_tiny_size(monkeypatch):
+    """The host phase on the fill's runs and the device stage's survivor
+    index (device="cpu"): every C loop byte-equal to its numpy twin, the
+    pack and CRC twins on their own rows."""
+    runs = chip_smoke.fill(8000)
+    monkeypatch.setattr(chip_smoke, "_time_merge", lambda a, b, nk: {})
+    stage = chip_smoke.profile_device_stage(runs, "cpu")
+    rep = chip_smoke.run_host(runs, stage["survivor_index"], twin_rows=500)
+    assert set(rep) == {"pack_prefixes", "crc64_batch", "crc64_update",
+                        "gather_block_uniform", "gather_keys_uniform",
+                        "gather_arena", "merge_counts", "seconds"}
+    for name in ("pack_prefixes", "crc64_batch", "crc64_update"):
+        assert rep[name]["rows"] == sum(r.n for r in runs)
+        assert rep[name]["twin_rows"] == 500
+    assert rep["gather_arena"]["rows"] == stage["survivors"]
+    assert all(rec["byte_equal"] for k, rec in rep.items()
+               if k != "seconds")
+
+
 def test_offload_phase_at_tiny_size(tmp_path):
     """The service from its ini on device="cpu": the first job (one
     partition of the 16-way split) digest-equal to the cpu backend, the
@@ -574,6 +593,14 @@ def test_cluster_lifecycle_at_tiny_size(tmp_path):
     assert (auto["incident"]["first_cause"], auto["incident"]["point"],
             auto["incident"]["node"]) == ("failpoint.arm", "audit.digest",
                                           auto["victim"])
+    # every node process ran the host loops (scraped before it stopped)
+    for per_process in (rep["host_calls_per_process"],
+                        dup["host_calls_per_process"]):
+        assert len(per_process) == 3
+        for calls in per_process.values():
+            assert calls["host.crc64_batch.calls"] > 0
+            assert calls["host.crc64_update.calls"] > 0
+            assert calls["host.pack_prefixes.calls"] > 0
 
 
 def test_geo_phase_at_tiny_size(tmp_path):

@@ -210,6 +210,8 @@ def test_meta_folds_the_beacon_fragments(cluster):
     # every replica of a write charges it: 3 replicas x 30 acknowledged
     assert folded["gold"]["write_qps"] >= 30
     assert folded["gold"]["read_qps"] >= 10
+    # tin's charges may ride a later beacon than gold's
+    _wait_folded(c, "tin", 5)
     # the process-wide ledgers may hold other tests' tables too: rank
     # this cluster's two against each other
     view = c.meta.table_stats(k=100)
